@@ -1,0 +1,16 @@
+"""critic_vae_tpu_torch — the PyTorch/CUDA port of critic_vae_tpu for an
+NVIDIA H100 (Hopper, sm_90a).
+
+The JAX package ``critic_vae_tpu`` stays the reference: every module here
+keeps its counterpart's name, and public functions keep its layouts (frames
+(B, H, W, 3), grey maps (B, H, W), CRF inputs (C, N, 3) uint8), so the two
+can be held against each other on the same inputs. Inside, models run NCHW
+as ``nn.Module``s and every function takes an explicit ``device``.
+
+The two TPU kernels on the mask-video path are hand-written CUDA C++ under
+``csrc/`` (built by ``kernels/build.py`` at first use); each wrapper takes
+its plain PyTorch version only for CPU tensors. This package imports torch
+and numpy, never jax.
+"""
+
+__version__ = "0.1.0"

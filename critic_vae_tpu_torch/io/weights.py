@@ -1,0 +1,201 @@
+"""Weight bridge: the JAX package's parameter pytrees (as numpy arrays) to
+and from the port's modules, with numpy alone.
+
+JAX layouts: convs HWIO, linears (in, out), BatchNorm as ``scale``/``bias``
+params plus ``mean``/``var`` running stats in a separate state tree
+(critic_vae_tpu/models/critic.py, models/vae.py). The port's modules hold
+torch layouts: convs OIHW, linears (out, in).
+
+Files:
+
+* a critic ``.npz`` is the JAX package's flat format (``conv0_w`` ...,
+  ``saved-networks/critic-synthetic.npz``);
+* a VAE ``.npz`` holds ``params/<encoder|decoder>/<layer>/<leaf>`` and
+  ``bn_state/bn<i>/<mean|var>`` — the '/'-joined key scheme of the JAX
+  package's ``io/checkpoint.save_pytree`` applied to
+  ``{"params": params, "bn_state": state}``.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import numpy as np
+import torch
+
+from critic_vae_tpu_torch.models.critic import Critic
+from critic_vae_tpu_torch.models.vae import BOTTLENECK, ENCODER_DIMS, LATENT_DIM, VAE
+
+Params = Dict[str, object]
+
+
+def _hwio_to_oihw(w) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(np.transpose(np.asarray(w, np.float32), (3, 2, 0, 1))))
+
+
+def _oihw_to_hwio(w: torch.Tensor) -> np.ndarray:
+    return np.ascontiguousarray(np.transpose(w.detach().cpu().numpy(), (2, 3, 1, 0)))
+
+
+def _t(a) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, np.float32))
+
+
+def _n(t: torch.Tensor) -> np.ndarray:
+    return t.detach().cpu().numpy().copy()
+
+
+def _set_conv(layer, p_w, p_b) -> None:
+    layer.weight.data.copy_(_hwio_to_oihw(p_w))
+    layer.bias.data.copy_(_t(p_b))
+
+
+def _set_linear(layer, p_w, p_b) -> None:
+    layer.weight.data.copy_(_t(np.asarray(p_w).T))
+    layer.bias.data.copy_(_t(p_b))
+
+
+# --------------------------------------------------------------------- critic
+
+
+def load_critic_npz(path: str) -> Dict[str, np.ndarray]:
+    """The JAX package's flat critic ``.npz`` as a dict of numpy arrays."""
+    with np.load(path) as data:
+        return {k: np.asarray(v) for k, v in data.items()}
+
+
+def critic_from_params(params: Dict[str, np.ndarray]) -> Critic:
+    dims = tuple(int(np.shape(params[f"conv{i}_w"])[-1]) for i in range(4))
+    critic = Critic(dims, bottleneck=int(np.shape(params["conv4_w"])[-1]),
+                    channels=int(np.shape(params["conv0_w"])[2]))
+    for i, layer in enumerate(critic.convs):
+        _set_conv(layer, params[f"conv{i}_w"], params[f"conv{i}_b"])
+    _set_conv(critic.conv4, params["conv4_w"], params["conv4_b"])
+    _set_linear(critic.fc0, params["fc0_w"], params["fc0_b"])
+    _set_linear(critic.fc1, params["fc1_w"], params["fc1_b"])
+    return critic.eval().requires_grad_(False)
+
+
+def critic_to_params(critic: Critic) -> Dict[str, np.ndarray]:
+    out: Dict[str, np.ndarray] = {}
+    for i, layer in enumerate(critic.convs):
+        out[f"conv{i}_w"], out[f"conv{i}_b"] = _oihw_to_hwio(layer.weight), _n(layer.bias)
+    out["conv4_w"], out["conv4_b"] = _oihw_to_hwio(critic.conv4.weight), _n(critic.conv4.bias)
+    for name in ("fc0", "fc1"):
+        layer = getattr(critic, name)
+        out[f"{name}_w"] = np.ascontiguousarray(_n(layer.weight).T)
+        out[f"{name}_b"] = _n(layer.bias)
+    return out
+
+
+# ------------------------------------------------------------------------ VAE
+
+
+def numpy_vae_params(
+    seed: int, dims: Tuple[int, ...] = ENCODER_DIMS, channels: int = 3,
+    latent_dim: int = LATENT_DIM, bottleneck: int = BOTTLENECK,
+) -> Tuple[Params, Params]:
+    """A JAX-layout VAE ``(params, bn_state)`` made with numpy from ``seed``.
+
+    Same structure, shapes, dtypes and torch-default uniform bounds
+    (1/sqrt(fan_in)) as ``critic_vae_tpu.models.vae.init_vae_params``, but
+    drawn from ``np.random.default_rng(seed)``: the repo holds no trained
+    VAE, and a machine without jax can still build these weights, so tests
+    and the card feed the same numpy tree to both packages."""
+    rng = np.random.default_rng(seed)
+
+    def uniform(shape, fan_in):
+        bound = 1.0 / np.sqrt(fan_in)
+        return rng.uniform(-bound, bound, shape).astype(np.float32)
+
+    def conv(cin, cout):
+        return {"w": uniform((5, 5, cin, cout), cin * 25),
+                "b": uniform((cout,), cin * 25)}
+
+    def lin(cin, cout):
+        return {"w": uniform((cin, cout), cin), "b": uniform((cout,), cin)}
+
+    enc: Params = {}
+    cin = channels
+    for i, cout in enumerate(dims):
+        enc[f"conv{i}"] = conv(cin, cout)
+        enc[f"bn{i}"] = {"scale": np.ones((cout,), np.float32),
+                         "bias": np.zeros((cout,), np.float32)}
+        cin = cout
+    enc["fc_mu"] = lin(bottleneck, latent_dim)
+    enc["fc_var"] = lin(bottleneck, latent_dim)
+    dec: Params = {"input": lin(latent_dim + 1, bottleneck)}
+    pairs = [(dims[3], dims[2]), (dims[2], dims[1]), (dims[1], dims[0]),
+             (dims[0], dims[0]), (dims[0], channels)]
+    for i, (ci, co) in enumerate(pairs):
+        dec[f"conv{i}"] = conv(ci, co)
+    state = {f"bn{i}": {"mean": np.zeros((c,), np.float32),
+                        "var": np.ones((c,), np.float32)}
+             for i, c in enumerate(dims)}
+    return {"encoder": enc, "decoder": dec}, state
+
+
+def vae_from_params(params: Params, state: Params) -> VAE:
+    enc, dec = params["encoder"], params["decoder"]
+    dims = tuple(int(np.shape(enc[f"conv{i}"]["w"])[-1]) for i in range(4))
+    latent_dim, bottleneck = (int(s) for s in np.shape(enc["fc_mu"]["w"])[::-1])
+    vae = VAE(dims, channels=int(np.shape(enc["conv0"]["w"])[2]),
+              latent_dim=latent_dim, bottleneck=bottleneck)
+    for i, (layer, bn) in enumerate(zip(vae.encoder.convs, vae.encoder.bns)):
+        _set_conv(layer, enc[f"conv{i}"]["w"], enc[f"conv{i}"]["b"])
+        bn.weight.data.copy_(_t(enc[f"bn{i}"]["scale"]))
+        bn.bias.data.copy_(_t(enc[f"bn{i}"]["bias"]))
+        bn.running_mean.copy_(_t(state[f"bn{i}"]["mean"]))
+        bn.running_var.copy_(_t(state[f"bn{i}"]["var"]))
+    _set_linear(vae.encoder.fc_mu, enc["fc_mu"]["w"], enc["fc_mu"]["b"])
+    _set_linear(vae.encoder.fc_var, enc["fc_var"]["w"], enc["fc_var"]["b"])
+    _set_linear(vae.decoder.input, dec["input"]["w"], dec["input"]["b"])
+    for i, layer in enumerate(vae.decoder.convs):
+        _set_conv(layer, dec[f"conv{i}"]["w"], dec[f"conv{i}"]["b"])
+    return vae.eval().requires_grad_(False)
+
+
+def vae_to_params(vae: VAE) -> Tuple[Params, Params]:
+    enc: Params = {}
+    state: Params = {}
+    for i, (layer, bn) in enumerate(zip(vae.encoder.convs, vae.encoder.bns)):
+        enc[f"conv{i}"] = {"w": _oihw_to_hwio(layer.weight), "b": _n(layer.bias)}
+        enc[f"bn{i}"] = {"scale": _n(bn.weight), "bias": _n(bn.bias)}
+        state[f"bn{i}"] = {"mean": _n(bn.running_mean), "var": _n(bn.running_var)}
+    for name in ("fc_mu", "fc_var"):
+        layer = getattr(vae.encoder, name)
+        enc[name] = {"w": np.ascontiguousarray(_n(layer.weight).T), "b": _n(layer.bias)}
+    dec: Params = {"input": {"w": np.ascontiguousarray(_n(vae.decoder.input.weight).T),
+                             "b": _n(vae.decoder.input.bias)}}
+    for i, layer in enumerate(vae.decoder.convs):
+        dec[f"conv{i}"] = {"w": _oihw_to_hwio(layer.weight), "b": _n(layer.bias)}
+    return {"encoder": enc, "decoder": dec}, state
+
+
+def _flatten(tree, prefix: str, out: Dict[str, np.ndarray]) -> None:
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            _flatten(v, f"{prefix}{k}/", out)
+        else:
+            out[f"{prefix}{k}"] = np.asarray(v)
+
+
+def save_vae_npz(path: str, params: Params, state: Params) -> None:
+    flat: Dict[str, np.ndarray] = {}
+    _flatten({"params": params, "bn_state": state}, "", flat)
+    np.savez(path, **flat)
+
+
+def load_vae_npz(path: str) -> Tuple[Params, Params]:
+    """``(params, bn_state)`` numpy trees from a VAE ``.npz`` (see module doc)."""
+    tree: Params = {}
+    with np.load(path) as data:
+        for key in data.files:
+            node = tree
+            *parents, leaf = key.split("/")
+            for p in parents:
+                node = node.setdefault(p, {})
+            node[leaf] = np.asarray(data[key])
+    if set(tree) != {"params", "bn_state"}:
+        raise ValueError(f"{path}: expected top-level params/ and bn_state/ keys, got {sorted(tree)}")
+    return tree["params"], tree["bn_state"]

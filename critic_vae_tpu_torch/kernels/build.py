@@ -1,0 +1,120 @@
+"""Build and load the port's CUDA kernels.
+
+Every ``csrc/*.cu`` file is compiled by ``nvcc`` for Hopper (``sm_90a``)
+into one shared library with a plain C interface, which is loaded with
+``ctypes``. The build happens at the first kernel launch of the process, so
+the first run on a fresh checkout pays a few seconds of ``nvcc``; the
+library is named by a hash of its sources and flags, so an edit rebuilds it
+and a stale library is never loaded.
+
+Fast math is deliberately off: ``--use_fast_math`` swaps in the approximate
+``__expf``/``tanhf`` and flushes denormals to zero, which changes the
+bilateral row sums of isolated pixels (their off-diagonal terms underflow
+towards the 1e-20 floor) and the diff maps' tanh — both are parity surfaces
+against the JAX package.
+
+Each kernel wrapper counts its launches in :data:`LAUNCHES`, so a run can
+show that its main path went through the kernels.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = CSRC / "_build"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
+)
+
+# launches per kernel since the last reset_launches(); each wrapper adds one
+# where it launches its kernel and nowhere else
+LAUNCHES = {"diff_mask": 0, "bilateral_build": 0}
+
+_LOCK = threading.Lock()
+_LIB: ctypes.CDLL | None = None
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def nvcc_path() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    return str(Path(cuda_home) / "bin" / "nvcc")
+
+
+def nvcc_command(output: Path, srcs: list[Path] | None = None) -> list[str]:
+    srcs = sources() if srcs is None else srcs
+    return [nvcc_path(), *NVCC_FLAGS, "-o", str(output), *map(str, srcs)]
+
+
+def library_path() -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"libcvt_kernels-{h.hexdigest()[:16]}.so"
+
+
+def build() -> Path:
+    """Compile the kernels unless the library for these sources exists."""
+    lib = library_path()
+    if lib.exists():
+        return lib
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    try:
+        proc = subprocess.run(
+            nvcc_command(Path(tmp)), capture_output=True, text=True
+        )
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}"
+            )
+        os.replace(tmp, lib)  # atomic: a concurrent loader sees all or nothing
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+    return lib
+
+
+def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.cvt_diff_mask.argtypes = [p, p, i, i, i, p, p, p]
+    lib.cvt_diff_mask.restype = i
+    lib.cvt_bilateral_build.argtypes = [p, i, i, i, f, f, f, p, p, i, p]
+    lib.cvt_bilateral_build.restype = i
+    return lib
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built on first use."""
+    global _LIB
+    with _LOCK:
+        if _LIB is None:
+            _LIB = _declare(ctypes.CDLL(str(build())))
+        return _LIB
+
+
+def check(status: int, name: str) -> None:
+    """Raise on a non-zero ``cudaGetLastError()`` returned by a C entry."""
+    if status != 0:
+        raise RuntimeError(f"{name}: CUDA error {status} at launch")
