@@ -7,32 +7,57 @@ Phases, each on its own lines, in order; any failure raises and the script
 exits non-zero:
 
 1. card identity (nvidia-smi name and power limit, torch's device name);
-2. kernel build: nvcc compiles critic_vae_tpu_torch/csrc/*.cu for sm_90a;
+2. kernel build: one nvcc per critic_vae_tpu_torch/csrc/*.cu for sm_90a,
+   all started together, linked into one library;
 3. kernel B1 (diff_mask) against its plain version at (512, 3, 64, 64),
    f32 and bf16 — bar: max abs error <= 1e-6 on grey maps and maxima;
 4. kernel B2 (bilateral_build) against its plain version at C=4, N=4096
    (f32: <= 1e-5 relative on entries > 1e-3; bf16: within 1 bf16 ulp; the
    diagonal exactly 0), then timed at the main path's C=64 in bf16;
-5. golden: the port in float32 with TF32 off on the 16-frame episode of
+5. kernel B3 (kernel_i8_build) against its plain version at C=4, N=4096:
+   int8 identical on >= 99.99% of entries and never more than 1 level
+   apart, row sums equal to the kernel's own int8 row sums, diagonal 0;
+   timed at C=64;
+6. kernel B4 (matvec_i8) against its plain version at C=4 and C=64, L=2,
+   on B3's K — bar: relative error <= 1e-5 (f32 summation order); timed;
+7. kernel B5 (mean_field_resident) against its plain version at C=2,
+   N=4096, T=1 and T=13 (the sweep), 10 iterations, on mask-derived
+   probabilities — bars: marginals max abs error <= 1e-2, labels >= 99.99%
+   identical; timed at C=64 for T=1 and T=13;
+8. golden: the port in float32 with TF32 off on the 16-frame episode of
    tests/golden/torch_slice_golden.npz, which the JAX package computed on
    the CPU — preds <= 1e-4 abs, uint8 diff maps >= 99.9% within one level,
    threshold masks >= 99.8% identical, thr_iou equal, crf_iou within 0.001;
-   and the bf16 CRF >= 99.9% in agreement with the float32 CRF;
-6. main path: ``eval_episode`` as ``python -m critic_vae_tpu_torch video``
-   runs it, on 2048 synthetic 64x64 frames at full width (critic
-   saved-networks/critic-synthetic.npz, VAE numpy_vae_params(0)), bf16,
-   chunks of 512, threshold 50, device CRF with B2 in bf16; both kernels'
-   launch counts over that run must be > 0.
+   the bf16 CRF >= 99.9% in agreement with the float32 CRF; the 13-threshold
+   sweep against tests/golden/torch_sweep_golden.npz (thr_iou equal, crf_iou
+   within 0.001); and the int8 and vmem builds' masks of its first 4 frames
+   >= 99.9% identical to the JAX package's;
+9. main paths at full width (critic saved-networks/critic-synthetic.npz,
+   VAE numpy_vae_params(0), 64x64, bf16, chunks of 512), each with the
+   launch counts set to 0 just before it and read just after, each of its
+   kernels launched at least once, and its frames/s printed:
+   a. ``eval_episode`` (as ``python -m critic_vae_tpu_torch video`` runs
+      it) on 2048 frames, threshold 50, default build: B1, B2;
+   b. ``threshold_sweep`` (``video --sweep``) on 2048 frames, 13
+      thresholds, default build: B1, B2;
+   c. ``eval_episode`` with build int8: B1, B3, B4; masks >= 99.9% as a;
+   d. ``eval_episode`` with build vmem: B1, B5 at T=1; masks >= 99.9% as a;
+   e. ``threshold_sweep`` with build vmem on the first 512 frames: B1, B5
+      at T=13; its refined mask sets >= 99.9% as the default build's.
+   The builds of c-e are selected as a user selects them, through
+   CRITIC_VAE_TPU_CRF_BUILD.
 
 The second-to-last line is a JSON object with each kernel's launches on the
-main path, error against its plain version and times; the last line is
+main paths, error against its plain version and times; the last line is
 {"ok": true, "device": {...}}. Without CUDA the script fails and prints no
-result.
+result. About one minute on an H100, the build (~20 s) included.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
+import os
 import subprocess
 import sys
 import time
@@ -42,6 +67,10 @@ ROOT = Path(__file__).resolve().parent
 MAIN_FRAMES = 2048
 MAIN_BATCH = 512
 CRF_CHUNK = 64  # refine_masks_device's default frame_chunk
+H = W = 64
+NPIX = H * W
+SWEEP_T = 13               # the reference's -thresh sweep, 0..120 step 10
+SWEEP_VMEM_FRAMES = 512    # frames of the vmem sweep path (9e)
 
 
 def log(msg: str) -> None:
@@ -176,6 +205,138 @@ def phase_b2(dev):
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
 
 
+def _crf_imgs(c, seed, dev):
+    """(c, N, 3) uint8 synthetic 64x64 frames on the card."""
+    import torch
+
+    from critic_vae_tpu_torch.data.synthetic import generate_frames
+
+    frames, _ = generate_frames(c, seed=seed)
+    return torch.from_numpy(frames.reshape(c, NPIX, 3)).to(dev)
+
+
+def phase_b3(dev):
+    import torch
+
+    from critic_vae_tpu_torch.crf import REFERENCE_CRF_PARAMS
+    from critic_vae_tpu_torch.crf.fused_build import build_kernel_i8, build_kernel_i8_reference
+
+    alpha, beta = REFERENCE_CRF_PARAMS[1:3]
+    small = _crf_imgs(4, 1, dev)
+    k8, rowsum = build_kernel_i8(small, alpha, beta, h=H, w=W)
+    k8r, _ = build_kernel_i8_reference(small, alpha, beta, h=H, w=W)
+    torch.cuda.synchronize()
+    lvl = (k8.int() - k8r.int()).abs()
+    err = lvl.max().item()
+    same = (lvl == 0).double().mean().item()
+    own = k8.sum(dim=1, keepdim=True, dtype=torch.int32).float()
+    rows_ok = torch.equal(rowsum, own)
+    diag = torch.diagonal(k8.view(4, NPIX, NPIX), dim1=1, dim2=2).abs().max().item()
+    log(f"[5 B3 kernel_i8_build] C=4 N={NPIX}: int8 identical {same:.8f} (bar 0.9999), max "
+        f"{err} level (bar 1); row sums equal to its own int8 row sums: {rows_ok}; "
+        f"diagonal max {diag}")
+    require(same >= 0.9999 and err <= 1, f"B3: identical {same}, max {err} levels")
+    require(rows_ok, "B3: row sums differ from the sums of the stored int8 rows")
+    require(diag == 0, f"B3: diagonal not 0 ({diag})")
+    del k8, k8r, lvl
+    chunk = _crf_imgs(CRF_CHUNK, 2, dev)
+    ms = cuda_ms(lambda: build_kernel_i8(chunk, alpha, beta, h=H, w=W), iters=10)
+    plain_ms = cuda_ms(lambda: build_kernel_i8_reference(chunk, alpha, beta, h=H, w=W),
+                       iters=2, warmup=1)
+    log(f"[5 B3 kernel_i8_build] C={CRF_CHUNK} N={NPIX}: kernel {ms:.3f} ms, plain "
+        f"{plain_ms:.3f} ms")
+    return {"max_abs_err": float(err), "ms": ms, "plain_ms": plain_ms}
+
+
+def phase_b4(dev):
+    import torch
+
+    from critic_vae_tpu_torch.crf import REFERENCE_CRF_PARAMS
+    from critic_vae_tpu_torch.crf.fused_build import (
+        build_kernel_i8,
+        matvec_i8,
+        matvec_i8_reference,
+    )
+
+    alpha, beta = REFERENCE_CRF_PARAMS[1:3]
+    g = torch.Generator(device=dev).manual_seed(4)
+    row = None
+    for c in (4, CRF_CHUNK):
+        k8, _ = build_kernel_i8(_crf_imgs(c, 3, dev), alpha, beta, h=H, w=W)
+        y = torch.rand((c * NPIX, 2), generator=g, device=dev)
+        out = matvec_i8(k8, y, n=NPIX)
+        ref = matvec_i8_reference(k8, y.to(torch.bfloat16), n=NPIX)
+        torch.cuda.synchronize()
+        err = (out - ref).abs().max().item()
+        rel = err / ref.abs().max().item()
+        ms = cuda_ms(lambda: matvec_i8(k8, y, n=NPIX), iters=20)
+        plain_ms = cuda_ms(lambda: matvec_i8_reference(k8, y.to(torch.bfloat16), n=NPIX),
+                           iters=5)
+        log(f"[6 B4 matvec_i8] C={c} N={NPIX} L=2: relative error {rel:.3e} (bar 1e-5), "
+            f"max_abs_err {err:.3e}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+        require(rel <= 1e-5, f"B4 C={c}: relative error {rel} > 1e-5")
+        row = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+        del k8, y, out, ref
+    return row
+
+
+def _sweep_probs(c, t, seed, dev):
+    """(c, N, 2t) (neg, pos) probabilities of t noisy 0/1 masks per frame,
+    as the main path builds them from threshold masks."""
+    import numpy as np
+    import torch
+
+    from critic_vae_tpu_torch.data.synthetic import generate_frames
+
+    _, gt = generate_frames(c, seed=seed)
+    rng = np.random.default_rng(seed)
+    rates = np.linspace(0.02, 0.3, t)
+    m = np.stack([gt ^ (rng.random(gt.shape) < r) for r in rates], axis=-1)
+    m = torch.from_numpy(m.reshape(c, NPIX, t).astype(np.float32)).to(dev)
+    return torch.stack([1.0 - m, m], dim=-1).reshape(c, NPIX, 2 * t)
+
+
+def phase_b5(dev):
+    import torch
+
+    from critic_vae_tpu_torch.crf import REFERENCE_CRF_PARAMS
+    from critic_vae_tpu_torch.crf.device import _spatial_taps
+    from critic_vae_tpu_torch.crf.fused_resident import (
+        mean_field_resident,
+        mean_field_resident_reference,
+    )
+
+    w1, alpha, beta, w2, gamma, iters = REFERENCE_CRF_PARAMS
+    taps = torch.from_numpy(_spatial_taps(gamma, H, W)).to(dev)
+    args = (w1, w2, alpha, beta, gamma)
+    rows = {}
+    for t in (1, SWEEP_T):
+        imgs, probs = _crf_imgs(2, 5, dev), _sweep_probs(2, t, 5, dev)
+        q = mean_field_resident(imgs, probs, taps, *args, h=H, w=W, iters=iters)
+        qr = mean_field_resident_reference(imgs, probs, taps, *args, h=H, w=W, iters=iters)
+        torch.cuda.synchronize()
+        err = (q - qr).abs().max().item()
+        labels = ((q[..., 1::2] > q[..., 0::2]) == (qr[..., 1::2] > qr[..., 0::2]))
+        agree = labels.double().mean().item()
+        log(f"[7 B5 mean_field_resident] C=2 N={NPIX} T={t} iters={iters}: marginals "
+            f"max_abs_err {err:.3e} (bar 1e-2); labels identical {agree:.6f} (bar 0.9999)")
+        require(err <= 1e-2, f"B5 T={t}: marginals max abs error {err}")
+        require(agree >= 0.9999, f"B5 T={t}: label agreement {agree}")
+        imgs, probs = _crf_imgs(CRF_CHUNK, 6, dev), _sweep_probs(CRF_CHUNK, t, 6, dev)
+        ms = cuda_ms(lambda: mean_field_resident(imgs, probs, taps, *args, h=H, w=W,
+                                                 iters=iters), iters=3, warmup=1)
+        plain_ms = cuda_ms(lambda: mean_field_resident_reference(imgs, probs, taps, *args, h=H,
+                                                                 w=W, iters=iters),
+                           iters=1, warmup=1)
+        log(f"[7 B5 mean_field_resident] C={CRF_CHUNK} N={NPIX} T={t} iters={iters}: kernel "
+            f"{ms:.3f} ms, plain {plain_ms:.3f} ms")
+        rows[t] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+        del imgs, probs
+    # T=1 (one mask) as the row's times; the sweep's T=13 beside them
+    return {"max_abs_err": max(r["max_abs_err"] for r in rows.values()), **rows[1],
+            "ms_t13": rows[SWEEP_T]["ms"], "plain_ms_t13": rows[SWEEP_T]["plain_ms"]}
+
+
 def _models(dev):
     from critic_vae_tpu_torch.io import weights
 
@@ -223,11 +384,11 @@ def phase_golden(dev, critic, vae):
     crf_agree = float(np.mean(crf32 == crf_gold))
     bf16_agree = float(np.mean(crf16 == crf32))
     crf_iou = iou(gt, crf32)
-    log(f"[5 golden] {len(frames)} frames f32, TF32 off: preds max_abs_err {pred_err:.3e} "
+    log(f"[8 golden] {len(frames)} frames f32, TF32 off: preds max_abs_err {pred_err:.3e} "
         f"(bar 1e-4); diff_u8 within 1 level {diff_ok:.6f} (bar 0.999); thr masks "
         f"identical {thr_agree:.6f} (bar 0.998); crf masks identical {crf_agree:.6f} "
         f"(bar 0.999)")
-    log(f"[5 golden] thr_iou {res.thr_iou} vs {float(gold['thr_iou'])}; crf_iou {crf_iou} "
+    log(f"[8 golden] thr_iou {res.thr_iou} vs {float(gold['thr_iou'])}; crf_iou {crf_iou} "
         f"vs {float(gold['crf_iou'])} (bar 0.001); bf16 CRF vs f32 CRF agreement "
         f"{bf16_agree:.6f} (bar 0.999)")
     require(pred_err <= 1e-4, f"golden preds error {pred_err}")
@@ -237,20 +398,101 @@ def phase_golden(dev, critic, vae):
     require(res.thr_iou == float(gold["thr_iou"]), "golden thr_iou differs")
     require(abs(crf_iou - float(gold["crf_iou"])) <= 1e-3, "golden crf_iou differs")
     require(bf16_agree >= 0.999, f"bf16 CRF agreement with f32 {bf16_agree}")
+    phase_golden_sweep(dev, critic, vae, frames, gt, thr_gold)
+
+
+def phase_golden_sweep(dev, critic, vae, frames, gt, thr_gold):
+    import numpy as np
+    import torch
+
+    from critic_vae_tpu_torch.crf import REFERENCE_CRF_PARAMS
+    from critic_vae_tpu_torch.crf.device import refine_masks_device
+    from critic_vae_tpu_torch.pipelines.video import threshold_sweep
+
+    gold = np.load(ROOT / "tests" / "golden" / "torch_sweep_golden.npz")
+    flags = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        res = threshold_sweep(vae, critic, frames, gt, tuple(gold["thresholds"].tolist()),
+                              device=dev, compute_dtype="float32", crf_backend="device")
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = flags
+    thr_iou = [r["thr_iou"] for r in res]
+    crf_iou = [r["crf_iou"] for r in res]
+    crf_gap = float(np.abs(np.asarray(crf_iou) - gold["crf_iou"]).max())
+    log(f"[8 golden] sweep of {len(res)} thresholds (nets f32, CRF M bf16): thr_iou "
+        f"{thr_iou} equal to the JAX f32 sweep's: {thr_iou == gold['thr_iou'].tolist()}; "
+        f"crf_iou {crf_iou}, max gap {crf_gap:.4f} (bar 0.001)")
+    require(thr_iou == gold["thr_iou"].tolist(), "golden sweep thr_iou differs")
+    require(crf_gap <= 1e-3, f"golden sweep crf_iou gap {crf_gap}")
+    nb = int(gold["build_frames"])
+    for build in ("int8", "vmem"):
+        got = refine_masks_device(frames[:nb], thr_gold[:nb], REFERENCE_CRF_PARAMS,
+                                  build=build, device=dev)
+        want = np.unpackbits(gold[f"{build}_bits"], axis=-1).astype(bool)
+        agree = float(np.mean(got == want))
+        log(f"[8 golden] build {build}, first {nb} frames: masks identical to the JAX "
+            f"package's {agree:.6f} (bar 0.999)")
+        require(agree >= 0.999, f"golden {build} mask agreement {agree}")
+
+
+@contextlib.contextmanager
+def crf_build(build):
+    """Select the device CRF's build as a user does, through
+    CRITIC_VAE_TPU_CRF_BUILD (crf/device.py::_resolve_build)."""
+    from critic_vae_tpu_torch.crf.device import BUILD_ENV
+
+    old = os.environ.get(BUILD_ENV)
+    os.environ[BUILD_ENV] = build
+    try:
+        yield
+    finally:
+        if old is None:
+            del os.environ[BUILD_ENV]
+        else:
+            os.environ[BUILD_ENV] = old
+
+
+def _drive(name, fn, kernels, frames):
+    """Run one main path with the launch counts set to 0 just before it and
+    read just after; each of ``kernels`` must have launched."""
+    import torch
+
+    from critic_vae_tpu_torch.kernels import build as kb
+
+    torch.cuda.synchronize()
+    kb.reset_launches()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = dict(kb.LAUNCHES)
+    log(f"[9 main {name}] {frames} frames: {frames / secs:.1f} frames/s ({secs:.3f} s); "
+        f"launches {launches}")
+    require(all(launches[k] > 0 for k in kernels),
+            f"{name}: a kernel of the path was not launched: {launches}")
+    return out, launches
 
 
 def phase_main(dev, critic, vae):
     import numpy as np
     import torch
 
+    from critic_vae_tpu_torch.crf.device import refine_masks_multi_device
     from critic_vae_tpu_torch.data.synthetic import generate_frames
-    from critic_vae_tpu_torch.kernels import build as kb
-    from critic_vae_tpu_torch.pipelines.video import episode_device_stage, eval_episode
+    from critic_vae_tpu_torch.ops.mask import threshold_masks
+    from critic_vae_tpu_torch.pipelines.video import (
+        DEFAULT_SWEEP,
+        episode_device_stage,
+        eval_episode,
+        threshold_sweep,
+    )
 
     frames, gt = generate_frames(MAIN_FRAMES, seed=0)
-    kw = dict(device=dev, threshold=50, batch_size=MAIN_BATCH,
-              compute_dtype="bfloat16", crf_backend="auto")
-    eval_episode(vae, critic, frames[:MAIN_BATCH], gt[:MAIN_BATCH], **kw)  # warm-up
+    kw = dict(device=dev, batch_size=MAIN_BATCH, compute_dtype="bfloat16", crf_backend="auto")
+    warm = (frames[:MAIN_BATCH], gt[:MAIN_BATCH])
+    eval_episode(vae, critic, *warm, threshold=50, **kw)  # warm-up
     frames_dev = torch.from_numpy(frames).to(dev)
     episode_device_stage(vae, critic, frames_dev, MAIN_BATCH, compute_dtype="bfloat16")
     torch.cuda.synchronize()
@@ -259,27 +501,64 @@ def phase_main(dev, critic, vae):
                                           compute_dtype="bfloat16")
     torch.cuda.synchronize()
     stage_fps = MAIN_FRAMES / (time.perf_counter() - t0)
+    log(f"[9 main] device stage {stage_fps:.1f} frames/s over {MAIN_FRAMES} frames")
 
     torch.cuda.reset_peak_memory_stats(dev)
-    kb.reset_launches()
-    t0 = time.perf_counter()
-    res = eval_episode(vae, critic, frames, gt, **kw)
-    torch.cuda.synchronize()
-    e2e_s = time.perf_counter() - t0
-    launches = dict(kb.LAUNCHES)
+    res, la = _drive("a eval_episode auto",
+                     lambda: eval_episode(vae, critic, frames, gt, threshold=50, **kw),
+                     ("diff_mask", "bilateral_build"), MAIN_FRAMES)
     peak = torch.cuda.max_memory_allocated(dev)
-    log(f"[6 main] {MAIN_FRAMES} frames bf16, chunk {MAIN_BATCH}, threshold 50, device CRF "
-        f"(B2 bf16): thr_iou {res.thr_iou}, crf_iou {res.crf_iou}")
-    log(f"[6 main] device stage {stage_fps:.1f} frames/s; eval_episode end to end "
-        f"{MAIN_FRAMES / e2e_s:.1f} frames/s ({e2e_s:.3f} s); peak memory "
-        f"{peak / 2**30:.3f} GiB; launches {launches}")
-    require(all(v > 0 for v in launches.values()), f"a kernel was not launched: {launches}")
+    log(f"[9 main a] bf16, chunk {MAIN_BATCH}, threshold 50, device CRF (B2 bf16): thr_iou "
+        f"{res.thr_iou}, crf_iou {res.crf_iou}; peak memory {peak / 2**30:.3f} GiB")
     require(res.preds.shape == (MAIN_FRAMES,) and np.isfinite(res.preds).all(), "bad preds")
     require(np.isfinite(preds.cpu().numpy()).all(), "non-finite device-stage preds")
     require(res.diff_u8.shape == (MAIN_FRAMES, 64, 64), "bad diff_u8 shape")
     require(res.thr_masks.shape == res.crf_masks.shape == (MAIN_FRAMES, 64, 64), "bad masks")
     require(0.0 <= res.thr_iou <= 1.0 and 0.0 <= res.crf_iou <= 1.0, "IoU out of range")
-    return launches
+    paths = {"a": la}
+
+    threshold_sweep(vae, critic, *warm, **kw)  # warm-up
+    sweep, paths["b"] = _drive("b threshold_sweep auto",
+                               lambda: threshold_sweep(vae, critic, frames, gt, **kw),
+                               ("diff_mask", "bilateral_build"), MAIN_FRAMES)
+    log(f"[9 main b] {len(sweep)} thresholds: {sweep}")
+    require(len(sweep) == SWEEP_T and all(0.0 <= r["thr_iou"] <= 1.0 and 0.0 <= r["crf_iou"]
+                                          <= 1.0 for r in sweep), "bad sweep results")
+    at50 = next(r for r in sweep if r["threshold"] == 50)
+    require(at50["thr_iou"] == res.thr_iou, "sweep thr_iou at 50 differs from eval_episode's")
+
+    for key, build, kernels in (("c", "int8", ("diff_mask", "kernel_i8_build", "matvec_i8")),
+                                ("d", "vmem", ("diff_mask", "mean_field_resident"))):
+        with crf_build(build):
+            eval_episode(vae, critic, *warm, threshold=50, **kw)  # warm-up
+            got, paths[key] = _drive(
+                f"{key} eval_episode {build}",
+                lambda: eval_episode(vae, critic, frames, gt, threshold=50, **kw),
+                kernels, MAIN_FRAMES)
+        agree = float(np.mean(got.crf_masks == res.crf_masks))
+        log(f"[9 main {key}] crf_iou {got.crf_iou}; masks identical to the default build's "
+            f"{agree:.6f} (bar 0.999)")
+        require(agree >= 0.999, f"{build}: mask agreement {agree}")
+        require(got.thr_iou == res.thr_iou, f"{build}: thr_iou differs")
+
+    nv = SWEEP_VMEM_FRAMES
+    with crf_build("vmem"):
+        threshold_sweep(vae, critic, *warm, **kw)  # warm-up
+        sweep_v, paths["e"] = _drive(
+            "e threshold_sweep vmem",
+            lambda: threshold_sweep(vae, critic, frames[:nv], gt[:nv], **kw),
+            ("diff_mask", "mean_field_resident"), nv)
+    log(f"[9 main e] {sweep_v}")
+    # the same 13 mask sets of the first nv frames, refined by both builds
+    diff = torch.from_numpy(res.diff_u8[:nv]).to(dev)
+    masks = threshold_masks(diff, torch.tensor(DEFAULT_SWEEP, device=dev))
+    want = refine_masks_multi_device(frames_dev[:nv], masks, fetch=False)
+    got = refine_masks_multi_device(frames_dev[:nv], masks, build="vmem", fetch=False)
+    agree = [float((got[t] == want[t]).double().mean()) for t in range(SWEEP_T)]
+    log(f"[9 main e] refined mask sets identical to the default build's: min {min(agree):.6f} "
+        f"(bar 0.999)")
+    require(min(agree) >= 0.999, f"vmem sweep mask agreement {agree}")
+    return {name: sum(p[name] for p in paths.values()) for name in la}
 
 
 def main() -> int:
@@ -303,6 +582,9 @@ def main() -> int:
     phase_build()
     b1 = phase_b1(dev)
     b2 = phase_b2(dev)
+    b3 = phase_b3(dev)
+    b4 = phase_b4(dev)
+    b5 = phase_b5(dev)
     critic, vae = _models(dev)
     phase_golden(dev, critic, vae)
     launches = phase_main(dev, critic, vae)
@@ -316,6 +598,18 @@ def main() -> int:
          "source": "critic_vae_tpu_torch/csrc/bilateral_build.cu",
          "replaces": "critic_vae_tpu/crf/fused_build.py:97",
          "launches": launches["bilateral_build"], **b2},
+        {"name": "kernel_i8_build", "route": "cuda",
+         "source": "critic_vae_tpu_torch/csrc/kernel_i8_build.cu",
+         "replaces": "critic_vae_tpu/crf/fused_build.py:195",
+         "launches": launches["kernel_i8_build"], **b3},
+        {"name": "matvec_i8", "route": "cuda",
+         "source": "critic_vae_tpu_torch/csrc/matvec_i8.cu",
+         "replaces": "critic_vae_tpu/crf/fused_build.py:258",
+         "launches": launches["matvec_i8"], **b4},
+        {"name": "mean_field_resident", "route": "cuda",
+         "source": "critic_vae_tpu_torch/csrc/mean_field_resident.cu",
+         "replaces": "critic_vae_tpu/crf/fused_resident.py:226",
+         "launches": launches["mean_field_resident"], **b5},
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -7,9 +7,10 @@ keeps its counterpart's name, and public functions keep its layouts (frames
 can be held against each other on the same inputs. Inside, models run NCHW
 as ``nn.Module``s and every function takes an explicit ``device``.
 
-The two TPU kernels on the mask-video path are hand-written CUDA C++ under
-``csrc/`` (built by ``kernels/build.py`` at first use); each wrapper takes
-its plain PyTorch version only for CPU tensors. This package imports torch
+The TPU kernels on the mask-video path, its threshold sweep and the
+``int8``/``vmem`` CRF builds are hand-written CUDA C++ under ``csrc/``
+(built by ``kernels/build.py`` at first use); each wrapper takes its plain
+PyTorch version only for CPU tensors. This package imports torch
 and numpy, never jax.
 """
 

@@ -1,5 +1,5 @@
 """Exact dense-CRF mean-field on the device (counterpart of
-critic_vae_tpu/crf/device.py, mask-refinement path).
+critic_vae_tpu/crf/device.py, mask-refinement paths).
 
 Per frame of N = H*W pixels the bilateral term is the full N x N matrix M
 built by kernel B2 (crf/fused_build.py); the spatial term
@@ -12,6 +12,14 @@ truncated separable Gaussian depthwise conv. Messages run over j != i:
 with U = -log(clamp(prob, 1e-8)) and Q0 = softmax(-U). Frames go in padded
 fixed-size chunks; the chunk's M stack is the only N^2 temporary.
 
+Builds (``_resolve_build``): ``auto``/``pallas`` is B2 as above; ``int8``
+stores the unnormalized kernel as int8 (B3) and runs each iteration's
+bilateral message as an int8 matvec (B4); ``vmem`` runs the whole mean
+field, spatial term folded into one bf16 matrix, in kernel B5
+(crf/fused_resident.py). ``refine_masks_multi_device`` refines T mask sets
+of the same frames against one matrix, packed as T*L lanes of Q (the
+threshold sweep).
+
 The M @ Q message accumulates in float32 whatever M's storage dtype, as the
 JAX package's ``preferred_element_type=f32`` does. For a bf16 M on CUDA that
 is ``torch.bmm(M, Q_bf16, torch.float32)`` — the ``out_dtype`` overload of
@@ -23,6 +31,7 @@ products are exact in float32).
 
 from __future__ import annotations
 
+import os
 from typing import Tuple
 
 import numpy as np
@@ -34,17 +43,14 @@ from critic_vae_tpu_torch.crf import REFERENCE_CRF_PARAMS
 _EPS_PROB = 1e-8   # unary clamp, as densecrf.cpp
 _EPS_NORM = 1e-20  # normalizer epsilon, as densecrf.cpp
 
-# Per-chunk budget for the N^2 bilateral matrices. The JAX package sized it
-# for a 16 GB TPU chip (its crf/device.py _run_chunked); kept as is until it
-# is measured on the 80 GB H100 (ROADMAP A.5). At 64x64 it allows 95 f32 or
-# 190 bf16 frames, above the default chunk of 64.
+# Per-chunk budget for the N^2 workspaces. The JAX package sized it for a
+# 16 GB TPU chip (its crf/device.py _run_chunked); kept as is until it is
+# measured on the 80 GB H100 (ROADMAP A.5). At 64x64 it allows 95 f32, 190
+# bf16 or 381 int8 frames, above the default chunk of 64.
 _MEM_BUDGET = 6 * 1024**3
 
-_NOT_PORTED = {
-    "xla": "the Gram-form 'xla' build",
-    "int8": "kernels B3/B4 behind build='int8'",
-    "vmem": "kernel B5 behind build='vmem'",
-}
+# the JAX package's build override (its crf/device.py _resolve_build)
+BUILD_ENV = "CRITIC_VAE_TPU_CRF_BUILD"
 
 
 def _coords(h: int, w: int, device) -> torch.Tensor:
@@ -72,6 +78,25 @@ def _sep_conv(x: torch.Tensor, taps: torch.Tensor) -> torch.Tensor:
     return F.conv2d(x, taps.view(1, 1, 1, k).repeat(c, 1, 1, 1), padding=(0, r), groups=c)
 
 
+def _spatial_norm(taps: torch.Tensor, h: int, w: int) -> torch.Tensor:
+    """(N, 1) n_s = rsqrt(sum_{j != i} K_s[i, j] + 1e-20) on ``taps``'
+    device: the conv of ones includes the centre tap (weight 1), which the
+    -1 takes back out. The same for every frame."""
+    ones = torch.ones((1, 1, h, w), dtype=torch.float32, device=taps.device)
+    return torch.rsqrt(_sep_conv(ones, taps).reshape(h * w, 1) - 1.0 + _EPS_NORM)
+
+
+def _spatial_message(q: torch.Tensor, ns: torch.Tensor, taps: torch.Tensor, h: int,
+                     w: int) -> torch.Tensor:
+    """n_s * (K_s @ (n_s * q)) over j != i for (C, N, L) q, as a separable
+    conv of the lanes' images less the centre tap."""
+    c, n, lanes = q.shape
+    y = ns * q
+    y_img = y.view(c, h, w, lanes).permute(0, 3, 1, 2)
+    sp = _sep_conv(y_img, taps).permute(0, 2, 3, 1).reshape(c, n, lanes) - y
+    return ns * sp
+
+
 def _message(mb: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
     """M @ Q with float32 accumulation and output (see the module note)."""
     if mb.dtype == torch.float32:
@@ -82,72 +107,177 @@ def _message(mb: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
     return torch.bmm(mb.float(), qm.float())
 
 
+def _mean_field_iterate_multi(mb: torch.Tensor, probs: torch.Tensor, taps: torch.Tensor,
+                              w2, h: int, w: int, iters: int) -> torch.Tensor:
+    """T independent mean fields over the chunk's bilateral matrices ``mb``
+    (C, N, N), packed into the lanes of Q: (C, N, T, L) probabilities ->
+    (C, T, N) uint8 argmax labels. M is read once an iteration for all T."""
+    c, n, t, L = probs.shape
+    ns = _spatial_norm(taps, h, w)
+    unary = -torch.log(torch.clamp_min(probs, _EPS_PROB))
+    q = torch.softmax(-unary, dim=-1)
+    for _ in range(iters):
+        qf = q.reshape(c, n, t * L)
+        msg = _message(mb, qf) + w2 * _spatial_message(qf, ns, taps, h, w)
+        q = torch.softmax(msg.view(c, n, t, L) - unary, dim=-1)
+    return torch.argmax(q, dim=-1).to(torch.uint8).transpose(1, 2)
+
+
 def _mean_field_iterate(mb: torch.Tensor, prob: torch.Tensor, taps: torch.Tensor,
                         w2, h: int, w: int, iters: int) -> torch.Tensor:
     """Mean-field given the chunk's bilateral matrices ``mb`` (C, N, N):
-    (C, N, L) probabilities -> (C, N) uint8 argmax labels.
+    (C, N, L) probabilities -> (C, N) uint8 argmax labels."""
+    return _mean_field_iterate_multi(mb, prob[:, :, None], taps, w2, h, w, iters)[:, 0]
 
-    The spatial conv includes the centre tap (its own q, weight 1), so the
-    j != i message and the normalizer's row sum subtract it back out."""
-    c, n, L = prob.shape
-    ones = torch.ones((1, 1, h, w), dtype=torch.float32, device=prob.device)
-    rowsum_s = _sep_conv(ones, taps).reshape(n, 1) - 1.0
-    ns = torch.rsqrt(rowsum_s + _EPS_NORM)  # (N, 1), the same for every frame
-    unary = -torch.log(torch.clamp_min(prob, _EPS_PROB))
+
+def _chunk_mean_field_i8(imgs_u8: torch.Tensor, probs: torch.Tensor, taps: torch.Tensor,
+                         w1, w2, alpha, beta, h: int, w: int, iters: int) -> torch.Tensor:
+    """The int8 chunk body: kernel B3 stores the unnormalized kernel as
+    int8 (scale 127) with the row sums of the stored values, and each
+    iteration's bilateral message is kernel B4's int8 matvec with the
+    normalizers folded into the vector,
+
+        M @ q = g * (K_i8 @ (g * q)),  g = sqrt(w1/127) rsqrt(rowsum/127 + eps)
+
+    the exactly normalized 8-bit model. (C, N, L) probabilities -> (C, N)
+    uint8 labels."""
+    from critic_vae_tpu_torch.crf.fused_build import QUANT_SCALE, build_kernel_i8, matvec_i8
+
+    c, n, L = probs.shape
+    k8, rowsum = build_kernel_i8(imgs_u8, alpha, beta, h=h, w=w)
+    w1_t = torch.tensor(w1, dtype=torch.float32, device=probs.device)
+    g = (torch.sqrt(w1_t / QUANT_SCALE)
+         * torch.rsqrt(rowsum / QUANT_SCALE + _EPS_NORM)).view(c, n, 1)
+    ns = _spatial_norm(taps, h, w)
+    unary = -torch.log(torch.clamp_min(probs, _EPS_PROB))
     q = torch.softmax(-unary, dim=-1)
     for _ in range(iters):
-        msg = _message(mb, q)
-        y = ns * q
-        y_img = y.view(c, h, w, L).permute(0, 3, 1, 2)
-        sp = _sep_conv(y_img, taps).permute(0, 2, 3, 1).reshape(c, n, L) - y
-        msg = msg + w2 * ns * sp
+        msg = g * matvec_i8(k8, (g * q).view(c * n, L), n=n).view(c, n, L)
+        msg = msg + w2 * _spatial_message(q, ns, taps, h, w)
         q = torch.softmax(msg - unary, dim=-1)
     return torch.argmax(q, dim=-1).to(torch.uint8)
 
 
+def _mask_probs(masks_u8: torch.Tensor) -> torch.Tensor:
+    """0/1 masks -> the stacked (1 - mask, mask) class planes, last axis."""
+    m = masks_u8.float()
+    return torch.stack([1.0 - m, m], dim=-1)
+
+
 def _crf_chunk_from_masks(imgs_u8: torch.Tensor, masks_u8: torch.Tensor,
-                          taps: torch.Tensor, w1, w2, alpha, beta, *, h: int,
-                          w: int, iters: int, compute_dtype: str) -> torch.Tensor:
+                          taps: torch.Tensor, w1, w2, alpha, beta, gamma, *, h: int,
+                          w: int, iters: int, compute_dtype: str,
+                          fused: str) -> torch.Tensor:
     """One chunk: (C, N, 3) uint8 frames and (C, N) 0/1 masks -> (C, N) uint8
-    labels. The class probabilities are the stacked (1 - mask, mask)
-    planes, built on the device."""
+    labels, through the resolved build ``fused``."""
+    probs = _mask_probs(masks_u8)
+    if fused == "vmem":
+        from critic_vae_tpu_torch.crf.fused_resident import mean_field_resident
+
+        q = mean_field_resident(imgs_u8, probs, taps, w1, w2, alpha, beta, gamma,
+                                h=h, w=w, iters=iters)
+        return (q[..., 1] > q[..., 0]).to(torch.uint8)
+    if fused == "int8":
+        return _chunk_mean_field_i8(imgs_u8, probs, taps, w1, w2, alpha, beta, h, w, iters)
     from critic_vae_tpu_torch.crf.fused_build import build_bilateral
 
-    m = masks_u8.float()
-    probs = torch.stack([1.0 - m, m], dim=-1)
     mb = build_bilateral(imgs_u8, w1, alpha, beta, h=h, w=w, out_dtype=compute_dtype)
     return _mean_field_iterate(mb, probs, taps, w2, h, w, iters)
 
 
-def _resolve_build(build: str) -> str:
-    """Only ``auto`` is ported: kernel B2 on a CUDA tensor, its plain version
-    on a CPU tensor (crf/fused_build.build_bilateral). There is no
-    environment override, so nothing can route a run away from the kernel."""
-    if build == "auto":
-        return build
-    if build in _NOT_PORTED:
+def _crf_chunk_from_masks_multi(imgs_u8: torch.Tensor, masks_u8: torch.Tensor,
+                                taps: torch.Tensor, w1, w2, alpha, beta, gamma, *,
+                                h: int, w: int, iters: int, compute_dtype: str,
+                                fused: str) -> torch.Tensor:
+    """T mask sets per frame against one bilateral build: (C, N, 3) frames
+    and (C, N, T) 0/1 masks -> (C, T, N) uint8 labels. ``int8`` takes B2 in
+    bf16 here, as the JAX package does: the lane-packed product wants a
+    plain M operand."""
+    probs = _mask_probs(masks_u8)  # (C, N, T, 2)
+    c, n, t, _ = probs.shape
+    if fused == "vmem":
+        from critic_vae_tpu_torch.crf.fused_resident import mean_field_resident
+
+        q = mean_field_resident(imgs_u8, probs.reshape(c, n, 2 * t), taps, w1, w2, alpha,
+                                beta, gamma, h=h, w=w, iters=iters).view(c, n, t, 2)
+        return (q[..., 1] > q[..., 0]).to(torch.uint8).transpose(1, 2)
+    from critic_vae_tpu_torch.crf.fused_build import build_bilateral
+
+    dt = "bfloat16" if fused == "int8" else compute_dtype
+    mb = build_bilateral(imgs_u8, w1, alpha, beta, h=h, w=w, out_dtype=dt)
+    return _mean_field_iterate_multi(mb, probs, taps, w2, h, w, iters)
+
+
+def _resolve_build(build: str, h: int, w: int) -> str:
+    """Resolve a build to "pallas" | "int8" | "vmem" for h x w frames.
+
+    * ``auto``/``pallas``: kernel B2 (crf/fused_build.build_bilateral);
+    * ``int8``: kernels B3 and B4 (single mask; B2 in bf16 for many);
+    * ``vmem``: kernel B5 (crf/fused_resident.mean_field_resident).
+
+    ``CRITIC_VAE_TPU_CRF_BUILD`` overrides ``build``, as in the JAX package;
+    every value routes to a kernel on a CUDA tensor (the plain versions run
+    only for CPU tensors). ``int8`` and ``vmem`` keep the JAX package's TPU
+    limits for parity (ROADMAP C): H*W divisible by 128, and for ``vmem``
+    H*W <= MAX_RESIDENT_N. The Gram-form ``xla`` build is not ported."""
+    from critic_vae_tpu_torch.crf.fused_resident import MAX_RESIDENT_N
+
+    build = os.environ.get(BUILD_ENV, build)
+    if build == "xla":
         raise NotImplementedError(
-            f"build={build!r}: {_NOT_PORTED[build]} is not ported yet (ROADMAP A.9)"
+            "build='xla': the Gram-form build is not ported yet (ROADMAP A.9)"
         )
-    raise ValueError(f"unknown build {build!r} (auto)")
+    if build in ("auto", "pallas"):
+        return "pallas"
+    if build in ("int8", "vmem"):
+        if (h * w) % 128:
+            raise ValueError(f"build={build!r} needs H*W divisible by 128, got {h}x{w}")
+        if build == "vmem" and h * w > MAX_RESIDENT_N:
+            raise ValueError(
+                f"build='vmem' needs H*W <= {MAX_RESIDENT_N}, got {h}x{w} — use 'pallas'"
+            )
+        return build
+    raise ValueError(f"unknown build {build!r} (auto|pallas|int8|vmem)")
+
+
+def _chunk_frames(frame_chunk: int, fused: str, multi: bool, compute_dtype: str,
+                  npix: int, lanes: int) -> int:
+    """Frames per chunk: at most ``frame_chunk`` (and at least 1) whose N^2
+    workspace fits the budget. Per frame that is the int8 K (``int8``, one
+    mask), M in bf16 (``int8`` with many masks) or in ``compute_dtype``, or
+    for ``vmem`` kernel B5's workspace (fused_resident.workspace_bytes)."""
+    if fused == "vmem":
+        from critic_vae_tpu_torch.crf.fused_resident import workspace_bytes
+
+        frame_bytes = workspace_bytes(1, npix, lanes)
+    elif fused == "int8" and not multi:
+        frame_bytes = npix * npix
+    elif fused == "int8" or compute_dtype == "bfloat16":
+        frame_bytes = 2 * npix * npix
+    else:
+        frame_bytes = 4 * npix * npix
+    return max(1, min(frame_chunk, _MEM_BUDGET // frame_bytes))
 
 
 def _run_chunked(flat_imgs: torch.Tensor, flat_masks: torch.Tensor, params, h: int,
                  w: int, frame_chunk: int, compute_dtype: str, *, build: str = "auto",
                  fetch: bool = True):
-    """Refine (n, N, 3) frames / (n, N) masks in fixed-size chunks, padded
-    by repeating the last frame. Returns (n, N) uint8 labels, as numpy with
-    ``fetch`` or as a device tensor without."""
+    """Refine (n, N, 3) frames with (n, N) masks, or (n, N, T) mask sets, in
+    fixed-size chunks padded by repeating the last frame. Returns (n, N) or
+    (n, T, N) uint8 labels, as numpy with ``fetch`` or as a device tensor
+    without."""
     w1, alpha, beta, w2, gamma, iters = params
-    _resolve_build(build)
-    n = flat_imgs.shape[0]
+    fused = _resolve_build(build, h, w)
+    multi = flat_masks.dim() == 3
+    n, npix = flat_imgs.shape[0], h * w
     if n == 0:
-        out = torch.empty((0, h * w), dtype=torch.uint8, device=flat_imgs.device)
+        shape = (0, flat_masks.shape[2], npix) if multi else (0, npix)
+        out = torch.empty(shape, dtype=torch.uint8, device=flat_imgs.device)
         return out.cpu().numpy() if fetch else out
     taps = torch.from_numpy(_spatial_taps(float(gamma), h, w)).to(flat_imgs.device)
-    elem_bytes = 2 if compute_dtype == "bfloat16" else 4
-    frame_chunk = min(frame_chunk, n)
-    frame_chunk = max(1, min(frame_chunk, _MEM_BUDGET // ((h * w) ** 2 * elem_bytes)))
+    lanes = 2 * (flat_masks.shape[2] if multi else 1)
+    frame_chunk = _chunk_frames(min(frame_chunk, n), fused, multi, compute_dtype, npix, lanes)
+    body = _crf_chunk_from_masks_multi if multi else _crf_chunk_from_masks
     segs = []
     for i in range(0, n, frame_chunk):
         imgs = flat_imgs[i : i + frame_chunk]
@@ -155,15 +285,25 @@ def _run_chunked(flat_imgs: torch.Tensor, flat_masks: torch.Tensor, params, h: i
         valid = imgs.shape[0]
         if valid < frame_chunk:
             pad = frame_chunk - valid
-            imgs = torch.cat([imgs, imgs[-1:].expand(pad, -1, -1)])
-            masks = torch.cat([masks, masks[-1:].expand(pad, -1)])
-        seg = _crf_chunk_from_masks(
-            imgs.contiguous(), masks, taps, w1, w2, alpha, beta,
-            h=h, w=w, iters=int(iters), compute_dtype=compute_dtype,
-        )
+            imgs = torch.cat([imgs, imgs[-1:].expand(pad, *imgs.shape[1:])])
+            masks = torch.cat([masks, masks[-1:].expand(pad, *masks.shape[1:])])
+        seg = body(imgs.contiguous(), masks, taps, w1, w2, alpha, beta, gamma,
+                   h=h, w=w, iters=int(iters), compute_dtype=compute_dtype, fused=fused)
         segs.append(seg[:valid])
     out = torch.cat(segs) if len(segs) > 1 else segs[0]
     return out.cpu().numpy() if fetch else out
+
+
+def _frames_on(frames_u8, device, name: str):
+    if device is None:
+        if not isinstance(frames_u8, torch.Tensor):
+            raise ValueError(f"{name}: numpy inputs need an explicit device")
+        device = frames_u8.device
+    device = torch.device(device)
+    frames = torch.as_tensor(frames_u8, device=device)
+    if frames.dtype != torch.uint8:
+        raise TypeError(f"{name}: frames must be uint8, got {frames.dtype}")
+    return frames, device
 
 
 @torch.inference_mode()
@@ -175,17 +315,10 @@ def refine_masks_device(frames_u8, thr_masks, params: Tuple = REFERENCE_CRF_PARA
     tensor on the device without.
 
     Tensors are used where they lie; numpy inputs need ``device``.
-    ``compute_dtype="auto"`` stores M in bf16 on CUDA (the kernel's fast
-    path; held to >= 99.9% segmentation agreement with float32) and float32
-    on the CPU."""
-    if device is None:
-        if not isinstance(frames_u8, torch.Tensor):
-            raise ValueError("refine_masks_device: numpy inputs need an explicit device")
-        device = frames_u8.device
-    device = torch.device(device)
-    frames = torch.as_tensor(frames_u8, device=device)
-    if frames.dtype != torch.uint8:
-        raise TypeError(f"refine_masks_device: frames must be uint8, got {frames.dtype}")
+    ``compute_dtype="auto"`` stores B2's M in bf16 on CUDA (the kernel's
+    fast path; held to >= 99.9% segmentation agreement with float32) and
+    float32 on the CPU; ``int8`` and ``vmem`` fix their own storage."""
+    frames, device = _frames_on(frames_u8, device, "refine_masks_device")
     n, h, w_, _ = frames.shape
     if tuple(thr_masks.shape) != (n, h, w_):
         raise ValueError(
@@ -199,3 +332,37 @@ def refine_masks_device(frames_u8, thr_masks, params: Tuple = REFERENCE_CRF_PARA
         compute_dtype, build=build, fetch=fetch,
     )
     return out.reshape(n, h, w_).astype(bool) if fetch else out.reshape(n, h, w_).bool()
+
+
+@torch.inference_mode()
+def refine_masks_multi_device(frames_u8, thr_masks_multi,
+                              params: Tuple = REFERENCE_CRF_PARAMS, *,
+                              frame_chunk: int = 64, compute_dtype: str = "auto",
+                              build: str = "auto", fetch: bool = True, device=None):
+    """Refine T mask sets of the same frames in one pass (the threshold
+    sweep): (F, H, W, 3) uint8 frames and (T, F, H, W) 0/1 masks -> (T, F,
+    H, W) bool, as numpy with ``fetch`` or on the device without. Each set
+    agrees with ``refine_masks_device(frames, thr_masks_multi[t])``; all T
+    share one bilateral build and one read of it per iteration.
+
+    Inputs are used where they lie, as in :func:`refine_masks_device`."""
+    frames, device = _frames_on(frames_u8, device, "refine_masks_multi_device")
+    f, h, w_, _ = frames.shape
+    t = thr_masks_multi.shape[0]
+    if tuple(thr_masks_multi.shape) != (t, f, h, w_):
+        raise ValueError(
+            f"thr_masks_multi shape {tuple(thr_masks_multi.shape)} does not match "
+            f"(T, {f}, {h}, {w_})"
+        )
+    # frame-major, so _run_chunked slices and pads along frames
+    masks = (torch.as_tensor(thr_masks_multi, device=device).to(torch.uint8)
+             .permute(1, 2, 3, 0).reshape(f, h * w_, t))
+    if compute_dtype == "auto":
+        compute_dtype = "bfloat16" if device.type == "cuda" else "float32"
+    out = _run_chunked(
+        frames.reshape(f, h * w_, 3), masks, params, h, w_, frame_chunk,
+        compute_dtype, build=build, fetch=fetch,
+    )  # (F, T, N)
+    if fetch:
+        return out.transpose(1, 0, 2).reshape(t, f, h, w_).astype(bool)
+    return out.transpose(0, 1).reshape(t, f, h, w_).bool()

@@ -1,9 +1,10 @@
 """Build and load the port's CUDA kernels.
 
-Every ``csrc/*.cu`` file is compiled by ``nvcc`` for Hopper (``sm_90a``)
+Every ``csrc/*.cu`` file is compiled by ``nvcc`` for Hopper (``sm_90a``),
+one ``nvcc`` per source, all started together, and the objects are linked
 into one shared library with a plain C interface, which is loaded with
 ``ctypes``. The build happens at the first kernel launch of the process, so
-the first run on a fresh checkout pays a few seconds of ``nvcc``; the
+the first run on a fresh checkout pays the slowest source's ``nvcc``; the
 library is named by a hash of its sources and flags, so an edit rebuilds it
 and a stale library is never loaded.
 
@@ -32,12 +33,13 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
+    "-O3", "-std=c++17", "-Xcompiler", "-fPIC",
 )
 
 # launches per kernel since the last reset_launches(); each wrapper adds one
 # where it launches its kernel and nowhere else
-LAUNCHES = {"diff_mask": 0, "bilateral_build": 0}
+LAUNCHES = {"diff_mask": 0, "bilateral_build": 0, "kernel_i8_build": 0, "matvec_i8": 0,
+            "mean_field_resident": 0}
 
 _LOCK = threading.Lock()
 _LIB: ctypes.CDLL | None = None
@@ -60,9 +62,12 @@ def nvcc_path() -> str:
     return str(Path(cuda_home) / "bin" / "nvcc")
 
 
-def nvcc_command(output: Path, srcs: list[Path] | None = None) -> list[str]:
-    srcs = sources() if srcs is None else srcs
-    return [nvcc_path(), *NVCC_FLAGS, "-o", str(output), *map(str, srcs)]
+def compile_command(src: Path, obj: Path) -> list[str]:
+    return [nvcc_path(), *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+
+
+def link_command(objs: list[Path], output: Path) -> list[str]:
+    return [nvcc_path(), *NVCC_FLAGS, "-shared", "-o", str(output), *map(str, objs)]
 
 
 def library_path() -> Path:
@@ -79,20 +84,24 @@ def build() -> Path:
     if lib.exists():
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        proc = subprocess.run(
-            nvcc_command(Path(tmp)), capture_output=True, text=True
-        )
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        srcs = sources()
+        objs = [Path(tmp) / f"{src.stem}.o" for src in srcs]
+        procs = [subprocess.Popen(compile_command(src, obj), stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for src, obj in zip(srcs, objs)]
+        failed = []
+        for src, proc in zip(srcs, procs):
+            out, _ = proc.communicate()
+            if proc.returncode != 0:
+                failed.append(f"{src.name} ({proc.returncode}):\n{out}")
+        if failed:
+            raise RuntimeError("nvcc failed for " + "\n".join(failed))
+        so = Path(tmp) / lib.name
+        proc = subprocess.run(link_command(objs, so), capture_output=True, text=True)
         if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}"
-            )
-        os.replace(tmp, lib)  # atomic: a concurrent loader sees all or nothing
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}")
+        os.replace(so, lib)  # atomic: a concurrent loader sees all or nothing
     return lib
 
 
@@ -102,6 +111,13 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.cvt_diff_mask.restype = i
     lib.cvt_bilateral_build.argtypes = [p, i, i, i, f, f, f, p, p, i, p]
     lib.cvt_bilateral_build.restype = i
+    lib.cvt_kernel_i8_build.argtypes = [p, i, i, i, f, f, p, p, p, p]
+    lib.cvt_kernel_i8_build.restype = i
+    lib.cvt_matvec_i8.argtypes = [p, p, i, i, i, p, p]
+    lib.cvt_matvec_i8.restype = i
+    lib.cvt_mean_field_resident.argtypes = [p, p, p, i, i, i, i, f, f, f, f, f, i,
+                                            p, p, p, p, p, p, p]
+    lib.cvt_mean_field_resident.restype = i
     return lib
 
 

@@ -1,6 +1,7 @@
-"""Write tests/golden/torch_slice_golden.npz: the JAX package's mask-video
-slice on the CPU, the reference the PyTorch port is held against (by
-tests/test_torch_slice.py on the CPU and by chip_smoke.py on the card).
+"""Write tests/golden/torch_slice_golden.npz and torch_sweep_golden.npz: the
+JAX package's mask-video slice and threshold sweep on the CPU, the
+references the PyTorch port is held against (by tests/test_torch_slice.py
+and tests/test_torch_sweep.py on the CPU and by chip_smoke.py on the card).
 
 Configuration: 16 synthetic 64x64 frames (``generate_frames(16, seed=0)``),
 the full-width critic ``saved-networks/critic-synthetic.npz`` and VAE
@@ -10,7 +11,15 @@ Pallas build (``build="pallas"``, float32, in interpret mode on the CPU) at
 device stage, the mean of the per-frame maxima, normalisation, threshold,
 CRF, whole-stack IoU.
 
-Run from the repo root:  JAX_PLATFORMS=cpu python tests/golden/make_torch_slice_golden.py
+The sweep file holds the same device stage swept over the reference's 13
+thresholds (0..120 step 10): each threshold's whole-stack IoU, and the IoU
+of the T = 13 mask sets refined together by ``refine_masks_multi_device``
+(Pallas build, float32, interpret mode). It also holds the masks of the
+``int8`` and ``vmem`` builds (Pallas kernels in interpret mode) refining the
+threshold-50 masks of the first 4 frames.
+
+Run from the repo root:
+  JAX_PLATFORMS=cpu python tests/golden/make_torch_slice_golden.py [slice|sweep|all]
 """
 
 from __future__ import annotations
@@ -29,7 +38,10 @@ ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)
 sys.path.insert(0, ROOT)
 
 from critic_vae_tpu.crf import REFERENCE_CRF_PARAMS  # noqa: E402
-from critic_vae_tpu.crf.device import refine_masks_device  # noqa: E402
+from critic_vae_tpu.crf.device import (  # noqa: E402
+    refine_masks_device,
+    refine_masks_multi_device,
+)
 from critic_vae_tpu.data.synthetic import generate_frames  # noqa: E402
 from critic_vae_tpu.models.critic import load_critic  # noqa: E402
 from critic_vae_tpu.ops.iou import iou  # noqa: E402
@@ -44,9 +56,13 @@ NUM_FRAMES = 16
 SEED = 0
 THRESHOLD = 50
 OUT = os.path.join(ROOT, "tests", "golden", "torch_slice_golden.npz")
+SWEEP_OUT = os.path.join(ROOT, "tests", "golden", "torch_sweep_golden.npz")
+SWEEP = tuple(range(0, 130, 10))
+BUILD_FRAMES = 4  # frames refined by the int8 and vmem builds
 
 
-def main() -> None:
+def device_stage():
+    """(frames, gt, preds, max_value, mean_max, diff_u8) of the golden episode."""
     frames, gt = generate_frames(NUM_FRAMES, seed=SEED)
     critic = load_critic(os.path.join(ROOT, "saved-networks", "critic-synthetic.npz"))
     vae_params, bn_state = numpy_vae_params(SEED)
@@ -55,13 +71,46 @@ def main() -> None:
     max_value = np.asarray(out["max_value"])
     mean_max = np.asarray(jnp.mean(jnp.asarray(max_value)))
     diff_u8 = normalize_diffs_given_mean(out["diff"], mean_max)
+    return frames, gt, out["preds"], max_value, mean_max, diff_u8
+
+
+def sweep() -> None:
+    frames, gt, _, _, _, diff_u8 = device_stage()
+    masks = np.asarray(threshold_masks(diff_u8, jnp.asarray(SWEEP)))  # (T, N, H, W)
+    refined = refine_masks_multi_device(frames, masks, REFERENCE_CRF_PARAMS, build="pallas",
+                                        compute_dtype="float32", frame_chunk=4)
+    thr_iou = [iou(gt, m) for m in masks]
+    crf_iou = [iou(gt, m) for m in refined]
+    thr50 = masks[SWEEP.index(THRESHOLD), :BUILD_FRAMES]
+    builds = {
+        f"{b}_bits": np.packbits(refine_masks_device(frames[:BUILD_FRAMES], thr50,
+                                                     REFERENCE_CRF_PARAMS, build=b), axis=-1)
+        for b in ("int8", "vmem")
+    }
+    np.savez_compressed(
+        SWEEP_OUT,
+        thresholds=np.asarray(SWEEP, np.int64),
+        thr_iou=np.asarray(thr_iou, np.float64),
+        crf_iou=np.asarray(crf_iou, np.float64),
+        num_frames=np.int64(NUM_FRAMES),
+        seed=np.int64(SEED),
+        build_frames=np.int64(BUILD_FRAMES),
+        build_threshold=np.int64(THRESHOLD),
+        **builds,
+    )
+    print(f"wrote {SWEEP_OUT} ({os.path.getsize(SWEEP_OUT)} bytes): thr_iou={thr_iou} "
+          f"crf_iou={crf_iou}")
+
+
+def main() -> None:
+    frames, gt, preds, max_value, mean_max, diff_u8 = device_stage()
     thr = np.asarray(threshold_masks(diff_u8, jnp.asarray([THRESHOLD]))[0])
     crf = refine_masks_device(frames, thr, REFERENCE_CRF_PARAMS, build="pallas",
                               compute_dtype="float32", frame_chunk=4)
     thr_iou, crf_iou = iou(gt, thr), iou(gt, crf)
     np.savez_compressed(
         OUT,
-        preds=np.asarray(out["preds"], np.float32),
+        preds=np.asarray(preds, np.float32),
         max_value=max_value.astype(np.float32),
         mean_max=np.float32(mean_max),
         diff_u8=np.asarray(diff_u8, np.uint8),
@@ -77,4 +126,10 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    what = sys.argv[1] if len(sys.argv) > 1 else "all"
+    if what not in ("slice", "sweep", "all"):
+        raise SystemExit(f"usage: {sys.argv[0]} [slice|sweep|all]")
+    if what in ("slice", "all"):
+        main()
+    if what in ("sweep", "all"):
+        sweep()

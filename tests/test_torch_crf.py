@@ -11,7 +11,7 @@ from critic_vae_tpu.crf.device import refine_masks_device as jax_refine
 from critic_vae_tpu.crf.fused_build import build_bilateral as jax_build
 from critic_vae_tpu.data.synthetic import generate_frames
 from critic_vae_tpu_torch.crf import REFERENCE_CRF_PARAMS
-from critic_vae_tpu_torch.crf.device import _resolve_build, refine_masks_device
+from critic_vae_tpu_torch.crf.device import BUILD_ENV, _resolve_build, refine_masks_device
 from critic_vae_tpu_torch.crf.fused_build import build_bilateral, build_bilateral_reference
 from critic_vae_tpu_torch.crf.policy import resolve_crf_backend
 from critic_vae_tpu_torch.kernels import build as kb
@@ -110,13 +110,19 @@ def test_refine_validates_inputs(episode):
         build_bilateral(torch.zeros((1, 10, 3), dtype=torch.uint8), W1, ALPHA, BETA, h=4, w=4)
 
 
-@pytest.mark.parametrize("build", ["xla", "int8", "vmem"])
-def test_unported_builds_raise(build):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _resolve_build(build)
-    assert _resolve_build("auto") == "auto"
+@pytest.mark.parametrize("build", ["xla", "int8", "vmem", "pallas"])
+def test_unported_builds_raise(build, monkeypatch):
+    """Only the Gram-form ``xla`` build is unported; ``pallas`` is B2's
+    explicit name, the same as ``auto``."""
+    monkeypatch.delenv(BUILD_ENV, raising=False)
+    if build == "xla":
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            _resolve_build(build, 64, 64)
+    else:
+        assert _resolve_build(build, 64, 64) == build
+    assert _resolve_build("auto", 64, 64) == "pallas"
     with pytest.raises(ValueError):
-        _resolve_build("pallas")
+        _resolve_build("lattice", 64, 64)
 
 
 def test_crf_backend_policy():

@@ -127,11 +127,15 @@ def test_device_honesty():
     with pytest.raises(ValueError):
         resolve_device("tpu")
     # the build: sm_90a, no fast math, into a gitignored directory
-    cmd = kb.nvcc_command(Path("libcheck.so"))
-    assert "arch=compute_90a,code=sm_90a" in cmd
-    assert not any("fast_math" in c or "fast-math" in c for c in cmd)
-    assert all(Path(s).parent == kb.CSRC for s in cmd if s.endswith(".cu"))
-    assert {p.name for p in kb.sources()} == {"diff_mask.cu", "bilateral_build.cu"}
+    for src in kb.sources():
+        for cmd in (kb.compile_command(src, Path("check.o")),
+                    kb.link_command([Path("check.o")], Path("libcheck.so"))):
+            assert "arch=compute_90a,code=sm_90a" in cmd
+            assert not any("fast_math" in c or "fast-math" in c for c in cmd)
+            assert all(Path(s).parent == kb.CSRC for s in cmd if s.endswith(".cu"))
+    assert {p.name for p in kb.sources()} == {
+        "diff_mask.cu", "bilateral_build.cu", "kernel_i8_build.cu", "matvec_i8.cu",
+        "mean_field_resident.cu"}
     rel = kb.BUILD_DIR.relative_to(ROOT).as_posix() + "/"
     assert rel in (ROOT / ".gitignore").read_text().splitlines()
     # CPU runs never count a launch
@@ -140,4 +144,5 @@ def test_device_honesty():
     vae = weights.vae_from_params(*weights.numpy_vae_params(0, dims=(4, 8, 8, 16),
                                                             bottleneck=256))
     eval_episode(vae, _critic(), frames, gt, device=CPU, crf_backend="device")
-    assert kb.LAUNCHES == {"diff_mask": 0, "bilateral_build": 0}
+    assert kb.LAUNCHES == {"diff_mask": 0, "bilateral_build": 0, "kernel_i8_build": 0,
+                           "matvec_i8": 0, "mean_field_resident": 0}
