@@ -13,17 +13,20 @@ exits non-zero:
    f32 and bf16 — bar: max abs error <= 1e-6 on grey maps and maxima;
 4. kernel B2 (bilateral_build) against its plain version at C=4, N=4096
    (f32: <= 1e-5 relative on entries > 1e-3; bf16: within 1 bf16 ulp; the
-   diagonal exactly 0), then timed at the main path's C=64 in bf16;
-5. kernel B3 (kernel_i8_build) against its plain version at C=4, N=4096:
-   int8 identical on >= 99.99% of entries and never more than 1 level
-   apart, row sums equal to the kernel's own int8 row sums, diagonal 0;
-   timed at C=64;
+   diagonal exactly 0), then at the main path's C=64 in bf16 (within 1
+   bf16 ulp) and timed there;
+5. kernel B3 (kernel_i8_build) against its plain version at C=4 and at
+   the main path's C=64, N=4096: int8 identical on >= 99.99% of entries and
+   never more than 1 level apart, row sums equal to the kernel's own int8
+   row sums, diagonal 0; timed at C=64 (the timed runs' outputs are the
+   ones checked);
 6. kernel B4 (matvec_i8) against its plain version at C=4 and C=64, L=2,
    on B3's K — bar: relative error <= 1e-5 (f32 summation order); timed;
-7. kernel B5 (mean_field_resident) against its plain version at C=2,
-   N=4096, T=1 and T=13 (the sweep), 10 iterations, on mask-derived
-   probabilities — bars: marginals max abs error <= 1e-2, labels >= 99.99%
-   identical; timed at C=64 for T=1 and T=13;
+7. kernel B5 (mean_field_resident) against its plain version at C=2 and
+   at the main path's C=64, N=4096, T=1 and T=13 (the sweep), 10
+   iterations, on mask-derived probabilities — bars: marginals max abs
+   error <= 1e-2, labels >= 99.99% identical; timed at C=64 (the timed
+   runs' outputs are the ones checked);
 8. golden: the port in float32 with TF32 off on the 16-frame episode of
    tests/golden/torch_slice_golden.npz, which the JAX package computed on
    the CPU — preds <= 1e-4 abs, uint8 diff maps >= 99.9% within one level,
@@ -96,6 +99,16 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def timed(fn, iters: int, warmup: int = 2):
+    """(ms per call, the last call's result), so a timed run is also checked."""
+    last = [None]
+
+    def run():
+        last[0] = fn()
+
+    return cuda_ms(run, iters, warmup), last[0]
 
 
 def phase_identity():
@@ -215,6 +228,25 @@ def _crf_imgs(c, seed, dev):
     return torch.from_numpy(frames.reshape(c, NPIX, 3)).to(dev)
 
 
+def _check_b3(k8, rowsum, k8r, c):
+    """B3 against its plain version's int8 on C=c frames; returns the max level gap."""
+    import torch
+
+    lvl = (k8.int() - k8r.int()).abs()
+    err = lvl.max().item()
+    same = (lvl == 0).double().mean().item()
+    own = k8.sum(dim=1, keepdim=True, dtype=torch.int32).float()
+    rows_ok = torch.equal(rowsum, own)
+    diag = torch.diagonal(k8.view(c, NPIX, NPIX), dim1=1, dim2=2).abs().max().item()
+    log(f"[5 B3 kernel_i8_build] C={c} N={NPIX}: int8 identical {same:.8f} (bar 0.9999), "
+        f"max {err} level (bar 1); row sums equal to its own int8 row sums: {rows_ok}; "
+        f"diagonal max {diag}")
+    require(same >= 0.9999 and err <= 1, f"B3 C={c}: identical {same}, max {err} levels")
+    require(rows_ok, f"B3 C={c}: row sums differ from the sums of the stored int8 rows")
+    require(diag == 0, f"B3 C={c}: diagonal not 0 ({diag})")
+    return err
+
+
 def phase_b3(dev):
     import torch
 
@@ -226,25 +258,15 @@ def phase_b3(dev):
     k8, rowsum = build_kernel_i8(small, alpha, beta, h=H, w=W)
     k8r, _ = build_kernel_i8_reference(small, alpha, beta, h=H, w=W)
     torch.cuda.synchronize()
-    lvl = (k8.int() - k8r.int()).abs()
-    err = lvl.max().item()
-    same = (lvl == 0).double().mean().item()
-    own = k8.sum(dim=1, keepdim=True, dtype=torch.int32).float()
-    rows_ok = torch.equal(rowsum, own)
-    diag = torch.diagonal(k8.view(4, NPIX, NPIX), dim1=1, dim2=2).abs().max().item()
-    log(f"[5 B3 kernel_i8_build] C=4 N={NPIX}: int8 identical {same:.8f} (bar 0.9999), max "
-        f"{err} level (bar 1); row sums equal to its own int8 row sums: {rows_ok}; "
-        f"diagonal max {diag}")
-    require(same >= 0.9999 and err <= 1, f"B3: identical {same}, max {err} levels")
-    require(rows_ok, "B3: row sums differ from the sums of the stored int8 rows")
-    require(diag == 0, f"B3: diagonal not 0 ({diag})")
-    del k8, k8r, lvl
+    err = _check_b3(k8, rowsum, k8r, 4)
+    del k8, k8r
     chunk = _crf_imgs(CRF_CHUNK, 2, dev)
-    ms = cuda_ms(lambda: build_kernel_i8(chunk, alpha, beta, h=H, w=W), iters=10)
-    plain_ms = cuda_ms(lambda: build_kernel_i8_reference(chunk, alpha, beta, h=H, w=W),
-                       iters=2, warmup=1)
+    ms, (k8, rowsum) = timed(lambda: build_kernel_i8(chunk, alpha, beta, h=H, w=W), iters=10)
+    plain_ms, (k8r, _) = timed(lambda: build_kernel_i8_reference(chunk, alpha, beta, h=H, w=W),
+                               iters=2, warmup=1)
     log(f"[5 B3 kernel_i8_build] C={CRF_CHUNK} N={NPIX}: kernel {ms:.3f} ms, plain "
         f"{plain_ms:.3f} ms")
+    err = max(err, _check_b3(k8, rowsum, k8r, CRF_CHUNK))
     return {"max_abs_err": float(err), "ms": ms, "plain_ms": plain_ms}
 
 
@@ -296,6 +318,18 @@ def _sweep_probs(c, t, seed, dev):
     return torch.stack([1.0 - m, m], dim=-1).reshape(c, NPIX, 2 * t)
 
 
+def _check_b5(q, qr, c, t, iters):
+    """B5's marginals against its plain version's; returns the max abs error."""
+    err = (q - qr).abs().max().item()
+    labels = ((q[..., 1::2] > q[..., 0::2]) == (qr[..., 1::2] > qr[..., 0::2]))
+    agree = labels.double().mean().item()
+    log(f"[7 B5 mean_field_resident] C={c} N={NPIX} T={t} iters={iters}: marginals "
+        f"max_abs_err {err:.3e} (bar 1e-2); labels identical {agree:.6f} (bar 0.9999)")
+    require(err <= 1e-2, f"B5 C={c} T={t}: marginals max abs error {err}")
+    require(agree >= 0.9999, f"B5 C={c} T={t}: label agreement {agree}")
+    return err
+
+
 def phase_b5(dev):
     import torch
 
@@ -315,25 +349,21 @@ def phase_b5(dev):
         q = mean_field_resident(imgs, probs, taps, *args, h=H, w=W, iters=iters)
         qr = mean_field_resident_reference(imgs, probs, taps, *args, h=H, w=W, iters=iters)
         torch.cuda.synchronize()
-        err = (q - qr).abs().max().item()
-        labels = ((q[..., 1::2] > q[..., 0::2]) == (qr[..., 1::2] > qr[..., 0::2]))
-        agree = labels.double().mean().item()
-        log(f"[7 B5 mean_field_resident] C=2 N={NPIX} T={t} iters={iters}: marginals "
-            f"max_abs_err {err:.3e} (bar 1e-2); labels identical {agree:.6f} (bar 0.9999)")
-        require(err <= 1e-2, f"B5 T={t}: marginals max abs error {err}")
-        require(agree >= 0.9999, f"B5 T={t}: label agreement {agree}")
+        err = _check_b5(q, qr, 2, t, iters)
         imgs, probs = _crf_imgs(CRF_CHUNK, 6, dev), _sweep_probs(CRF_CHUNK, t, 6, dev)
-        ms = cuda_ms(lambda: mean_field_resident(imgs, probs, taps, *args, h=H, w=W,
-                                                 iters=iters), iters=3, warmup=1)
-        plain_ms = cuda_ms(lambda: mean_field_resident_reference(imgs, probs, taps, *args, h=H,
-                                                                 w=W, iters=iters),
-                           iters=1, warmup=1)
+        ms, q = timed(lambda: mean_field_resident(imgs, probs, taps, *args, h=H, w=W,
+                                                  iters=iters), iters=3, warmup=1)
+        plain_ms, qr = timed(lambda: mean_field_resident_reference(imgs, probs, taps, *args,
+                                                                   h=H, w=W, iters=iters),
+                             iters=1, warmup=1)
         log(f"[7 B5 mean_field_resident] C={CRF_CHUNK} N={NPIX} T={t} iters={iters}: kernel "
             f"{ms:.3f} ms, plain {plain_ms:.3f} ms")
+        err = max(err, _check_b5(q, qr, CRF_CHUNK, t, iters))
         rows[t] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
-        del imgs, probs
-    # T=1 (one mask) as the row's times; the sweep's T=13 beside them
-    return {"max_abs_err": max(r["max_abs_err"] for r in rows.values()), **rows[1],
+        del imgs, probs, q, qr
+    # T=1 (one mask) as the row's times, the sweep's T=13 beside them; the
+    # error is the larger of the two
+    return {**rows[1], "max_abs_err": max(r["max_abs_err"] for r in rows.values()),
             "ms_t13": rows[SWEEP_T]["ms"], "plain_ms_t13": rows[SWEEP_T]["plain_ms"]}
 
 

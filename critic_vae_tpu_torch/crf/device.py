@@ -80,10 +80,20 @@ def _sep_conv(x: torch.Tensor, taps: torch.Tensor) -> torch.Tensor:
 
 def _spatial_norm(taps: torch.Tensor, h: int, w: int) -> torch.Tensor:
     """(N, 1) n_s = rsqrt(sum_{j != i} K_s[i, j] + 1e-20) on ``taps``'
-    device: the conv of ones includes the centre tap (weight 1), which the
-    -1 takes back out. The same for every frame."""
-    ones = torch.ones((1, 1, h, w), dtype=torch.float32, device=taps.device)
-    return torch.rsqrt(_sep_conv(ones, taps).reshape(h * w, 1) - 1.0 + _EPS_NORM)
+    device, in float32. The separable conv of ones at (y, x) is the sum of
+    the taps inside the frame along y times that along x, taken here in
+    closed form (no conv, so no TF32 on a card); it includes the centre tap
+    (weight 1), which the -1 takes back out. The same for every frame."""
+    taps = taps.float()
+    r = taps.shape[0] // 2
+    offs = torch.arange(-r, r + 1, device=taps.device)
+
+    def inside(size):
+        pos = torch.arange(size, device=taps.device)[:, None] + offs[None, :]
+        return torch.where((pos >= 0) & (pos < size), taps, 0.0).sum(dim=1)
+
+    ones_conv = inside(h)[:, None] * inside(w)[None, :]
+    return torch.rsqrt(ones_conv.reshape(h * w, 1) - 1.0 + _EPS_NORM)
 
 
 def _spatial_message(q: torch.Tensor, ns: torch.Tensor, taps: torch.Tensor, h: int,
@@ -121,13 +131,6 @@ def _mean_field_iterate_multi(mb: torch.Tensor, probs: torch.Tensor, taps: torch
         msg = _message(mb, qf) + w2 * _spatial_message(qf, ns, taps, h, w)
         q = torch.softmax(msg.view(c, n, t, L) - unary, dim=-1)
     return torch.argmax(q, dim=-1).to(torch.uint8).transpose(1, 2)
-
-
-def _mean_field_iterate(mb: torch.Tensor, prob: torch.Tensor, taps: torch.Tensor,
-                        w2, h: int, w: int, iters: int) -> torch.Tensor:
-    """Mean-field given the chunk's bilateral matrices ``mb`` (C, N, N):
-    (C, N, L) probabilities -> (C, N) uint8 argmax labels."""
-    return _mean_field_iterate_multi(mb, prob[:, :, None], taps, w2, h, w, iters)[:, 0]
 
 
 def _chunk_mean_field_i8(imgs_u8: torch.Tensor, probs: torch.Tensor, taps: torch.Tensor,
@@ -168,31 +171,18 @@ def _crf_chunk_from_masks(imgs_u8: torch.Tensor, masks_u8: torch.Tensor,
                           taps: torch.Tensor, w1, w2, alpha, beta, gamma, *, h: int,
                           w: int, iters: int, compute_dtype: str,
                           fused: str) -> torch.Tensor:
-    """One chunk: (C, N, 3) uint8 frames and (C, N) 0/1 masks -> (C, N) uint8
-    labels, through the resolved build ``fused``."""
-    probs = _mask_probs(masks_u8)
-    if fused == "vmem":
-        from critic_vae_tpu_torch.crf.fused_resident import mean_field_resident
-
-        q = mean_field_resident(imgs_u8, probs, taps, w1, w2, alpha, beta, gamma,
-                                h=h, w=w, iters=iters)
-        return (q[..., 1] > q[..., 0]).to(torch.uint8)
-    if fused == "int8":
-        return _chunk_mean_field_i8(imgs_u8, probs, taps, w1, w2, alpha, beta, h, w, iters)
-    from critic_vae_tpu_torch.crf.fused_build import build_bilateral
-
-    mb = build_bilateral(imgs_u8, w1, alpha, beta, h=h, w=w, out_dtype=compute_dtype)
-    return _mean_field_iterate(mb, probs, taps, w2, h, w, iters)
-
-
-def _crf_chunk_from_masks_multi(imgs_u8: torch.Tensor, masks_u8: torch.Tensor,
-                                taps: torch.Tensor, w1, w2, alpha, beta, gamma, *,
-                                h: int, w: int, iters: int, compute_dtype: str,
-                                fused: str) -> torch.Tensor:
-    """T mask sets per frame against one bilateral build: (C, N, 3) frames
-    and (C, N, T) 0/1 masks -> (C, T, N) uint8 labels. ``int8`` takes B2 in
-    bf16 here, as the JAX package does: the lane-packed product wants a
-    plain M operand."""
+    """One chunk through the resolved build ``fused``: (C, N, 3) uint8 frames
+    and (C, N, T) 0/1 mask sets -> (C, T, N) uint8 labels, all T against one
+    bilateral build. A (C, N) single mask gives (C, N) labels; with ``int8``
+    it runs B3 and B4, while many masks take B2 in bf16, as the JAX package
+    does: the lane-packed product wants a plain M operand."""
+    if masks_u8.dim() == 2:
+        if fused == "int8":
+            return _chunk_mean_field_i8(imgs_u8, _mask_probs(masks_u8), taps, w1, w2,
+                                        alpha, beta, h, w, iters)
+        return _crf_chunk_from_masks(imgs_u8, masks_u8[..., None], taps, w1, w2, alpha,
+                                     beta, gamma, h=h, w=w, iters=iters,
+                                     compute_dtype=compute_dtype, fused=fused)[:, 0]
     probs = _mask_probs(masks_u8)  # (C, N, T, 2)
     c, n, t, _ = probs.shape
     if fused == "vmem":
@@ -277,7 +267,6 @@ def _run_chunked(flat_imgs: torch.Tensor, flat_masks: torch.Tensor, params, h: i
     taps = torch.from_numpy(_spatial_taps(float(gamma), h, w)).to(flat_imgs.device)
     lanes = 2 * (flat_masks.shape[2] if multi else 1)
     frame_chunk = _chunk_frames(min(frame_chunk, n), fused, multi, compute_dtype, npix, lanes)
-    body = _crf_chunk_from_masks_multi if multi else _crf_chunk_from_masks
     segs = []
     for i in range(0, n, frame_chunk):
         imgs = flat_imgs[i : i + frame_chunk]
@@ -287,8 +276,9 @@ def _run_chunked(flat_imgs: torch.Tensor, flat_masks: torch.Tensor, params, h: i
             pad = frame_chunk - valid
             imgs = torch.cat([imgs, imgs[-1:].expand(pad, *imgs.shape[1:])])
             masks = torch.cat([masks, masks[-1:].expand(pad, *masks.shape[1:])])
-        seg = body(imgs.contiguous(), masks, taps, w1, w2, alpha, beta, gamma,
-                   h=h, w=w, iters=int(iters), compute_dtype=compute_dtype, fused=fused)
+        seg = _crf_chunk_from_masks(imgs.contiguous(), masks, taps, w1, w2, alpha, beta,
+                                    gamma, h=h, w=w, iters=int(iters),
+                                    compute_dtype=compute_dtype, fused=fused)
         segs.append(seg[:valid])
     out = torch.cat(segs) if len(segs) > 1 else segs[0]
     return out.cpu().numpy() if fetch else out

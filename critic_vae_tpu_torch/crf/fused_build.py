@@ -154,13 +154,12 @@ def build_kernel_i8(imgs_u8: torch.Tensor, alpha, beta, *, h: int, w: int):
         raise ValueError(f"build_kernel_i8: N={n} must divide by 16 on CUDA")
     lib = kb.library()
     dev = imgs_u8.device
-    scratch = torch.empty((c * n,), dtype=torch.int32, device=dev)
     k8 = torch.empty((c * n, n), dtype=torch.int8, device=dev)
     rowsum = torch.empty((c * n, 1), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         status = lib.cvt_kernel_i8_build(
-            imgs_u8.data_ptr(), c, n, w, float(alpha), float(beta), scratch.data_ptr(),
-            k8.data_ptr(), rowsum.data_ptr(), torch.cuda.current_stream().cuda_stream,
+            imgs_u8.data_ptr(), c, n, w, float(alpha), float(beta), k8.data_ptr(),
+            rowsum.data_ptr(), torch.cuda.current_stream().cuda_stream,
         )
     kb.check(status, "kernel_i8_build")
     kb.LAUNCHES["kernel_i8_build"] += 1

@@ -47,13 +47,6 @@ def workspace_bytes(frames: int, n: int, lanes: int) -> int:
     return frames * (2 * n * n + 36 * n + 16 * n * lanes)
 
 
-def spatial_normalizer(taps: torch.Tensor, h: int, w: int) -> torch.Tensor:
-    """(N,) ns = rsqrt(sum_{j != i} K_s[i,j] + 1e-20), from the truncated
-    separable taps, on the CPU in float32: it is baked into M, so no device
-    conv (TF32 on a card by default) may round it."""
-    return _spatial_norm(taps.detach().cpu().float(), h, w).reshape(-1)
-
-
 def pair_softmax(z: torch.Tensor) -> torch.Tensor:
     """sigmoid(z[..., 2t+s] - z[..., 2t+1-s]) over (neg, pos) lane pairs."""
     zp = z.unflatten(-1, (-1, 2)).flip(-1).flatten(-2)
@@ -83,7 +76,7 @@ def mean_field_resident_reference(imgs_u8, probs_pairs, taps, w1, w2, alpha, bet
     c, n, _ = imgs_u8.shape
     dev = imgs_u8.device
     sw1, sw2 = torch.sqrt(_f32(w1, dev)), torch.sqrt(_f32(w2, dev))
-    gs = sw2 * spatial_normalizer(taps, h, w).to(dev)  # (N,)
+    gs = sw2 * _spatial_norm(taps.to(dev), h, w).reshape(-1)  # (N,)
     pg = _coords(h, w, dev) / _f32(gamma, dev)
     unary = -torch.log(torch.clamp_min(probs_pairs.float(), _EPS_PROB))
     out = torch.empty_like(unary)
@@ -130,7 +123,7 @@ def mean_field_resident(imgs_u8, probs_pairs, taps, w1, w2, alpha, beta, gamma, 
     dev = imgs_u8.device
     probs = probs_pairs.float().contiguous()
     p = probs.shape[2]
-    ns = spatial_normalizer(taps, h, w).to(dev)
+    ns = _spatial_norm(taps.to(dev), h, w).reshape(-1)
     feats = torch.empty((c, 8, n), dtype=torch.float32, device=dev)
     nb = torch.empty((c, n), dtype=torch.float32, device=dev)
     m = torch.empty((c, n, n), dtype=torch.bfloat16, device=dev)

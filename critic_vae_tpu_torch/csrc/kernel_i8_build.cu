@@ -23,10 +23,11 @@
 //   warp stores 128 contiguous bytes of a row.
 // * The row sums are sums of integers <= 127 * N < 2^24. Each row's
 //   partial over the block's columns is reduced with __reduce_add_sync
-//   (warps) and shared memory (the block's 4 warps) and then added to an
-//   int32 total with one atomicAdd per row and block. Integer addition is
-//   exact in any order, so the totals are deterministic and equal the sum
-//   of the stored bytes; a last pass writes them as f32 (exact below 2^24).
+//   (warps) and shared memory (the block's 4 warps) and then added to the
+//   f32 total with one atomicAdd per row and block. Every partial and total
+//   is an integer below 2^24, which f32 holds exactly, so the additions are
+//   exact in any order: the totals are deterministic and equal the sum of
+//   the stored bytes.
 // * Rounding is half-to-even (__float2int_rn), as jnp.round and torch.round.
 // Built without fast math: __expf would move entries across a rounding
 // boundary of the 127 scale.
@@ -68,7 +69,7 @@ __device__ __forceinline__ float k_entry(const Feat& i, const Feat& j) {
 // grid (ceil(N / kCols), ceil(N / kRows), C); N % 4 == 0
 __global__ void __launch_bounds__(kThreads)
 build_i8_kernel(const unsigned char* __restrict__ imgs, int n, int w, float alpha,
-                float beta, signed char* __restrict__ k8, int* __restrict__ rowsum) {
+                float beta, signed char* __restrict__ k8, float* __restrict__ rowsum) {
   __shared__ Feat srow[kRows];
   __shared__ int spart[kThreads / 32][kRows];
   const long f = blockIdx.z;
@@ -107,34 +108,25 @@ build_i8_kernel(const unsigned char* __restrict__ imgs, int n, int w, float alph
     int s = 0;
 #pragma unroll
     for (int v = 0; v < kThreads / 32; ++v) s += spart[v][threadIdx.x];
-    atomicAdd(rowsum + f * n + i0 + threadIdx.x, s);
+    atomicAdd(rowsum + f * n + i0 + threadIdx.x, static_cast<float>(s));
   }
-}
-
-__global__ void to_float_kernel(const int* __restrict__ src, long count,
-                                float* __restrict__ dst) {
-  const long i = static_cast<long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i < count) dst[i] = static_cast<float>(src[i]);
 }
 
 }  // namespace
 
-// imgs: (C, N, 3) uint8 contiguous, N % 4 == 0; rowsum_i32: (C * N,) int32
-// scratch; k8: (C * N, N) int8; rowsum: (C * N,) f32. Frames are h x w with
-// N = h * w, pixel p at (x, y) = (p % w, p / w). Returns cudaGetLastError().
+// imgs: (C, N, 3) uint8 contiguous, N % 4 == 0; k8: (C * N, N) int8;
+// rowsum: (C * N,) f32. Frames are h x w with N = h * w, pixel p at
+// (x, y) = (p % w, p / w). Returns cudaGetLastError().
 extern "C" int cvt_kernel_i8_build(const void* imgs, int frames, int n, int w,
-                                   float alpha, float beta, void* rowsum_i32,
-                                   void* k8, void* rowsum, void* stream) {
+                                   float alpha, float beta, void* k8, void* rowsum,
+                                   void* stream) {
   if (frames > 0 && n > 0) {
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    const long count = static_cast<long>(frames) * n;
-    cudaMemsetAsync(rowsum_i32, 0, count * sizeof(int), s);
+    cudaMemsetAsync(rowsum, 0, static_cast<long>(frames) * n * sizeof(float), s);
     const dim3 grid((n + kCols - 1) / kCols, (n + kRows - 1) / kRows, frames);
     build_i8_kernel<<<grid, kThreads, 0, s>>>(
         static_cast<const unsigned char*>(imgs), n, w, alpha, beta,
-        static_cast<signed char*>(k8), static_cast<int*>(rowsum_i32));
-    to_float_kernel<<<static_cast<unsigned>((count + 255) / 256), 256, 0, s>>>(
-        static_cast<const int*>(rowsum_i32), count, static_cast<float*>(rowsum));
+        static_cast<signed char*>(k8), static_cast<float*>(rowsum));
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -111,7 +111,7 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.cvt_diff_mask.restype = i
     lib.cvt_bilateral_build.argtypes = [p, i, i, i, f, f, f, p, p, i, p]
     lib.cvt_bilateral_build.restype = i
-    lib.cvt_kernel_i8_build.argtypes = [p, i, i, i, f, f, p, p, p, p]
+    lib.cvt_kernel_i8_build.argtypes = [p, i, i, i, f, f, p, p, p]
     lib.cvt_kernel_i8_build.restype = i
     lib.cvt_matvec_i8.argtypes = [p, p, i, i, i, p, p]
     lib.cvt_matvec_i8.restype = i

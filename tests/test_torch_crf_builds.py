@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+from critic_vae_tpu.crf.device import _sep_conv as jax_sep_conv
 from critic_vae_tpu.crf.device import refine_masks_device as jax_refine
 from critic_vae_tpu.crf.device import refine_masks_multi_device as jax_refine_multi
 from critic_vae_tpu.crf.fused_build import build_kernel_i8 as jax_build_i8
@@ -22,6 +23,7 @@ from critic_vae_tpu_torch.crf.device import (
     BUILD_ENV,
     _chunk_frames,
     _resolve_build,
+    _spatial_norm,
     _spatial_taps,
     refine_masks_device,
     refine_masks_multi_device,
@@ -59,6 +61,18 @@ def episode():
 def _imgs(c, size, seed):
     frames, _ = generate_frames(c, size=size, seed=seed)
     return frames.reshape(c, size * size, 3)
+
+
+@pytest.mark.parametrize("h, w", [(16, 16), (32, 16), (8, 24), (64, 64)])
+def test_spatial_norm_closed_form_matches_jax_conv(h, w):
+    # ns as the JAX resident kernel builds it (fused_resident.py): rsqrt of
+    # the separable conv of ones, less the centre tap
+    taps = _spatial_taps(GAMMA, h, w)
+    conv = np.asarray(jax_sep_conv(jnp.ones((h, w, 1)), jnp.asarray(taps))).reshape(-1, 1)
+    want = 1.0 / np.sqrt(conv.astype(np.float64) - 1.0 + 1e-20)
+    got = _spatial_norm(torch.from_numpy(taps), h, w)
+    assert got.shape == (h * w, 1) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-6)
 
 
 @pytest.mark.parametrize("size", [16, 32])
