@@ -48,12 +48,37 @@ exits non-zero:
    e. ``threshold_sweep`` with build vmem on the first 512 frames: B1, B5
       at T=13; its refined mask sets >= 99.9% as the default build's.
    The builds of c-e are selected as a user selects them, through
-   CRITIC_VAE_TPU_CRF_BUILD.
+   CRITIC_VAE_TPU_CRF_BUILD. Paths a-e run the default (merged) front end;
+10. front end: at full width, 512 frames, ``episode_forward`` with each
+   formulation (merged; fused_pool=True, i.e. critic "s2d" and encoder
+   FUSED_POOL_SERVING; fused_pool=(True,)*4; fold_bn; pool_impl="strided";
+   block0_f32) against the split front end, in float32 with TF32 off
+   (preds <= 1e-4, uint8 diff maps >= 99.9% within one level, threshold-50
+   masks >= 99.8% identical) and in bfloat16 (preds <= 2^-6, four bf16
+   ulps below 1; the maps' agreement printed beside bf16's own noise floor,
+   split bf16 against split float32). Then each formulation's bf16 device-stage
+   frames/s at chunk 512 and a torch.profiler breakdown of the default
+   stage's kernels;
+11. probe P1 (caps_probe): its entry path on the card with the launch count
+   set to 0 just before and read just after; its three answers must be
+   true, and each question's kernel is held against its plain version
+   (Q1, Q2 exact; Q3 <= 1e-5 relative);
+12. probe P2 (copy_floor_probe): its entry path (both variants timed at
+   B=1024, F=4, and the cuDNN merged front end) with the launch count read
+   as in 11; then both variants at B=1024 against the plain version (within
+   one bf16 ulp, or 1e-5 where f32 order moves a sum across 0 under the
+   ReLU), and on 8 real frames with the merged 3->40 weights against ReLU of
+   the phase max of s2d_conv_pool2_phases in f32 (within 2^-8 relative +
+   1e-5: one bf16 rounding).
 
-The second-to-last line is a JSON object with each kernel's launches on the
-main paths, error against its plain version and times; the last line is
-{"ok": true, "device": {...}}. Without CUDA the script fails and prints no
-result. About one minute on an H100, the build (~20 s) included.
+The second-to-last line is a JSON object with, for each of the seven kernels
+(B1-B5, P1, P2), its launches on the path that runs it, its error against
+its plain version, its times, its bound (the larger of its bytes over the
+HBM rate and its operations over the peak rate of their type, from this
+run's shapes) and the time of one PyTorch call computing the same function
+where there is one; the last line is {"ok": true, "device": {...}}. Without
+CUDA the script fails and prints no result. About 1.5 minutes on an H100,
+the build (~25 s) included.
 """
 
 from __future__ import annotations
@@ -74,6 +99,23 @@ H = W = 64
 NPIX = H * W
 SWEEP_T = 13               # the reference's -thresh sweep, 0..120 step 10
 SWEEP_VMEM_FRAMES = 512    # frames of the vmem sweep path (9e)
+FRONT_FRAMES = 512         # frames of the front-end phase (10)
+BF16_PRED_BAR = 2.0 ** -6  # bf16 preds across front ends: 4 bf16 ulps below 1
+# the card's published peaks (H100 SXM, dense): the bounds of the kernels line
+HBM_BYTES_PER_S = 3.35e12
+BF16_FLOPS = 989e12        # tensor cores
+F32_FLOPS = 67e12          # float32 outside the tensor cores
+# float32 operations of one bilateral kernel entry (5 feature differences, 5
+# squares, 4 sums, 1 scale, 1 exp): a lower count, as a bound wants
+ENTRY_OPS = 16
+FRONT_ENDS = {
+    "merged": dict(front_end="merged"),
+    "fused_pool": dict(fused_pool=True),
+    "fused_pool_all": dict(fused_pool=(True, True, True, True)),
+    "fold_bn": dict(fold_bn=True),
+    "strided": dict(pool_impl="strided"),
+    "block0_f32": dict(block0_f32=True),
+}
 
 
 def log(msg: str) -> None:
@@ -99,6 +141,32 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def bound(nbytes: float, ops) -> dict:
+    """``bound_ms``: the larger of ``nbytes`` over the HBM rate and the
+    operations ``ops`` ((count, peak per second) pairs) over their peaks."""
+    t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
+    t_ops = 1e3 * sum(count / peak for count, peak in ops)
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+@contextlib.contextmanager
+def no_tf32():
+    """float32 parity: no TF32 in convs or matmuls, no reduced bf16 reductions."""
+    import torch
+
+    flags = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    try:
+        yield
+    finally:
+        (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction) = flags
 
 
 def timed(fn, iters: int, warmup: int = 2):
@@ -388,13 +456,7 @@ def phase_golden(dev, critic, vae):
 
     gold = np.load(ROOT / "tests" / "golden" / "torch_slice_golden.npz")
     frames, gt = generate_frames(int(gold["num_frames"]), seed=int(gold["seed"]))
-    flags = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32,
-             torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction)
-    # float32 parity: no TF32 in convs or matmuls, no reduced bf16 reductions
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
-    try:
+    with no_tf32():
         res = eval_episode(vae, critic, frames, gt, device=dev,
                            threshold=int(gold["threshold"]), run_crf=False,
                            compute_dtype="float32")
@@ -403,9 +465,6 @@ def phase_golden(dev, critic, vae):
                                     compute_dtype="float32", device=dev)
         crf16 = refine_masks_device(frames, thr_dev, REFERENCE_CRF_PARAMS,
                                     compute_dtype="bfloat16", device=dev)
-    finally:
-        (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32,
-         torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction) = flags
     thr_gold = np.unpackbits(gold["thr_bits"], axis=-1).astype(bool)
     crf_gold = np.unpackbits(gold["crf_bits"], axis=-1).astype(bool)
     pred_err = float(np.abs(res.preds - gold["preds"]).max())
@@ -591,6 +650,214 @@ def phase_main(dev, critic, vae):
     return {name: sum(p[name] for p in paths.values()) for name in la}
 
 
+def _u8_thr(out):
+    from critic_vae_tpu_torch.ops.mask import normalize_diffs
+
+    u8, _ = normalize_diffs(out["diff"], out["max_value"])
+    return u8, u8 > 50
+
+
+def phase_front_end(dev, critic, vae):
+    """Each front-end formulation against split, then their bf16 rates and
+    the default stage's kernels."""
+    import torch
+
+    from critic_vae_tpu_torch.data.synthetic import generate_frames
+    from critic_vae_tpu_torch.ops.mask import episode_forward
+
+    frames, _ = generate_frames(FRONT_FRAMES, seed=9)
+    fr = torch.from_numpy(frames).to(dev)
+
+    def agreement(out, base):
+        (u8, thr), (bu8, bthr) = _u8_thr(out), _u8_thr(base)
+        return ((out["preds"] - base["preds"]).abs().max().item(),
+                ((u8.int() - bu8.int()).abs() <= 1).double().mean().item(),
+                (thr == bthr).double().mean().item())
+
+    with no_tf32():
+        split32 = episode_forward(vae, critic, fr, compute_dtype="float32", front_end="split")
+        for name, kw in FRONT_ENDS.items():
+            err, within1, same = agreement(
+                episode_forward(vae, critic, fr, compute_dtype="float32", **kw), split32)
+            log(f"[10 front end] {name} vs split, float32, TF32 off: preds max_abs_err "
+                f"{err:.3e} (bar 1e-4); diff_u8 within 1 level {within1:.6f} (bar 0.999); "
+                f"thr masks identical {same:.6f} (bar 0.998)")
+            require(err <= 1e-4 and within1 >= 0.999 and same >= 0.998,
+                    f"front end {name} float32 misses a bar")
+    # bf16: the preds are held to BF16_PRED_BAR; the diff maps, differences of
+    # two bf16 decodes, move with any change of rounding, so their agreement is
+    # printed beside the noise floor of bf16 split against float32 split
+    split16 = episode_forward(vae, critic, fr, compute_dtype="bfloat16", front_end="split")
+    _, within1, same = agreement(split16, split32)
+    log(f"[10 front end] noise floor, split bf16 vs split float32: diff_u8 within 1 level "
+        f"{within1:.6f}; thr masks identical {same:.6f}")
+    for name, kw in FRONT_ENDS.items():
+        err, within1, same = agreement(
+            episode_forward(vae, critic, fr, compute_dtype="bfloat16", **kw), split16)
+        log(f"[10 front end] {name} vs split, bfloat16: preds max_abs_err {err:.3e} (bar "
+            f"{BF16_PRED_BAR:.3e}); diff_u8 within 1 level {within1:.6f}; thr masks identical "
+            f"{same:.6f}")
+        require(err <= BF16_PRED_BAR, f"front end {name} bfloat16: preds error {err}")
+    for name, kw in (("split", dict(front_end="split")), ("auto (merged)", {}),
+                     *FRONT_ENDS.items()):
+        ms = cuda_ms(lambda: episode_forward(vae, critic, fr, compute_dtype="bfloat16", **kw),
+                     iters=10)
+        log(f"[10 front end] {name}: device stage {FRONT_FRAMES / ms * 1e3:.1f} frames/s "
+            f"({ms:.4f} ms per {FRONT_FRAMES}-frame chunk, bf16)")
+    reps = 3
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA],
+                                record_shapes=True) as prof:
+        for _ in range(reps):
+            episode_forward(vae, critic, fr, compute_dtype="bfloat16")
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages() if str(e.device_type).endswith("CUDA")]
+    kernels.sort(key=lambda e: e.self_device_time_total, reverse=True)
+    total = sum(e.self_device_time_total for e in kernels)
+    log(f"[10 front end] profile of the default stage (bf16, chunk {FRONT_FRAMES}): "
+        f"{total / reps / 1e3:.4f} ms of kernels per chunk")
+    for e in kernels[:14]:
+        log(f"[10 front end]   {e.self_device_time_total / reps / 1e3:9.4f} ms "
+            f"{e.self_device_time_total / max(total, 1):6.1%}  x{e.count // reps:<3d} {e.key[:110]}")
+    # which convs: device time of each conv call (its layout transforms
+    # included) by input and weight shape
+    convs = [e for e in prof.key_averages(group_by_input_shape=True)
+             if e.key == "aten::convolution"]
+    convs.sort(key=lambda e: e.device_time_total, reverse=True)
+    for e in convs:
+        log(f"[10 front end]   conv {e.device_time_total / reps / 1e3:9.4f} ms "
+            f"{e.device_time_total / max(total, 1):6.1%}  x{e.count // reps:<3d} input "
+            f"{e.input_shapes[0]} weight {e.input_shapes[1]}")
+
+
+def phase_p1(dev):
+    """Probe P1 through its entry path, then each question's kernel against
+    its plain version."""
+    import torch
+
+    from critic_vae_tpu_torch.kernels import build as kb
+    from critic_vae_tpu_torch.probes import caps_probe as p1
+
+    torch.cuda.synchronize()
+    kb.reset_launches()
+    res = p1.run(dev)
+    torch.cuda.synchronize()
+    launches = kb.LAUNCHES["caps_probe"]
+    for key, how in p1.INSTRUCTIONS.items():
+        log(f"[11 P1 caps_probe] {key}: {res[key]} -- {how}")
+    require(all(res[k] is True for k in p1.INSTRUCTIONS), f"P1 answers {res}")
+    require(launches >= 3, f"P1: {launches} launches")
+    x1, x2, x3, w3 = p1.probe_inputs(dev)
+    pairs = ((lambda: p1.q1_lane_offset_write(x1), lambda: p1.q1_reference(x1)),
+             (lambda: p1.q2_phase_max_40(x2), lambda: p1.q2_reference(x2)),
+             (lambda: p1.q3_fori_dyn_dot(x3, w3), lambda: p1.q3_reference(x3, w3)))
+    errs, ms, plain_ms = [], 0.0, 0.0
+    for q, (kern, plain) in enumerate(pairs, 1):
+        k, r = kern(), plain()
+        torch.cuda.synchronize()
+        errs.append((k - r).abs().max().item())
+        scale = r.abs().max().item()
+        bar = 0.0 if q < 3 else 1e-5 * scale
+        k_ms, p_ms = cuda_ms(kern, iters=50), cuda_ms(plain, iters=50)
+        ms, plain_ms = ms + k_ms, plain_ms + p_ms
+        log(f"[11 P1 caps_probe] Q{q} kernel vs plain: max_abs_err {errs[-1]:.3e} (bar "
+            f"{bar:.3e}); kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms")
+        require(errs[-1] <= bar, f"P1 Q{q}: error {errs[-1]}")
+    nbytes = (128 * 20 + 128 * 128) * 4 + (128 * 160 + 128 * 40) * 4 + (
+        256 * 128 * 2 + 128 * 160 * 2 + 128 * 160 * 4)
+    return {"launches": launches, "max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms,
+            **bound(nbytes, [(2 * 128 * 128 * 160, BF16_FLOPS)]), "library_ms": None}
+
+
+def phase_p2(dev, critic, vae):
+    """Probe P2 through its entry path, then the kernel against its plain
+    version at B=1024 and against the s2d phase conv on real frames."""
+    import torch
+    import torch.nn.functional as F
+
+    from critic_vae_tpu_torch.data.synthetic import generate_frames
+    from critic_vae_tpu_torch.kernels import build as kb
+    from critic_vae_tpu_torch.ops.mask import merged_conv0_weight
+    from critic_vae_tpu_torch.probes import copy_floor_probe as p2
+
+    torch.cuda.synchronize()
+    kb.reset_launches()
+    res = p2.run(dev)
+    torch.cuda.synchronize()
+    launches = kb.LAUNCHES["front_end_probe"]
+    log(f"[12 P2 copy_floor_probe] B={res['frames']} F={res['frames_per_block']}: dot_only "
+        f"{res['dot_only_ms']:.4f} ms, copies_and_dot {res['copies_and_dot_ms']:.4f} ms, "
+        f"copy_floor {res['copy_floor_ms']:.4f} ms ({res['ns_per_copy']:.4f} ns per copy), "
+        f"cudnn_front_end {res['cudnn_front_end_ms']:.4f} ms; {launches} launches")
+    require(launches > 0, "P2: the probe launched no kernel")
+    b = p2.FRAMES
+    x, w = p2.probe_inputs(b, dev)
+    err = 0.0
+    for copies in (True, False):
+        k = p2.front_end_probe(x, w, copies=copies)
+        r = p2.front_end_probe_reference(x, w, copies=copies)
+        torch.cuda.synchronize()
+        ulps = (k.view(torch.int16).int() - r.view(torch.int16).int()).abs()
+        diff = (k.float() - r.float()).abs()
+        ok = ((ulps <= 1) | (diff <= 1e-5)).double().mean().item()
+        err = max(err, diff.max().item())
+        log(f"[12 P2 copy_floor_probe] {'copies_and_dot' if copies else 'dot_only'} B={b} vs "
+            f"plain: within 1 bf16 ulp (or 1e-5) {ok:.8f} (bar 1), max_abs_err "
+            f"{diff.max().item():.3e}, max {ulps.max().item()} ulp")
+        require(ok == 1.0, f"P2 copies={copies}: {ok} of outputs within the bar")
+        del k, r, ulps, diff
+    plain_ms = cuda_ms(lambda: p2.front_end_probe_reference(x, w), iters=3, warmup=1)
+    xs = x.view(b, p2.S2D_SIDE, p2.S2D_SIDE, p2.S2D_C).permute(0, 3, 1, 2)
+    w3 = w[:p2.PATCH].view(3, 3, p2.S2D_C, p2.N).permute(3, 2, 0, 1).contiguous()
+    library_ms = cuda_ms(lambda: F.conv2d(xs, w3), iters=10)
+    log(f"[12 P2 copy_floor_probe] plain {plain_ms:.4f} ms; library (cuDNN s2d 3x3 conv, "
+        f"12->160, the product without the phase max and ReLU) {library_ms:.4f} ms")
+    frames, _ = generate_frames(8, seed=7)
+    fr = (torch.from_numpy(frames).to(dev).float() / 255.0).to(torch.bfloat16)
+    fr = fr.permute(0, 3, 1, 2)
+    wm = merged_conv0_weight(vae, critic).to(torch.bfloat16)
+    xo, wo = p2.front_end_operands(fr, wm)
+    k = p2.front_end_probe(xo, wo)
+    with no_tf32():
+        ref = p2.pooled_phase_relu(fr.float(), wm.float())
+    torch.cuda.synchronize()
+    real_diff = (k.float() - ref).abs()
+    share = (real_diff <= 2.0 ** -8 * ref.abs() + 1e-5).double().mean().item()
+    real_err = real_diff.max().item()
+    log(f"[12 P2 copy_floor_probe] 8 real frames, merged 3->40 weights: kernel vs ReLU of "
+        f"the phase max of s2d_conv_pool2_phases (f32): within 2^-8 relative + 1e-5 "
+        f"{share:.8f} (bar 1), max_abs_err {real_err:.3e}")
+    require(share == 1.0, f"P2 real-data check: {share}")
+    nbytes = x.numel() * 2 + w.numel() * 2 + b * p2.OUT_ROWS * p2.PHASE_C * 2
+    return {"launches": launches, "max_abs_err": err,
+            "ms": res["copies_and_dot_ms"], "plain_ms": plain_ms,
+            **bound(nbytes, [(2 * b * p2.OUT_ROWS * p2.K * p2.N, BF16_FLOPS)]),
+            "library_ms": library_ms, "dot_only_ms": res["dot_only_ms"],
+            "copy_floor_ms": res["copy_floor_ms"],
+            "cudnn_front_end_ms": res["cudnn_front_end_ms"]}
+
+
+def crf_bounds():
+    """Bounds of B1-B5 at the shapes their phases time: B1 at (512, 3, 64,
+    64) bf16; B2-B5 at C=64 frames of N=4096 pixels; B4 with L=2; B5 with 10
+    iterations at T=1 and T=13."""
+    c, n = CRF_CHUNK, NPIX
+    pix = MAIN_BATCH * NPIX
+    b1 = bound(2 * 3 * pix * 2 + pix * 4 + MAIN_BATCH * 4, [(pix * 19, F32_FLOPS)])
+    build = (c * n * n * ENTRY_OPS, F32_FLOPS)
+    b2 = bound(c * n * 3 + c * n * n * 2, [build])
+    b3 = bound(c * n * 3 + c * n * n + c * n * 4, [build])
+    b4 = bound(c * n * n + 2 * c * n * 2 * 4, [(2 * c * n * n * 2, BF16_FLOPS)])
+
+    def b5(t, iters=10):  # frames, probabilities in and out (the < 1 KB taps left out)
+        return bound(c * n * 3 + 2 * c * n * 2 * t * 4,
+                     [build, (iters * 2 * c * n * n * 2 * t, BF16_FLOPS)])
+
+    t13 = b5(SWEEP_T)
+    return b1, b2, b3, b4, {**b5(1), "bound_ms_t13": t13["bound_ms"],
+                            "bound_by_t13": t13["bound_by"]}
+
+
 def main() -> int:
     try:
         import torch
@@ -618,28 +885,38 @@ def main() -> int:
     critic, vae = _models(dev)
     phase_golden(dev, critic, vae)
     launches = phase_main(dev, critic, vae)
+    phase_front_end(dev, critic, vae)
+    p1 = phase_p1(dev)
+    p2 = phase_p2(dev, critic, vae)
+    bounds = dict(zip(("b1", "b2", "b3", "b4", "b5"), crf_bounds()))
 
     kernels = [
         {"name": "diff_mask", "route": "cuda",
          "source": "critic_vae_tpu_torch/csrc/diff_mask.cu",
          "replaces": "critic_vae_tpu/ops/pallas_kernels.py:74",
-         "launches": launches["diff_mask"], **b1},
+         "launches": launches["diff_mask"], **b1, **bounds["b1"], "library_ms": None},
         {"name": "bilateral_build", "route": "cuda",
          "source": "critic_vae_tpu_torch/csrc/bilateral_build.cu",
          "replaces": "critic_vae_tpu/crf/fused_build.py:97",
-         "launches": launches["bilateral_build"], **b2},
+         "launches": launches["bilateral_build"], **b2, **bounds["b2"], "library_ms": None},
         {"name": "kernel_i8_build", "route": "cuda",
          "source": "critic_vae_tpu_torch/csrc/kernel_i8_build.cu",
          "replaces": "critic_vae_tpu/crf/fused_build.py:195",
-         "launches": launches["kernel_i8_build"], **b3},
+         "launches": launches["kernel_i8_build"], **b3, **bounds["b3"], "library_ms": None},
         {"name": "matvec_i8", "route": "cuda",
          "source": "critic_vae_tpu_torch/csrc/matvec_i8.cu",
          "replaces": "critic_vae_tpu/crf/fused_build.py:258",
-         "launches": launches["matvec_i8"], **b4},
+         "launches": launches["matvec_i8"], **b4, **bounds["b4"], "library_ms": None},
         {"name": "mean_field_resident", "route": "cuda",
          "source": "critic_vae_tpu_torch/csrc/mean_field_resident.cu",
          "replaces": "critic_vae_tpu/crf/fused_resident.py:226",
-         "launches": launches["mean_field_resident"], **b5},
+         "launches": launches["mean_field_resident"], **b5, **bounds["b5"], "library_ms": None},
+        {"name": "caps_probe", "route": "cuda",
+         "source": "critic_vae_tpu_torch/csrc/caps_probe.cu",
+         "replaces": "examples/mosaic_caps_probe.py:33", **p1},
+        {"name": "front_end_probe", "route": "cuda",
+         "source": "critic_vae_tpu_torch/csrc/front_end_probe.cu",
+         "replaces": "examples/mosaic_copy_floor_probe.py:37", **p2},
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -8,9 +8,10 @@ can be held against each other on the same inputs. Inside, models run NCHW
 as ``nn.Module``s and every function takes an explicit ``device``.
 
 The TPU kernels on the mask-video path, its threshold sweep and the
-``int8``/``vmem`` CRF builds are hand-written CUDA C++ under ``csrc/``
-(built by ``kernels/build.py`` at first use); each wrapper takes its plain
-PyTorch version only for CPU tensors. This package imports torch
+``int8``/``vmem`` CRF builds, and the probes of the fused front-end kernel
+(``probes/``), are hand-written CUDA C++ under ``csrc/`` (built by
+``kernels/build.py`` at first use); each wrapper takes its plain PyTorch
+version only for CPU tensors. This package imports torch
 and numpy, never jax.
 """
 

@@ -5,8 +5,8 @@ one ``nvcc`` per source, all started together, and the objects are linked
 into one shared library with a plain C interface, which is loaded with
 ``ctypes``. The build happens at the first kernel launch of the process, so
 the first run on a fresh checkout pays the slowest source's ``nvcc``; the
-library is named by a hash of its sources and flags, so an edit rebuilds it
-and a stale library is never loaded.
+library is named by a hash of its sources, their headers (``csrc/*.cuh``)
+and flags, so an edit rebuilds it and a stale library is never loaded.
 
 Fast math is deliberately off: ``--use_fast_math`` swaps in the approximate
 ``__expf``/``tanhf`` and flushes denormals to zero, which changes the
@@ -39,7 +39,7 @@ NVCC_FLAGS = (
 # launches per kernel since the last reset_launches(); each wrapper adds one
 # where it launches its kernel and nowhere else
 LAUNCHES = {"diff_mask": 0, "bilateral_build": 0, "kernel_i8_build": 0, "matvec_i8": 0,
-            "mean_field_resident": 0}
+            "mean_field_resident": 0, "caps_probe": 0, "front_end_probe": 0}
 
 _LOCK = threading.Lock()
 _LIB: ctypes.CDLL | None = None
@@ -72,7 +72,7 @@ def link_command(objs: list[Path], output: Path) -> list[str]:
 
 def library_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources():
+    for src in sources() + sorted(CSRC.glob("*.cuh")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libcvt_kernels-{h.hexdigest()[:16]}.so"
@@ -118,6 +118,12 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.cvt_mean_field_resident.argtypes = [p, p, p, i, i, i, i, f, f, f, f, f, i,
                                             p, p, p, p, p, p, p]
     lib.cvt_mean_field_resident.restype = i
+    lib.cvt_caps_q1.argtypes = [p, p, p]
+    lib.cvt_caps_q2.argtypes = [p, p, p]
+    lib.cvt_caps_q3.argtypes = [p, p, p, p]
+    lib.cvt_front_end_probe.argtypes = [p, p, i, i, i, p, p]
+    for fn in (lib.cvt_caps_q1, lib.cvt_caps_q2, lib.cvt_caps_q3, lib.cvt_front_end_probe):
+        fn.restype = i
     return lib
 
 

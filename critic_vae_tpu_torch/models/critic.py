@@ -7,6 +7,12 @@ sigmoid. Dropout is train-only in the reference and absent here.
 
 Parameters stay float32; as in the JAX package, each layer casts its weights
 to the input's dtype, so a bfloat16 input runs the whole net in bfloat16.
+
+The serving formulations of ``critic_apply`` are options of
+:meth:`Critic.forward`: the phase-packed (``fused_pool=True``) and
+space-to-depth (``"s2d"``, first block only) conv+pool of ops/poolconv.py,
+the float32 first conv (``block0_f32``) and the resume point
+``start_block`` of the merged front end (ops/mask.py).
 """
 
 from __future__ import annotations
@@ -15,16 +21,20 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-
-def conv(layer: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
-    """``layer`` applied in ``x``'s dtype (weights cast per call, as the JAX
-    package does; the float32 master weights are never rounded in place)."""
-    return F.conv2d(x, layer.weight.to(x.dtype), layer.bias.to(x.dtype),
-                    padding=layer.padding)
+from critic_vae_tpu_torch.ops.poolconv import conv_pool2_max, s2d_conv_pool2_phases
 
 
-def linear(layer: nn.Linear, x: torch.Tensor) -> torch.Tensor:
-    return F.linear(x, layer.weight.to(x.dtype), layer.bias.to(x.dtype))
+def conv(layer: nn.Conv2d, x: torch.Tensor, dtype: torch.dtype | None = None) -> torch.Tensor:
+    """``layer`` applied with its weights cast to ``dtype`` (default x's
+    dtype), per call, as the JAX package does; the float32 master weights are
+    never rounded in place."""
+    dtype = x.dtype if dtype is None else dtype
+    return F.conv2d(x, layer.weight.to(dtype), layer.bias.to(dtype), padding=layer.padding)
+
+
+def linear(layer: nn.Linear, x: torch.Tensor, dtype: torch.dtype | None = None) -> torch.Tensor:
+    dtype = x.dtype if dtype is None else dtype
+    return F.linear(x, layer.weight.to(dtype), layer.bias.to(dtype))
 
 
 class Critic(nn.Module):
@@ -38,10 +48,31 @@ class Critic(nn.Module):
         self.fc0 = nn.Linear(bottleneck, bottleneck)
         self.fc1 = nn.Linear(bottleneck, 1)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """x (B, 3, 64, 64) in [0, 1] -> (B, 1) probabilities, in x's dtype."""
-        for layer in self.convs:
-            x = F.max_pool2d(F.relu(conv(layer, x)), 2)
-        h = F.relu(conv(self.conv4, x)).flatten(1)
-        h = F.relu(linear(self.fc0, h))
-        return torch.sigmoid(linear(self.fc1, h))
+    def forward(self, x: torch.Tensor, *, fused_pool: bool | str = False,
+                block0_f32: bool = False, downstream_dtype: torch.dtype | None = None,
+                start_block: int = 0) -> torch.Tensor:
+        """x (B, 3, 64, 64) in [0, 1] -> (B, 1) probabilities.
+
+        ``fused_pool``: ``True`` runs every block as the phase-packed
+        stride-2 conv; ``"s2d"`` runs the first block as the space-to-depth
+        3×3 phase conv. ``block0_f32``: the first conv in float32, its output
+        cast to ``downstream_dtype``. ``downstream_dtype``: the dtype of
+        everything after block 0 (default x's). ``start_block``: resume at
+        this block with x the previous block's post-pool activation."""
+        dtype = x.dtype if downstream_dtype is None else downstream_dtype
+        for i in range(start_block, len(self.convs)):
+            layer = self.convs[i]
+            if fused_pool == "s2d" and i == 0:
+                y = s2d_conv_pool2_phases(x, layer.weight.to(dtype))
+                x = F.relu(y.amax(dim=1) + layer.bias.to(dtype)[:, None, None])
+            elif fused_pool is True:
+                x = F.relu(conv_pool2_max(x, layer.weight.to(dtype), layer.bias.to(dtype)))
+            else:
+                if block0_f32 and i == 0:
+                    x = conv(layer, x.float()).to(dtype)
+                else:
+                    x = conv(layer, x, dtype)
+                x = F.max_pool2d(F.relu(x), 2)
+        h = F.relu(conv(self.conv4, x, dtype)).flatten(1)
+        h = F.relu(linear(self.fc0, h, dtype))
+        return torch.sigmoid(linear(self.fc1, h, dtype))

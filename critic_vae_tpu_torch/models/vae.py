@@ -12,27 +12,50 @@ NCHW makes the JAX package's channel-major flatten/unflatten (its
 transposes around the fc layers) the natural ``view``. BatchNorm runs in
 float32 and casts back to the activation dtype, as the JAX package's
 ``_batchnorm`` does; every other layer runs in the input's dtype.
+
+``Encoder.forward`` takes the serving options of the JAX ``encode``: the
+phase-packed or space-to-depth conv+pool per block (``fused_pool``, BN per
+phase before the max), BatchNorm folded into the conv (``fold_bn``), the
+strided-slice pool (``pool_impl="strided"``), the float32 first conv
+(``block0_f32``) and the merged front end's resume point (``start_block``).
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from critic_vae_tpu_torch.models.critic import conv, linear
+from critic_vae_tpu_torch.ops.poolconv import conv_pool2_phases, s2d_conv_pool2_phases
 
 ENCODER_DIMS = (32, 64, 128, 256)
 LATENT_DIM = 32
 BOTTLENECK = 4096
 BN_EPS = 1e-5
+POOL_IMPLS = ("reduce_window", "strided")
+
+# ``fused_pool=True`` per block (the JAX package's FUSED_POOL_SERVING):
+# space-to-depth for the 3-channel first block, the plain graph after it
+FUSED_POOL_SERVING = ("s2d", False, False, False)
 
 
 def batchnorm_eval(bn: nn.BatchNorm2d, x: torch.Tensor) -> torch.Tensor:
-    """Eval-mode BatchNorm in float32, cast back to x's dtype."""
+    """Eval-mode BatchNorm in float32 over dim -3 (channels of (..., C, H,
+    W)), cast back to x's dtype."""
     inv = torch.rsqrt(bn.running_var + bn.eps) * bn.weight
     y = (x.float() - bn.running_mean[:, None, None]) * inv[:, None, None]
     return (y + bn.bias[:, None, None]).to(x.dtype)
+
+
+def maxpool2_strided(x: torch.Tensor) -> torch.Tensor:
+    """2×2 max-pool as three elementwise maxima over strided slices: the
+    same candidate set as the window pool."""
+    return torch.maximum(torch.maximum(x[..., ::2, ::2], x[..., ::2, 1::2]),
+                         torch.maximum(x[..., 1::2, ::2], x[..., 1::2, 1::2]))
+
 
 
 class Encoder(nn.Module):
@@ -47,11 +70,48 @@ class Encoder(nn.Module):
         self.fc_mu = nn.Linear(bottleneck, latent_dim)
         self.fc_var = nn.Linear(bottleneck, latent_dim)
 
-    def forward(self, x: torch.Tensor):
-        """x (B, 3, 64, 64) -> (mu, logvar), each (B, latent)."""
+    def forward(self, x: torch.Tensor, *, fused_pool: bool | tuple = False,
+                fold_bn: bool = False, pool_impl: str = "reduce_window",
+                block0_f32: bool = False, start_block: int = 0,
+                downstream_dtype: torch.dtype | None = None):
+        """x (B, 3, 64, 64) -> (mu, logvar), each (B, latent).
+
+        ``fused_pool``: ``True`` is :data:`FUSED_POOL_SERVING`; a 4-tuple
+        picks per block ``False``, ``True`` (phase-packed stride-2 conv) or
+        ``"s2d"``. ``fold_bn``: BN folded into the conv in float32 (w·k,
+        (b − mean)·k + β) before the cast. ``pool_impl``: ``"reduce_window"``
+        or ``"strided"``. ``block0_f32``: the first conv in float32, cast to
+        ``downstream_dtype`` (default x's) before BN. ``start_block``: resume
+        at this block with x the previous block's post-activation output."""
+        if fused_pool is True:
+            fused_pool = FUSED_POOL_SERVING
+        elif fused_pool is False:
+            fused_pool = (False,) * len(self.convs)
+        if pool_impl not in POOL_IMPLS:
+            raise ValueError(f"unknown pool_impl {pool_impl!r}")
+        pool = maxpool2_strided if pool_impl == "strided" else functools.partial(
+            F.max_pool2d, kernel_size=2)
+        out_dtype = x.dtype if downstream_dtype is None else downstream_dtype
         last = len(self.convs) - 1
-        for i, (layer, bn) in enumerate(zip(self.convs, self.bns)):
-            x = F.max_pool2d(batchnorm_eval(bn, conv(layer, x)), 2)
+        for i in range(start_block, len(self.convs)):
+            layer, bn = self.convs[i], self.bns[i]
+            if fused_pool[i]:
+                phase_conv = (s2d_conv_pool2_phases if fused_pool[i] == "s2d"
+                              else conv_pool2_phases)
+                y = phase_conv(x, layer.weight.to(x.dtype))
+                y = y + layer.bias.to(x.dtype)[:, None, None]
+                x = batchnorm_eval(bn, y).amax(dim=1)  # BN per phase, then the pool
+            elif fold_bn:
+                k = torch.rsqrt(bn.running_var + bn.eps) * bn.weight
+                w = layer.weight * k[:, None, None, None]
+                b = (layer.bias - bn.running_mean) * k + bn.bias
+                x = pool(F.conv2d(x, w.to(x.dtype), b.to(x.dtype), padding=layer.padding))
+            else:
+                f32_first = block0_f32 and i == 0
+                x = conv(layer, x.float() if f32_first else x)
+                if f32_first:
+                    x = x.to(out_dtype)
+                x = pool(batchnorm_eval(bn, x))
             x = torch.tanh(x) if i == last else F.relu(x)
         flat = x.flatten(1)
         return linear(self.fc_mu, flat), linear(self.fc_var, flat)
@@ -93,8 +153,9 @@ class VAE(nn.Module):
         self.encoder = Encoder(dims, channels, latent_dim, bottleneck)
         self.decoder = Decoder(dims, channels, latent_dim, bottleneck)
 
-    def encode(self, x: torch.Tensor):
-        return self.encoder(x)
+    def encode(self, x: torch.Tensor, **options):
+        """(mu, logvar); ``options`` are :meth:`Encoder.forward`'s."""
+        return self.encoder(x, **options)
 
     def decode(self, z: torch.Tensor, value: torch.Tensor,
                apply_tanh: bool = True) -> torch.Tensor:

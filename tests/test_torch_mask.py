@@ -51,7 +51,8 @@ def test_diff_mask_wrapper_checks_and_counts_nothing_on_cpu():
     diff_mask(a, b)
     diff_mask(a.bfloat16(), b.bfloat16())
     assert kb.LAUNCHES == {"diff_mask": 0, "bilateral_build": 0, "kernel_i8_build": 0,
-                           "matvec_i8": 0, "mean_field_resident": 0}
+                           "matvec_i8": 0, "mean_field_resident": 0, "caps_probe": 0,
+                           "front_end_probe": 0}
     with pytest.raises(ValueError):
         diff_mask(a[:, :2], b[:, :2])
     with pytest.raises(TypeError):

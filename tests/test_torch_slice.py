@@ -135,7 +135,7 @@ def test_device_honesty():
             assert all(Path(s).parent == kb.CSRC for s in cmd if s.endswith(".cu"))
     assert {p.name for p in kb.sources()} == {
         "diff_mask.cu", "bilateral_build.cu", "kernel_i8_build.cu", "matvec_i8.cu",
-        "mean_field_resident.cu"}
+        "mean_field_resident.cu", "caps_probe.cu", "front_end_probe.cu"}
     rel = kb.BUILD_DIR.relative_to(ROOT).as_posix() + "/"
     assert rel in (ROOT / ".gitignore").read_text().splitlines()
     # CPU runs never count a launch
@@ -145,4 +145,5 @@ def test_device_honesty():
                                                             bottleneck=256))
     eval_episode(vae, _critic(), frames, gt, device=CPU, crf_backend="device")
     assert kb.LAUNCHES == {"diff_mask": 0, "bilateral_build": 0, "kernel_i8_build": 0,
-                           "matvec_i8": 0, "mean_field_resident": 0}
+                           "matvec_i8": 0, "mean_field_resident": 0, "caps_probe": 0,
+                           "front_end_probe": 0}
