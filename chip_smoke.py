@@ -55,21 +55,23 @@ exits non-zero:
    block0_f32) against the split front end, in float32 with TF32 off
    (preds <= 1e-4, uint8 diff maps >= 99.9% within one level, threshold-50
    masks >= 99.8% identical) and in bfloat16 (preds <= 2^-6, four bf16
-   ulps below 1; the maps' agreement printed beside bf16's own noise floor,
-   split bf16 against split float32). Then each formulation's bf16 device-stage
-   frames/s at chunk 512 and a torch.profiler breakdown of the default
-   stage's kernels;
+   ulps below 1; diff maps within one level and masks identical to split's
+   at least as often as split bf16's are to split float32's, bf16's own
+   noise floor). Then each formulation's bf16 device-stage frames/s at
+   chunk 512 and a torch.profiler breakdown of the default stage's kernels;
 11. probe P1 (caps_probe): its entry path on the card with the launch count
    set to 0 just before and read just after; its three answers must be
    true, and each question's kernel is held against its plain version
    (Q1, Q2 exact; Q3 <= 1e-5 relative);
 12. probe P2 (copy_floor_probe): its entry path (both variants timed at
-   B=1024, F=4, and the cuDNN merged front end) with the launch count read
-   as in 11; then both variants at B=1024 against the plain version (within
-   one bf16 ulp, or 1e-5 where f32 order moves a sum across 0 under the
-   ReLU), and on 8 real frames with the merged 3->40 weights against ReLU of
-   the phase max of s2d_conv_pool2_phases in f32 (within 2^-8 relative +
-   1e-5: one bf16 rounding).
+   B=1024, F=4; from NCHW frames the fused path, s2d packing plus kernel,
+   beside the same function by library calls; and the cuDNN merged front
+   end) with the launch count read as in 11; then both variants at B=1024
+   against the plain version (within one bf16 ulp, or 1e-5 where f32 order
+   moves a sum across 0 under the ReLU), and on 8 real frames with the
+   merged 3->40 weights against ReLU of the phase max of
+   s2d_conv_pool2_phases in f32 (within 2^-8 relative + 1e-5: one bf16
+   rounding).
 
 The second-to-last line is a JSON object with, for each of the seven kernels
 (B1-B5, P1, P2), its launches on the path that runs it, its error against
@@ -127,22 +129,6 @@ def require(cond: bool, msg: str) -> None:
         raise AssertionError(msg)
 
 
-def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
-    import torch
-
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
 def bound(nbytes: float, ops) -> dict:
     """``bound_ms``: the larger of ``nbytes`` over the HBM rate and the
     operations ``ops`` ((count, peak per second) pairs) over their peaks."""
@@ -171,6 +157,8 @@ def no_tf32():
 
 def timed(fn, iters: int, warmup: int = 2):
     """(ms per call, the last call's result), so a timed run is also checked."""
+    from critic_vae_tpu_torch.device import cuda_ms
+
     last = [None]
 
     def run():
@@ -206,6 +194,7 @@ def phase_build():
 def phase_b1(dev):
     import torch
 
+    from critic_vae_tpu_torch.device import cuda_ms
     from critic_vae_tpu_torch.ops.diff_mask import diff_mask, diff_mask_reference
 
     g = torch.Generator(device=dev).manual_seed(1)
@@ -241,6 +230,7 @@ def phase_b2(dev):
     from critic_vae_tpu_torch.crf import REFERENCE_CRF_PARAMS
     from critic_vae_tpu_torch.crf.fused_build import build_bilateral, build_bilateral_reference
     from critic_vae_tpu_torch.data.synthetic import generate_frames
+    from critic_vae_tpu_torch.device import cuda_ms
 
     w1, alpha, beta = REFERENCE_CRF_PARAMS[:3]
     h = w = 64
@@ -347,6 +337,7 @@ def phase_b4(dev):
         matvec_i8,
         matvec_i8_reference,
     )
+    from critic_vae_tpu_torch.device import cuda_ms
 
     alpha, beta = REFERENCE_CRF_PARAMS[1:3]
     g = torch.Generator(device=dev).manual_seed(4)
@@ -433,15 +424,6 @@ def phase_b5(dev):
     # error is the larger of the two
     return {**rows[1], "max_abs_err": max(r["max_abs_err"] for r in rows.values()),
             "ms_t13": rows[SWEEP_T]["ms"], "plain_ms_t13": rows[SWEEP_T]["plain_ms"]}
-
-
-def _models(dev):
-    from critic_vae_tpu_torch.io import weights
-
-    critic = weights.critic_from_params(
-        weights.load_critic_npz(str(ROOT / "saved-networks" / "critic-synthetic.npz")))
-    vae = weights.vae_from_params(*weights.numpy_vae_params(0))
-    return critic.to(dev), vae.to(dev)
 
 
 def phase_golden(dev, critic, vae):
@@ -663,6 +645,7 @@ def phase_front_end(dev, critic, vae):
     import torch
 
     from critic_vae_tpu_torch.data.synthetic import generate_frames
+    from critic_vae_tpu_torch.device import cuda_ms
     from critic_vae_tpu_torch.ops.mask import episode_forward
 
     frames, _ = generate_frames(FRONT_FRAMES, seed=9)
@@ -685,19 +668,22 @@ def phase_front_end(dev, critic, vae):
             require(err <= 1e-4 and within1 >= 0.999 and same >= 0.998,
                     f"front end {name} float32 misses a bar")
     # bf16: the preds are held to BF16_PRED_BAR; the diff maps, differences of
-    # two bf16 decodes, move with any change of rounding, so their agreement is
-    # printed beside the noise floor of bf16 split against float32 split
+    # two bf16 decodes, move with any change of rounding, so each formulation's
+    # maps and masks are held to bf16's own noise floor: no further from split
+    # bf16 than split bf16 is from split float32
     split16 = episode_forward(vae, critic, fr, compute_dtype="bfloat16", front_end="split")
-    _, within1, same = agreement(split16, split32)
+    _, floor_within1, floor_same = agreement(split16, split32)
     log(f"[10 front end] noise floor, split bf16 vs split float32: diff_u8 within 1 level "
-        f"{within1:.6f}; thr masks identical {same:.6f}")
+        f"{floor_within1:.6f}; thr masks identical {floor_same:.6f}")
     for name, kw in FRONT_ENDS.items():
         err, within1, same = agreement(
             episode_forward(vae, critic, fr, compute_dtype="bfloat16", **kw), split16)
         log(f"[10 front end] {name} vs split, bfloat16: preds max_abs_err {err:.3e} (bar "
-            f"{BF16_PRED_BAR:.3e}); diff_u8 within 1 level {within1:.6f}; thr masks identical "
-            f"{same:.6f}")
+            f"{BF16_PRED_BAR:.3e}); diff_u8 within 1 level {within1:.6f} (bar "
+            f"{floor_within1:.6f}); thr masks identical {same:.6f} (bar {floor_same:.6f})")
         require(err <= BF16_PRED_BAR, f"front end {name} bfloat16: preds error {err}")
+        require(within1 >= floor_within1 and same >= floor_same,
+                f"front end {name} bfloat16: maps or masks below the bf16 noise floor")
     for name, kw in (("split", dict(front_end="split")), ("auto (merged)", {}),
                      *FRONT_ENDS.items()):
         ms = cuda_ms(lambda: episode_forward(vae, critic, fr, compute_dtype="bfloat16", **kw),
@@ -735,6 +721,7 @@ def phase_p1(dev):
     its plain version."""
     import torch
 
+    from critic_vae_tpu_torch.device import cuda_ms
     from critic_vae_tpu_torch.kernels import build as kb
     from critic_vae_tpu_torch.probes import caps_probe as p1
 
@@ -763,10 +750,12 @@ def phase_p1(dev):
         log(f"[11 P1 caps_probe] Q{q} kernel vs plain: max_abs_err {errs[-1]:.3e} (bar "
             f"{bar:.3e}); kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms")
         require(errs[-1] <= bar, f"P1 Q{q}: error {errs[-1]}")
+    # Q1 and Q2 in and out in f32; Q3 reads only its 4 frames' 32 rows of x
+    rows3 = p1.FRAMES * p1.FRAME_ROWS
     nbytes = (128 * 20 + 128 * 128) * 4 + (128 * 160 + 128 * 40) * 4 + (
-        256 * 128 * 2 + 128 * 160 * 2 + 128 * 160 * 4)
+        rows3 * 128 * 2 + 128 * 160 * 2 + rows3 * 160 * 4)
     return {"launches": launches, "max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms,
-            **bound(nbytes, [(2 * 128 * 128 * 160, BF16_FLOPS)]), "library_ms": None}
+            **bound(nbytes, [(2 * rows3 * 128 * 160, BF16_FLOPS)]), "library_ms": None}
 
 
 def phase_p2(dev, critic, vae):
@@ -776,6 +765,7 @@ def phase_p2(dev, critic, vae):
     import torch.nn.functional as F
 
     from critic_vae_tpu_torch.data.synthetic import generate_frames
+    from critic_vae_tpu_torch.device import cuda_ms
     from critic_vae_tpu_torch.kernels import build as kb
     from critic_vae_tpu_torch.ops.mask import merged_conv0_weight
     from critic_vae_tpu_torch.probes import copy_floor_probe as p2
@@ -788,7 +778,12 @@ def phase_p2(dev, critic, vae):
     log(f"[12 P2 copy_floor_probe] B={res['frames']} F={res['frames_per_block']}: dot_only "
         f"{res['dot_only_ms']:.4f} ms, copies_and_dot {res['copies_and_dot_ms']:.4f} ms, "
         f"copy_floor {res['copy_floor_ms']:.4f} ms ({res['ns_per_copy']:.4f} ns per copy), "
-        f"cudnn_front_end {res['cudnn_front_end_ms']:.4f} ms; {launches} launches")
+        f"{launches} launches")
+    log(f"[12 P2 copy_floor_probe] from NCHW bf16 frames: fused path (s2d packing + kernel) "
+        f"{res['fused_path_ms']:.4f} ms, library path (s2d packing, cuDNN s2d conv, phase "
+        f"max, ReLU) {res['library_path_ms']:.4f} ms; the port's cuDNN merged front end "
+        f"(full-resolution conv, biases, float32 BN, pools: more work) "
+        f"{res['cudnn_front_end_ms']:.4f} ms")
     require(launches > 0, "P2: the probe launched no kernel")
     b = p2.FRAMES
     x, w = p2.probe_inputs(b, dev)
@@ -816,7 +811,7 @@ def phase_p2(dev, critic, vae):
     fr = (torch.from_numpy(frames).to(dev).float() / 255.0).to(torch.bfloat16)
     fr = fr.permute(0, 3, 1, 2)
     wm = merged_conv0_weight(vae, critic).to(torch.bfloat16)
-    xo, wo = p2.front_end_operands(fr, wm)
+    xo, wo = p2.pack_frames(fr), p2.pack_weights(wm)
     k = p2.front_end_probe(xo, wo)
     with no_tf32():
         ref = p2.pooled_phase_relu(fr.float(), wm.float())
@@ -828,13 +823,15 @@ def phase_p2(dev, critic, vae):
         f"the phase max of s2d_conv_pool2_phases (f32): within 2^-8 relative + 1e-5 "
         f"{share:.8f} (bar 1), max_abs_err {real_err:.3e}")
     require(share == 1.0, f"P2 real-data check: {share}")
-    nbytes = x.numel() * 2 + w.numel() * 2 + b * p2.OUT_ROWS * p2.PHASE_C * 2
+    # the function's product is (B·1024, 108) @ (108, 160): the slab's
+    # columns 108..127 and w's rows there are zero padding
+    nbytes = x.numel() * 2 + p2.PATCH * p2.N * 2 + b * p2.OUT_ROWS * p2.PHASE_C * 2
     return {"launches": launches, "max_abs_err": err,
             "ms": res["copies_and_dot_ms"], "plain_ms": plain_ms,
-            **bound(nbytes, [(2 * b * p2.OUT_ROWS * p2.K * p2.N, BF16_FLOPS)]),
-            "library_ms": library_ms, "dot_only_ms": res["dot_only_ms"],
-            "copy_floor_ms": res["copy_floor_ms"],
-            "cudnn_front_end_ms": res["cudnn_front_end_ms"]}
+            **bound(nbytes, [(2 * b * p2.OUT_ROWS * p2.PATCH * p2.N, BF16_FLOPS)]),
+            "library_ms": library_ms,
+            **{k: res[k] for k in ("dot_only_ms", "copy_floor_ms", "fused_path_ms",
+                                   "library_path_ms", "cudnn_front_end_ms")}}
 
 
 def crf_bounds():
@@ -882,7 +879,9 @@ def main() -> int:
     b3 = phase_b3(dev)
     b4 = phase_b4(dev)
     b5 = phase_b5(dev)
-    critic, vae = _models(dev)
+    from critic_vae_tpu_torch.io.weights import synthetic_models
+
+    critic, vae = synthetic_models(dev)
     phase_golden(dev, critic, vae)
     launches = phase_main(dev, critic, vae)
     phase_front_end(dev, critic, vae)

@@ -18,6 +18,7 @@ Files:
 
 from __future__ import annotations
 
+from pathlib import Path
 from typing import Dict, Tuple
 
 import numpy as np
@@ -27,6 +28,7 @@ from critic_vae_tpu_torch.models.critic import Critic
 from critic_vae_tpu_torch.models.vae import BOTTLENECK, ENCODER_DIMS, LATENT_DIM, VAE
 
 Params = Dict[str, object]
+SYNTHETIC_CRITIC = Path(__file__).resolve().parents[2] / "saved-networks" / "critic-synthetic.npz"
 
 
 def _hwio_to_oihw(w) -> torch.Tensor:
@@ -153,6 +155,13 @@ def vae_from_params(params: Params, state: Params) -> VAE:
     for i, layer in enumerate(vae.decoder.convs):
         _set_conv(layer, dec[f"conv{i}"]["w"], dec[f"conv{i}"]["b"])
     return vae.eval().requires_grad_(False)
+
+
+def synthetic_models(device) -> Tuple[Critic, VAE]:
+    """The full-width critic of ``saved-networks/critic-synthetic.npz`` and
+    the ``numpy_vae_params(0)`` VAE, on ``device``."""
+    critic = critic_from_params(load_critic_npz(str(SYNTHETIC_CRITIC)))
+    return critic.to(device), vae_from_params(*numpy_vae_params(0)).to(device)
 
 
 def vae_to_params(vae: VAE) -> Tuple[Params, Params]:

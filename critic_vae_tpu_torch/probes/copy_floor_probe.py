@@ -12,11 +12,17 @@ slab); the difference of the two times is the copy floor.
 With x the space-to-depth of padded frames and w ``s2d_pool_weights`` of the
 merged 3→40 first-conv weights as (108, 160) rows, zero-padded to 128, the
 output is ReLU of the pool-phase max of ``s2d_conv_pool2_phases``: the
-pooled merged front end before its biases (:func:`front_end_operands`).
+pooled merged front end before its biases (:func:`pack_frames`,
+:func:`pack_weights`).
 
-The record also holds ``cudnn_front_end_ms``: the port's merged front end
-(ops/mask.py ``merged_front_end``, cuDNN convs) at the same B in bf16, from
-the 3→40 conv through both branches' pooled activations.
+The record also holds, at the same B in bf16 from NCHW frames:
+
+* ``fused_path_ms``: the s2d packing of the frames plus the kernel;
+* ``library_path_ms``: the same function by library calls, the s2d packing,
+  cuDNN's 3×3 s2d conv, the phase max and ReLU (:func:`library_front_end`);
+* ``cudnn_front_end_ms``: the port's merged front end (ops/mask.py
+  ``merged_front_end``), which does more: the 3→40 conv at full resolution,
+  both branches' biases, the encoder's BN in float32, two pools and ReLUs.
 
 Run:  python -m critic_vae_tpu_torch.probes.copy_floor_probe [OUT_JSON]
           [--device cuda|cpu] [--frames B]
@@ -28,14 +34,12 @@ from __future__ import annotations
 import argparse
 import json
 import os
-import statistics
-from pathlib import Path
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-from critic_vae_tpu_torch.device import resolve_device
+from critic_vae_tpu_torch.device import cuda_ms, resolve_device
 from critic_vae_tpu_torch.kernels import build as kb
 from critic_vae_tpu_torch.ops.poolconv import (
     s2d_conv_pool2_phases,
@@ -53,7 +57,6 @@ K, N, PHASE_C = 128, 160, 40
 PATCH = 9 * S2D_C  # 108 im2col columns; 108..127 stay zero
 DEFAULT_FRAMES_PER_BLOCK = 4
 SMEM_LIMIT = 232448  # bytes of shared memory one Hopper block may use
-ROOT = Path(__file__).resolve().parents[2]
 
 
 def smem_bytes(frames_per_block: int) -> int:
@@ -139,16 +142,20 @@ def probe_inputs(frames: int, device):
     return x.to(device), w.to(device)
 
 
-def front_end_operands(frames: torch.Tensor, wm: torch.Tensor):
-    """The probe's (x, w) for NCHW frames (B, 3, 64, 64) and merged OIHW
-    first-conv weights wm (40, 3, 5, 5): x the space-to-depth of the frames
-    padded by 2 as (B·1156, 12) rows, w the s2d phase weights as (108, 160)
-    rows (u, v, (p, q, c)) zero-padded to 128; both bf16."""
-    xs = space_to_depth2(F.pad(frames, (2, 2, 2, 2)))  # (B, 12, 34, 34)
-    x = xs.permute(0, 2, 3, 1).reshape(-1, S2D_C)
+def pack_frames(frames: torch.Tensor) -> torch.Tensor:
+    """The probe's x for NCHW frames (B, 3, 64, 64): the space-to-depth of
+    the frames padded by 2, as (B·1156, 12) bf16 rows."""
+    xs = space_to_depth2(F.pad(frames.to(torch.bfloat16), (2, 2, 2, 2)))  # (B, 12, 34, 34)
+    return xs.permute(0, 2, 3, 1).reshape(-1, S2D_C).contiguous()
+
+
+def pack_weights(wm: torch.Tensor) -> torch.Tensor:
+    """The probe's w for merged OIHW first-conv weights wm (40, 3, 5, 5): the
+    s2d phase weights as (108, 160) rows (u, v, (p, q, c)) zero-padded to
+    128, bf16."""
     w3 = s2d_pool_weights(wm)                         # (160, 12, 3, 3)
     w = F.pad(w3.permute(2, 3, 1, 0).reshape(PATCH, N), (0, 0, 0, K - PATCH))
-    return x.to(torch.bfloat16).contiguous(), w.to(torch.bfloat16).contiguous()
+    return w.to(torch.bfloat16).contiguous()
 
 
 def pooled_phase_relu(frames: torch.Tensor, wm: torch.Tensor) -> torch.Tensor:
@@ -158,39 +165,21 @@ def pooled_phase_relu(frames: torch.Tensor, wm: torch.Tensor) -> torch.Tensor:
     return m.permute(0, 2, 3, 1).reshape(-1, m.shape[1])
 
 
-def cuda_ms_median(fn, reps: int = 5, iters: int = 10) -> float:
-    """Median over ``reps`` of the CUDA-event time of ``iters`` launches,
-    per launch, after a warm-up."""
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(iters):
-            fn()
-        end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end) / iters)
-    return statistics.median(times)
-
-
-def front_end_models(device):
-    """The full-width critic (saved-networks/critic-synthetic.npz) and the
-    ``numpy_vae_params(0)`` VAE on ``device``."""
-    from critic_vae_tpu_torch.io import weights
-
-    critic = weights.critic_from_params(
-        weights.load_critic_npz(str(ROOT / "saved-networks" / "critic-synthetic.npz")))
-    return weights.vae_from_params(*weights.numpy_vae_params(0)).to(device), critic.to(device)
+def library_front_end(frames: torch.Tensor, w3: torch.Tensor) -> torch.Tensor:
+    """The fused path's function by library calls: cuDNN's 3×3 conv of the
+    space-to-depth of the padded NCHW frames with the s2d phase weights w3
+    (160, 12, 3, 3), the max over the four phases, ReLU -> (B, 40, 32, 32)."""
+    y = F.conv2d(space_to_depth2(F.pad(frames, (2, 2, 2, 2))), w3)
+    return torch.relu(y.view(y.shape[0], 4, PHASE_C, OUT_SIDE, OUT_SIDE).amax(dim=1))
 
 
 def run(device: torch.device, frames: int = FRAMES,
         frames_per_block: int = DEFAULT_FRAMES_PER_BLOCK) -> dict:
-    """Time both variants and the cuDNN merged front end on the card (the
-    plain versions, untimed, on the CPU); return the probe's record."""
-    from critic_vae_tpu_torch.ops.mask import merged_front_end
+    """Time both variants, the fused path and its library counterpart, and
+    the cuDNN merged front end on the card (the plain versions, untimed, on
+    the CPU); return the probe's record."""
+    from critic_vae_tpu_torch.io.weights import synthetic_models
+    from critic_vae_tpu_torch.ops.mask import merged_conv0_weight, merged_front_end
 
     x, w = probe_inputs(frames, device)
     res = {"platform": "gpu" if device.type == "cuda" else "cpu",
@@ -203,17 +192,26 @@ def run(device: torch.device, frames: int = FRAMES,
             res["copies_and_dot_shape" if copies else "dot_only_shape"] = list(out.shape)
         res["note"] = "plain PyTorch versions on the CPU; no time measured"
         return res
+
+    def ms(fn):
+        return cuda_ms(fn, iters=10, warmup=1, reps=5)
+
     for name, copies in (("dot_only", False), ("copies_and_dot", True)):
-        res[f"{name}_ms"] = cuda_ms_median(
+        res[f"{name}_ms"] = ms(
             lambda: front_end_probe(x, w, frames_per_block=frames_per_block, copies=copies))
     res["copy_floor_ms"] = res["copies_and_dot_ms"] - res["dot_only_ms"]
     res["ns_per_copy"] = 1e6 * res["copy_floor_ms"] / res["copies_per_batch"]
-    vae, critic = front_end_models(device)
+    critic, vae = synthetic_models(device)
+    wm = merged_conv0_weight(vae, critic).to(torch.bfloat16)
+    wk, w3 = pack_weights(wm), s2d_pool_weights(wm)
     g = torch.Generator(device=device).manual_seed(0)
     xf = torch.rand((frames, 3, 64, 64), generator=g, device=device).to(torch.bfloat16)
     with torch.inference_mode():
-        res["cudnn_front_end_ms"] = cuda_ms_median(
-            lambda: merged_front_end(vae, critic, xf, torch.bfloat16))
+        # the same function from NCHW frames, s2d packing included in both
+        res["fused_path_ms"] = ms(lambda: front_end_probe(
+            pack_frames(xf), wk, frames_per_block=frames_per_block))
+        res["library_path_ms"] = ms(lambda: library_front_end(xf, w3))
+        res["cudnn_front_end_ms"] = ms(lambda: merged_front_end(vae, critic, xf, torch.bfloat16))
     return res
 
 

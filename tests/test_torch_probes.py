@@ -15,11 +15,11 @@ from critic_vae_tpu.ops import poolconv as jpc
 from critic_vae_tpu_torch.io import weights
 from critic_vae_tpu_torch.kernels import build as kb
 from critic_vae_tpu_torch.ops.mask import merged_conv0_weight
+from critic_vae_tpu_torch.ops.poolconv import s2d_pool_weights
 from critic_vae_tpu_torch.probes import caps_probe as p1
 from critic_vae_tpu_torch.probes import copy_floor_probe as p2
 
 CPU = torch.device("cpu")
-CRITIC_NPZ = "saved-networks/critic-synthetic.npz"
 
 
 # ------------------------------------------------------------------------ P1
@@ -112,11 +112,10 @@ def test_front_end_probe_plain_is_the_s2d_phase_conv():
     """On s2d'd frames and the merged 3->40 weights, the probe computes ReLU
     of the pool-phase max of the JAX package's s2d_conv_pool2_phases."""
     frames, _ = generate_frames(4, seed=7)
-    critic = weights.critic_from_params(weights.load_critic_npz(CRITIC_NPZ))
-    vae = weights.vae_from_params(*weights.numpy_vae_params(0))
+    critic, vae = weights.synthetic_models(CPU)
     wm = merged_conv0_weight(vae, critic).to(torch.bfloat16)          # (40, 3, 5, 5)
     x = (torch.from_numpy(frames).float() / 255.0).to(torch.bfloat16).permute(0, 3, 1, 2)
-    xo, wo = p2.front_end_operands(x, wm)
+    xo, wo = p2.pack_frames(x), p2.pack_weights(wm)
     assert xo.shape == (4 * 1156, 12) and wo.shape == (128, 160) and not wo[108:].any()
     got = p2.front_end_probe(xo, wo).float().numpy()
     xj = jnp.asarray(x.float().permute(0, 2, 3, 1).numpy())
@@ -125,6 +124,11 @@ def test_front_end_probe_plain_is_the_s2d_phase_conv():
     assert np.all(np.abs(got - want) <= 2.0 ** -8 * np.abs(want) + 1e-6)
     port = p2.pooled_phase_relu(x.float(), wm.float()).numpy()
     assert np.abs(port - want).max() <= 1e-5
+    # the library path that the probe times beside the fused one: the same
+    # function in NCHW, f32 sums in cuDNN's order
+    lib = p2.library_front_end(x.float(), s2d_pool_weights(wm.float()))
+    assert lib.shape == (4, 40, 32, 32)
+    assert np.abs(lib.permute(0, 2, 3, 1).reshape(-1, 40).numpy() - want).max() <= 1e-5
 
 
 def test_front_end_probe_wrapper_checks_and_counts_nothing_on_cpu():
