@@ -12,9 +12,10 @@ exits non-zero:
 3. kernel B1 (diff_mask) against its plain version at (512, 3, 64, 64),
    f32 and bf16 — bar: max abs error <= 1e-6 on grey maps and maxima;
 4. kernel B2 (bilateral_build) against its plain version at C=4, N=4096
-   (f32: <= 1e-5 relative on entries > 1e-3; bf16: within 1 bf16 ulp; the
-   diagonal exactly 0), then at the main path's C=64 in bf16 (within 1
-   bf16 ulp) and timed there;
+   and at a ragged N=2500 (50x50) (f32: <= 1e-5 relative on entries >
+   1e-3; bf16: within 1 bf16 ulp; the diagonal exactly 0; M bitwise
+   symmetric), then at the main path's C=64 in bf16 (the same bars), two
+   launches bitwise identical in bf16 and f32, and timed there;
 5. kernel B3 (kernel_i8_build) against its plain version at C=4 and at
    the main path's C=64, N=4096: int8 identical on >= 99.99% of entries and
    never more than 1 level apart, row sums equal to the kernel's own int8
@@ -22,11 +23,15 @@ exits non-zero:
    ones checked);
 6. kernel B4 (matvec_i8) against its plain version at C=4 and C=64, L=2,
    on B3's K — bar: relative error <= 1e-5 (f32 summation order); timed;
-7. kernel B5 (mean_field_resident) against its plain version at C=2 and
-   at the main path's C=64, N=4096, T=1 and T=13 (the sweep), 10
-   iterations, on mask-derived probabilities — bars: marginals max abs
-   error <= 1e-2, labels >= 99.99% identical; timed at C=64 (the timed
-   runs' outputs are the ones checked);
+7. kernel B5 (mean_field_resident) against its plain version at N=1024
+   (32x32) and N=400 (20x20) with C=4, at C=2 and at the main path's C=64,
+   N=4096, each at T=1 and T=13 (the sweep), 10 iterations, on
+   mask-derived probabilities — bars: marginals max abs error <= 1e-2,
+   labels >= 99.99% identical; at C=64 timed (the timed runs' outputs are
+   the ones checked), two launches bitwise identical, the build alone
+   (iters=0) timed, the iteration's time taken as the difference over 10,
+   and beside it torch.bmm of a (64, 4096, 4096) bf16 M by 2T bf16 lanes
+   with f32 sums (library_ms: the product each iteration computes);
 8. golden: the port in float32 with TF32 off on the 16-frame episode of
    tests/golden/torch_slice_golden.npz, which the JAX package computed on
    the CPU — preds <= 1e-4 abs, uint8 diff maps >= 99.9% within one level,
@@ -48,7 +53,9 @@ exits non-zero:
    e. ``threshold_sweep`` with build vmem on the first 512 frames: B1, B5
       at T=13; its refined mask sets >= 99.9% as the default build's.
    The builds of c-e are selected as a user selects them, through
-   CRITIC_VAE_TPU_CRF_BUILD. Paths a-e run the default (merged) front end;
+   CRITIC_VAE_TPU_CRF_BUILD. Paths a-e run the default (merged) front end.
+   After each timed run, one more run under torch.profiler prints the
+   path's largest kernels by device time;
 10. front end: at full width, 512 frames, ``episode_forward`` with each
    formulation (merged; fused_pool=True, i.e. critic "s2d" and encoder
    FUSED_POOL_SERVING; fused_pool=(True,)*4; fold_bn; pool_impl="strided";
@@ -78,9 +85,10 @@ The second-to-last line is a JSON object with, for each of the seven kernels
 its plain version, its times, its bound (the larger of its bytes over the
 HBM rate and its operations over the peak rate of their type, from this
 run's shapes) and the time of one PyTorch call computing the same function
-where there is one; the last line is {"ok": true, "device": {...}}. Without
-CUDA the script fails and prints no result. About 1.5 minutes on an H100,
-the build (~25 s) included.
+where there is one (for B5, of its iteration's product; its row also has
+build_ms and iter_ms, and each time again at T=13 as *_t13); the last line
+is {"ok": true, "device": {...}}. Without CUDA the script fails and prints
+no result. About a minute on an H100, the build (~10 s) included.
 """
 
 from __future__ import annotations
@@ -101,6 +109,7 @@ H = W = 64
 NPIX = H * W
 SWEEP_T = 13               # the reference's -thresh sweep, 0..120 step 10
 SWEEP_VMEM_FRAMES = 512    # frames of the vmem sweep path (9e)
+RAGGED_SIDE = 50           # B2's ragged frames: N = 2500
 FRONT_FRAMES = 512         # frames of the front-end phase (10)
 BF16_PRED_BAR = 2.0 ** -6  # bf16 preds across front ends: 4 bf16 ulps below 1
 # the card's published peaks (H100 SXM, dense): the bounds of the kernels line
@@ -224,6 +233,32 @@ def _bf16_ulps(x, y) -> int:
     return (x.view(torch.int16).int() - y.view(torch.int16).int()).abs().max().item()
 
 
+def _check_b2(mk, mr, out_dtype, label):
+    """B2's M against its plain version's: the diagonal exactly 0, M bitwise
+    symmetric, f32 within 1e-5 relative on entries > 1e-3, bf16 within 1
+    ulp. Returns the max abs error."""
+    import torch
+
+    diag = torch.diagonal(mk, dim1=1, dim2=2).abs().max().item()
+    sym = torch.equal(mk, mk.transpose(1, 2))
+    err = (mk.float() - mr.float()).abs().max().item()
+    if out_dtype == "float32":
+        sig = mr.abs() > 1e-3
+        rel = ((mk - mr).abs()[sig] / mr.abs()[sig]).max().item()
+        log(f"[4 B2 bilateral_build] {label} float32: max_rel_err {rel:.3e} on "
+            f"{int(sig.sum())} entries > 1e-3 (bar 1e-5); diagonal max {diag}; bitwise "
+            f"symmetric {sym}")
+        require(rel <= 1e-5, f"B2 {label} float32: max relative error {rel} > 1e-5")
+    else:
+        ulps = _bf16_ulps(mk, mr)
+        log(f"[4 B2 bilateral_build] {label} bfloat16: max {ulps} bf16 ulp (bar 1), "
+            f"max_abs_err {err:.3e}; diagonal max {diag}; bitwise symmetric {sym}")
+        require(ulps <= 1, f"B2 {label} bfloat16: {ulps} ulps from the plain version")
+    require(diag == 0.0, f"B2 {label} {out_dtype}: diagonal not exactly 0 ({diag})")
+    require(sym, f"B2 {label} {out_dtype}: M is not bitwise symmetric")
+    return err
+
+
 def phase_b2(dev):
     import torch
 
@@ -233,46 +268,44 @@ def phase_b2(dev):
     from critic_vae_tpu_torch.device import cuda_ms
 
     w1, alpha, beta = REFERENCE_CRF_PARAMS[:3]
-    h = w = 64
-    n = h * w
 
-    def imgs(c, seed):
-        frames, _ = generate_frames(c, seed=seed)
-        return torch.from_numpy(frames.reshape(c, n, 3)).to(dev)
+    def imgs(c, seed, side=H):
+        frames, _ = generate_frames(c, size=side, seed=seed)
+        return torch.from_numpy(frames.reshape(c, side * side, 3)).to(dev)
 
-    small = imgs(4, 1)
-    for out_dtype in ("float32", "bfloat16"):
-        mk = build_bilateral(small, w1, alpha, beta, h=h, w=w, out_dtype=out_dtype)
-        mr = build_bilateral_reference(small, w1, alpha, beta, h=h, w=w, out_dtype=out_dtype)
-        torch.cuda.synchronize()
-        diag = torch.diagonal(mk, dim1=1, dim2=2).abs().max().item()
-        require(diag == 0.0, f"B2 {out_dtype}: diagonal not exactly 0 ({diag})")
-        if out_dtype == "float32":
-            sig = mr.abs() > 1e-3
-            rel = ((mk - mr).abs()[sig] / mr.abs()[sig]).max().item()
-            log(f"[4 B2 bilateral_build] C=4 N={n} float32: max_rel_err {rel:.3e} on "
-                f"{int(sig.sum())} entries > 1e-3 (bar 1e-5); diagonal max {diag}")
-            require(rel <= 1e-5, f"B2 float32: max relative error {rel} > 1e-5")
-        else:
-            ulps = _bf16_ulps(mk, mr)
-            log(f"[4 B2 bilateral_build] C=4 N={n} bfloat16: max {ulps} bf16 ulp "
-                f"(bar 1); diagonal max {diag}")
-            require(ulps <= 1, f"B2 bfloat16: {ulps} ulps from the plain version")
-        del mk, mr
+    # C=4 at N=4096, and a ragged N=2500 (50x50: not a multiple of the
+    # 64-pixel tile, nor of the 8 bf16 of a 16-byte store)
+    for c, side in ((4, H), (4, RAGGED_SIDE)):
+        small = imgs(c, 1, side)
+        for out_dtype in ("float32", "bfloat16"):
+            kw = dict(h=side, w=side, out_dtype=out_dtype)
+            mk = build_bilateral(small, w1, alpha, beta, **kw)
+            mr = build_bilateral_reference(small, w1, alpha, beta, **kw)
+            torch.cuda.synchronize()
+            _check_b2(mk, mr, out_dtype, f"C={c} N={side * side}")
+            del mk, mr
 
     chunk = imgs(CRF_CHUNK, 2)
-    mk = build_bilateral(chunk, w1, alpha, beta, h=h, w=w, out_dtype="bfloat16")
-    mr = build_bilateral_reference(chunk, w1, alpha, beta, h=h, w=w, out_dtype="bfloat16")
+    mk = build_bilateral(chunk, w1, alpha, beta, h=H, w=W, out_dtype="bfloat16")
+    mr = build_bilateral_reference(chunk, w1, alpha, beta, h=H, w=W, out_dtype="bfloat16")
     torch.cuda.synchronize()
-    ulps = _bf16_ulps(mk, mr)
-    err = (mk.float() - mr.float()).abs().max().item()
-    require(ulps <= 1, f"B2 bfloat16 C={CRF_CHUNK}: {ulps} ulps from the plain version")
-    del mk, mr
-    ms = cuda_ms(lambda: build_bilateral(chunk, w1, alpha, beta, h=h, w=w), iters=10)
-    plain_ms = cuda_ms(lambda: build_bilateral_reference(chunk, w1, alpha, beta, h=h, w=w),
+    err = _check_b2(mk, mr, "bfloat16", f"C={CRF_CHUNK} N={NPIX}")
+    del mr
+    for out_dtype in ("bfloat16", "float32"):  # two launches, bitwise the same
+        a = build_bilateral(chunk, w1, alpha, beta, h=H, w=W, out_dtype=out_dtype)
+        same = torch.equal(a, build_bilateral(chunk, w1, alpha, beta, h=H, w=W,
+                                              out_dtype=out_dtype))
+        log(f"[4 B2 bilateral_build] C={CRF_CHUNK} {out_dtype}: two launches bitwise "
+            f"identical {same}")
+        require(same, f"B2 {out_dtype}: two launches differ")
+        del a
+    del mk
+    ms = cuda_ms(lambda: build_bilateral(chunk, w1, alpha, beta, h=H, w=W), iters=10)
+    plain_ms = cuda_ms(lambda: build_bilateral_reference(chunk, w1, alpha, beta, h=H, w=W),
                        iters=2, warmup=1)
-    log(f"[4 B2 bilateral_build] C={CRF_CHUNK} N={n} bfloat16: max {ulps} ulp, "
-        f"max_abs_err {err:.3e}; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
+    b2_bound = crf_bounds()[1]["bound_ms"]
+    log(f"[4 B2 bilateral_build] C={CRF_CHUNK} N={NPIX} bfloat16: kernel {ms:.3f} ms "
+        f"({b2_bound / ms:.1%} of its {b2_bound:.3f} ms byte bound), plain {plain_ms:.3f} ms")
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
 
 
@@ -361,7 +394,7 @@ def phase_b4(dev):
     return row
 
 
-def _sweep_probs(c, t, seed, dev):
+def _sweep_probs(c, t, seed, dev, side=H):
     """(c, N, 2t) (neg, pos) probabilities of t noisy 0/1 masks per frame,
     as the main path builds them from threshold masks."""
     import numpy as np
@@ -369,23 +402,23 @@ def _sweep_probs(c, t, seed, dev):
 
     from critic_vae_tpu_torch.data.synthetic import generate_frames
 
-    _, gt = generate_frames(c, seed=seed)
+    _, gt = generate_frames(c, size=side, seed=seed)
     rng = np.random.default_rng(seed)
     rates = np.linspace(0.02, 0.3, t)
     m = np.stack([gt ^ (rng.random(gt.shape) < r) for r in rates], axis=-1)
-    m = torch.from_numpy(m.reshape(c, NPIX, t).astype(np.float32)).to(dev)
-    return torch.stack([1.0 - m, m], dim=-1).reshape(c, NPIX, 2 * t)
+    m = torch.from_numpy(m.reshape(c, side * side, t).astype(np.float32)).to(dev)
+    return torch.stack([1.0 - m, m], dim=-1).reshape(c, side * side, 2 * t)
 
 
-def _check_b5(q, qr, c, t, iters):
+def _check_b5(q, qr, c, t, iters, n=NPIX):
     """B5's marginals against its plain version's; returns the max abs error."""
     err = (q - qr).abs().max().item()
     labels = ((q[..., 1::2] > q[..., 0::2]) == (qr[..., 1::2] > qr[..., 0::2]))
     agree = labels.double().mean().item()
-    log(f"[7 B5 mean_field_resident] C={c} N={NPIX} T={t} iters={iters}: marginals "
+    log(f"[7 B5 mean_field_resident] C={c} N={n} T={t} iters={iters}: marginals "
         f"max_abs_err {err:.3e} (bar 1e-2); labels identical {agree:.6f} (bar 0.9999)")
-    require(err <= 1e-2, f"B5 C={c} T={t}: marginals max abs error {err}")
-    require(agree >= 0.9999, f"B5 C={c} T={t}: label agreement {agree}")
+    require(err <= 1e-2, f"B5 C={c} N={n} T={t}: marginals max abs error {err}")
+    require(agree >= 0.9999, f"B5 C={c} N={n} T={t}: label agreement {agree}")
     return err
 
 
@@ -394,36 +427,70 @@ def phase_b5(dev):
 
     from critic_vae_tpu_torch.crf import REFERENCE_CRF_PARAMS
     from critic_vae_tpu_torch.crf.device import _spatial_taps
+    from critic_vae_tpu_torch.crf.fused_build import build_bilateral
     from critic_vae_tpu_torch.crf.fused_resident import (
         mean_field_resident,
         mean_field_resident_reference,
     )
+    from critic_vae_tpu_torch.data.synthetic import generate_frames
+    from critic_vae_tpu_torch.device import cuda_ms
 
     w1, alpha, beta, w2, gamma, iters = REFERENCE_CRF_PARAMS
-    taps = torch.from_numpy(_spatial_taps(gamma, H, W)).to(dev)
     args = (w1, w2, alpha, beta, gamma)
+
+    def both(imgs, probs, side, n_iter=iters):
+        taps = torch.from_numpy(_spatial_taps(gamma, side, side)).to(dev)
+        kw = dict(h=side, w=side, iters=n_iter)
+        return (lambda: mean_field_resident(imgs, probs, taps, *args, **kw),
+                lambda: mean_field_resident_reference(imgs, probs, taps, *args, **kw))
+
+    # the smallest N the vmem build admits below 4096 (32x32), and N=400
+    # (20x20: no multiple of the 64-pixel tile or the 128-row block)
+    small_err = 0.0
+    for side in (32, 20):
+        for t in (1, SWEEP_T):
+            frames, _ = generate_frames(4, size=side, seed=8)
+            imgs = torch.from_numpy(frames.reshape(4, side * side, 3)).to(dev)
+            probs = _sweep_probs(4, t, 8, dev, side)
+            kern, plain = both(imgs, probs, side)
+            small_err = max(small_err, _check_b5(kern(), plain(), 4, t, iters, side * side))
     rows = {}
     for t in (1, SWEEP_T):
         imgs, probs = _crf_imgs(2, 5, dev), _sweep_probs(2, t, 5, dev)
-        q = mean_field_resident(imgs, probs, taps, *args, h=H, w=W, iters=iters)
-        qr = mean_field_resident_reference(imgs, probs, taps, *args, h=H, w=W, iters=iters)
+        kern, plain = both(imgs, probs, H)
+        q, qr = kern(), plain()
         torch.cuda.synchronize()
-        err = _check_b5(q, qr, 2, t, iters)
+        err = max(small_err, _check_b5(q, qr, 2, t, iters))
         imgs, probs = _crf_imgs(CRF_CHUNK, 6, dev), _sweep_probs(CRF_CHUNK, t, 6, dev)
-        ms, q = timed(lambda: mean_field_resident(imgs, probs, taps, *args, h=H, w=W,
-                                                  iters=iters), iters=3, warmup=1)
-        plain_ms, qr = timed(lambda: mean_field_resident_reference(imgs, probs, taps, *args,
-                                                                   h=H, w=W, iters=iters),
-                             iters=1, warmup=1)
+        kern, plain = both(imgs, probs, H)
+        build_only, _ = both(imgs, probs, H, n_iter=0)
+        ms, q = timed(kern, iters=5, warmup=1)
+        build_ms = cuda_ms(build_only, iters=5, warmup=1)
+        plain_ms, qr = timed(plain, iters=1, warmup=1)
+        same = torch.equal(q, kern())
         log(f"[7 B5 mean_field_resident] C={CRF_CHUNK} N={NPIX} T={t} iters={iters}: kernel "
-            f"{ms:.3f} ms, plain {plain_ms:.3f} ms")
+            f"{ms:.3f} ms, build (iters=0) {build_ms:.3f} ms, iteration "
+            f"{(ms - build_ms) / iters:.4f} ms; plain {plain_ms:.3f} ms; two launches bitwise "
+            f"identical {same}")
+        require(same, f"B5 T={t}: two launches differ")
         err = max(err, _check_b5(q, qr, CRF_CHUNK, t, iters))
-        rows[t] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
-        del imgs, probs, q, qr
+        del q, qr, probs
+        # the iteration's yardstick: one bmm of a bf16 M of the chunk's shape
+        # by 2T bf16 lanes, f32 sums, as the default build's mean field runs it
+        m = build_bilateral(imgs, w1, alpha, beta, h=H, w=W)
+        y = torch.rand((CRF_CHUNK, NPIX, 2 * t), device=dev).to(torch.bfloat16)
+        library_ms = cuda_ms(lambda: torch.bmm(m, y, torch.float32), iters=20)
+        log(f"[7 B5 mean_field_resident] T={t}: library (torch.bmm of the ({CRF_CHUNK}, {NPIX}, "
+            f"{NPIX}) bf16 M by {2 * t} bf16 lanes, f32 out) {library_ms:.4f} ms against the "
+            f"iteration's {(ms - build_ms) / iters:.4f} ms")
+        rows[t] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "build_ms": build_ms,
+                   "iter_ms": (ms - build_ms) / iters, "library_ms": library_ms}
+        del imgs, m, y
     # T=1 (one mask) as the row's times, the sweep's T=13 beside them; the
     # error is the larger of the two
     return {**rows[1], "max_abs_err": max(r["max_abs_err"] for r in rows.values()),
-            "ms_t13": rows[SWEEP_T]["ms"], "plain_ms_t13": rows[SWEEP_T]["plain_ms"]}
+            **{f"{k}_t13": rows[SWEEP_T][k] for k in ("ms", "plain_ms", "build_ms", "iter_ms",
+                                                      "library_ms")}}
 
 
 def phase_golden(dev, critic, vae):
@@ -546,6 +613,23 @@ def _drive(name, fn, kernels, frames):
     return out, launches
 
 
+def _profile(key, fn, top=6):
+    """One more run of a path under torch.profiler: its largest kernels by
+    device time."""
+    import torch
+
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+    events.sort(key=lambda e: e.self_device_time_total, reverse=True)
+    total = sum(e.self_device_time_total for e in events)
+    log(f"[9 main {key}] profile of one more run: {total / 1e3:.3f} ms of kernels")
+    for e in events[:top]:
+        log(f"[9 main {key}]   {e.self_device_time_total / 1e3:9.3f} ms x{e.count:<4d} "
+            f"{e.key[:100]}")
+
+
 def phase_main(dev, critic, vae):
     import numpy as np
     import torch
@@ -579,6 +663,7 @@ def phase_main(dev, critic, vae):
                      lambda: eval_episode(vae, critic, frames, gt, threshold=50, **kw),
                      ("diff_mask", "bilateral_build"), MAIN_FRAMES)
     peak = torch.cuda.max_memory_allocated(dev)
+    _profile("a", lambda: eval_episode(vae, critic, frames, gt, threshold=50, **kw))
     log(f"[9 main a] bf16, chunk {MAIN_BATCH}, threshold 50, device CRF (B2 bf16): thr_iou "
         f"{res.thr_iou}, crf_iou {res.crf_iou}; peak memory {peak / 2**30:.3f} GiB")
     require(res.preds.shape == (MAIN_FRAMES,) and np.isfinite(res.preds).all(), "bad preds")
@@ -592,6 +677,7 @@ def phase_main(dev, critic, vae):
     sweep, paths["b"] = _drive("b threshold_sweep auto",
                                lambda: threshold_sweep(vae, critic, frames, gt, **kw),
                                ("diff_mask", "bilateral_build"), MAIN_FRAMES)
+    _profile("b", lambda: threshold_sweep(vae, critic, frames, gt, **kw))
     log(f"[9 main b] {len(sweep)} thresholds: {sweep}")
     require(len(sweep) == SWEEP_T and all(0.0 <= r["thr_iou"] <= 1.0 and 0.0 <= r["crf_iou"]
                                           <= 1.0 for r in sweep), "bad sweep results")
@@ -606,6 +692,7 @@ def phase_main(dev, critic, vae):
                 f"{key} eval_episode {build}",
                 lambda: eval_episode(vae, critic, frames, gt, threshold=50, **kw),
                 kernels, MAIN_FRAMES)
+            _profile(key, lambda: eval_episode(vae, critic, frames, gt, threshold=50, **kw))
         agree = float(np.mean(got.crf_masks == res.crf_masks))
         log(f"[9 main {key}] crf_iou {got.crf_iou}; masks identical to the default build's "
             f"{agree:.6f} (bar 0.999)")
@@ -619,6 +706,7 @@ def phase_main(dev, critic, vae):
             "e threshold_sweep vmem",
             lambda: threshold_sweep(vae, critic, frames[:nv], gt[:nv], **kw),
             ("diff_mask", "mean_field_resident"), nv)
+        _profile("e", lambda: threshold_sweep(vae, critic, frames[:nv], gt[:nv], **kw))
     log(f"[9 main e] {sweep_v}")
     # the same 13 mask sets of the first nv frames, refined by both builds
     diff = torch.from_numpy(res.diff_u8[:nv]).to(dev)
@@ -841,7 +929,8 @@ def crf_bounds():
     c, n = CRF_CHUNK, NPIX
     pix = MAIN_BATCH * NPIX
     b1 = bound(2 * 3 * pix * 2 + pix * 4 + MAIN_BATCH * 4, [(pix * 19, F32_FLOPS)])
-    build = (c * n * n * ENTRY_OPS, F32_FLOPS)
+    # the n(n - 1)/2 distinct entries of the symmetric K, each one exp
+    build = (c * n * (n - 1) // 2 * ENTRY_OPS, F32_FLOPS)
     b2 = bound(c * n * 3 + c * n * n * 2, [build])
     b3 = bound(c * n * 3 + c * n * n + c * n * 4, [build])
     b4 = bound(c * n * n + 2 * c * n * 2 * 4, [(2 * c * n * n * 2, BF16_FLOPS)])
@@ -909,7 +998,7 @@ def main() -> int:
         {"name": "mean_field_resident", "route": "cuda",
          "source": "critic_vae_tpu_torch/csrc/mean_field_resident.cu",
          "replaces": "critic_vae_tpu/crf/fused_resident.py:226",
-         "launches": launches["mean_field_resident"], **b5, **bounds["b5"], "library_ms": None},
+         "launches": launches["mean_field_resident"], **bounds["b5"], **b5},
         {"name": "caps_probe", "route": "cuda",
          "source": "critic_vae_tpu_torch/csrc/caps_probe.cu",
          "replaces": "examples/mosaic_caps_probe.py:33", **p1},

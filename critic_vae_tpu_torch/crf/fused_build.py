@@ -14,6 +14,12 @@ exponent is exactly 0 and the ``logp < 0`` predicate excludes it; the JAX
 package's Gram form (``_normalized_kernel``) carries ~1e-3 relative error in
 the exponent and is not what either version computes.
 
+K computed so is bitwise symmetric, and the kernel exploits it: the
+symmetric-tile build (``csrc/bilateral_tile.cuh``, shared with B5) computes
+each distinct entry once for M[I, J] and M[J, I] of a pair of ``TILE``-pixel
+tiles, and takes the row sums as per-tile partials in ``row_sum_slots(N)``
+fixed slots, summed in slot order.
+
 The int8 build (``build="int8"``) has two more kernels on the same K:
 
 * B3 :func:`build_kernel_i8` (``csrc/kernel_i8_build.cu``): one sweep
@@ -32,10 +38,27 @@ from critic_vae_tpu_torch.kernels import build as kb
 
 OUT_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 MAX_LAUNCH_FRAMES = 65535  # the kernels put frames on a grid's y or z axis
+TILE = 64  # pixels a side of the symmetric build's tiles (csrc/bilateral_tile.cuh)
+B2_PLANES = 6  # per-pixel planes of B2's build: x, y, r, g, b, nb
 
 
 def _f32(v, device) -> torch.Tensor:
     return torch.tensor(v, dtype=torch.float32, device=device)
+
+
+def row_sum_slots(n: int) -> int:
+    """Slots of the symmetric build's (C, slots, N) f32 row-sum scratch: one
+    partial a ``TILE``-pixel tile of columns."""
+    return -(-n // TILE)
+
+
+def build_scratch(frames: int, n: int, planes: int, device) -> tuple:
+    """The symmetric build's scratch: (frames, planes, N padded to whole
+    tiles) f32 per-pixel planes (the 5 bilateral features, nb, the entry's
+    own) and the (frames, slots, N) f32 row-sum partials."""
+    return (torch.empty((frames, planes, row_sum_slots(n) * TILE), dtype=torch.float32,
+                        device=device),
+            torch.empty((frames, row_sum_slots(n), n), dtype=torch.float32, device=device))
 
 
 def bilateral_k(imgs_u8: torch.Tensor, alpha, beta, *, h: int, w: int,
@@ -108,12 +131,12 @@ def build_bilateral(imgs_u8: torch.Tensor, w1, alpha, beta, *, h: int, w: int,
                                          out_dtype=out_dtype)
     lib = kb.library()
     dev = imgs_u8.device
-    nvec = torch.empty((c, n), dtype=torch.float32, device=dev)
+    feat, part = build_scratch(c, n, B2_PLANES, dev)
     out = torch.empty((c, n, n), dtype=OUT_DTYPES[out_dtype], device=dev)
     with torch.cuda.device(dev):
         status = lib.cvt_bilateral_build(
             imgs_u8.data_ptr(), c, n, w, float(w1), float(alpha), float(beta),
-            nvec.data_ptr(), out.data_ptr(), int(out_dtype == "bfloat16"),
+            feat.data_ptr(), part.data_ptr(), out.data_ptr(), int(out_dtype == "bfloat16"),
             torch.cuda.current_stream().cuda_stream,
         )
     kb.check(status, "bilateral_build")

@@ -17,7 +17,11 @@ spatial taps. The spatial term lives inside M, so an iteration is one
 product and no separable conv. Labels are ``q_pos > q_neg``.
 
 The CUDA kernel is ``csrc/mean_field_resident.cu``;
-:func:`mean_field_resident_reference` is its plain version. The JAX kernel
+:func:`mean_field_resident_reference` is its plain version and
+:func:`resident_matrix_reference` the plain version of its M. M is bitwise
+symmetric, so the kernel builds it with B2's symmetric-tile build (each
+distinct entry once); its iterations run M @ bf16(q) on the tensor cores,
+q padded to a multiple of 8 lanes. The JAX kernel
 takes its column normalizer from column sums, accumulated in another order
 than the row sums; K is symmetric, so both versions here use the row sums
 for both (an f32 rounding difference in nb, far inside the tolerances the
@@ -29,7 +33,14 @@ from __future__ import annotations
 import torch
 
 from critic_vae_tpu_torch.crf.device import _EPS_NORM, _EPS_PROB, _coords, _spatial_norm
-from critic_vae_tpu_torch.crf.fused_build import _check_frames, _f32, bilateral_k
+from critic_vae_tpu_torch.crf.fused_build import (
+    TILE,
+    _check_frames,
+    _f32,
+    bilateral_k,
+    build_scratch,
+    row_sum_slots,
+)
 from critic_vae_tpu_torch.kernels import build as kb
 
 # The JAX kernel keeps the whole (N, N) bf16 matrix in the 128 MiB VMEM of a
@@ -39,12 +50,44 @@ from critic_vae_tpu_torch.kernels import build as kb
 # measured beyond 64x64 (ROADMAP C).
 MAX_RESIDENT_N = 4096
 
+
+def _q_lanes(lanes: int) -> int:
+    """Lanes of the kernel's bf16 q: ``lanes`` padded to a multiple of 8,
+    the n-tile of the tensor-core product (2 -> 8, 26 -> 32)."""
+    return -(-lanes // 8) * 8
+
+
+# per-pixel planes of B5's build: x, y, r, g, b, nb, sqrt(w2) ns, x/gamma, y/gamma
+B5_PLANES = 9
+
+
+def _workspace(frames: int, n: int, lanes: int, device) -> dict:
+    """The device buffers :func:`mean_field_resident` allocates besides its
+    float32 copy of the probabilities: the build's scratch (per-pixel planes
+    and row-sum partials), the bf16 M, the unary, two bf16 q of ``_q_lanes``
+    lanes (lane-major, the product's B operand) and the f32 marginals."""
+    feat, part = build_scratch(frames, n, B5_PLANES, device)
+    f32, bf16 = torch.float32, torch.bfloat16
+    return {
+        "feat": feat,
+        "part": part,
+        "m": torch.empty((frames, n, n), dtype=bf16, device=device),
+        "unary": torch.empty((frames, n, lanes), dtype=f32, device=device),
+        "qb": torch.empty((2, frames, _q_lanes(lanes), n), dtype=bf16, device=device),
+        "out": torch.empty((frames, n, lanes), dtype=f32, device=device),
+    }
+
+
 def workspace_bytes(frames: int, n: int, lanes: int) -> int:
     """Device bytes :func:`mean_field_resident` allocates for a chunk of
-    ``frames``: per frame the bf16 M, 8 feature planes and the normalizer
-    (2 N^2 + 36 N), and four f32 (N, lanes) buffers (probabilities, unary,
-    two of q). At 64x64 that is 33.7 MB a frame plus 0.13 MB a lane pair."""
-    return frames * (2 * n * n + 36 * n + 16 * n * lanes)
+    ``frames``: per frame the bf16 M, the build's 9 per-pixel planes (N
+    padded to whole tiles) and row-sum partials (one a 64-column tile), three
+    f32 (N, lanes) buffers (probabilities, unary, marginals) and two bf16
+    (lanes padded to 8, N) q. At 64x64 that is 34.7 MB a frame plus ~0.12 MB
+    a lane pair."""
+    slots = row_sum_slots(n)
+    return frames * (2 * n * n + 4 * B5_PLANES * slots * TILE + 4 * slots * n
+                     + 12 * n * lanes + 4 * n * _q_lanes(lanes))
 
 
 def pair_softmax(z: torch.Tensor) -> torch.Tensor:
@@ -68,18 +111,16 @@ def _check(imgs_u8, probs_pairs, h, w):
         )
 
 
-def mean_field_resident_reference(imgs_u8, probs_pairs, taps, w1, w2, alpha, beta, gamma,
-                                  *, h: int, w: int, iters: int,
-                                  row_block: int = 512) -> torch.Tensor:
-    """Plain PyTorch version of :func:`mean_field_resident`, one frame at a
-    time (one (N, N) M in float32 holding bf16 values)."""
+def resident_matrix_reference(imgs_u8, taps, w1, w2, alpha, beta, gamma, *, h: int, w: int,
+                              row_block: int = 512):
+    """Yield (frame, M) for each of the (C, N, 3) uint8 frames: kernel B5's
+    (N, N) matrix, the bilateral and spatial terms, as float32 holding bf16
+    values. The buffer is reused from frame to frame."""
     c, n, _ = imgs_u8.shape
     dev = imgs_u8.device
     sw1, sw2 = torch.sqrt(_f32(w1, dev)), torch.sqrt(_f32(w2, dev))
     gs = sw2 * _spatial_norm(taps.to(dev), h, w).reshape(-1)  # (N,)
     pg = _coords(h, w, dev) / _f32(gamma, dev)
-    unary = -torch.log(torch.clamp_min(probs_pairs.float(), _EPS_PROB))
-    out = torch.empty_like(unary)
     m = torch.empty((n, n), dtype=torch.float32, device=dev)
     for ci, k in bilateral_k(imgs_u8, alpha, beta, h=h, w=w, row_block=row_block):
         nb = sw1 * torch.rsqrt(k.sum(dim=1) + _EPS_NORM)
@@ -92,6 +133,18 @@ def mean_field_resident_reference(imgs_u8, probs_pairs, taps, w1, w2, alpha, bet
             mb = (nb[r0:r1, None] * nb[None, :]) * kbf
             ms = (gs[r0:r1, None] * gs[None, :]) * ks
             m[r0:r1] = (mb + ms).to(torch.bfloat16).float()
+        yield ci, m
+
+
+def mean_field_resident_reference(imgs_u8, probs_pairs, taps, w1, w2, alpha, beta, gamma,
+                                  *, h: int, w: int, iters: int,
+                                  row_block: int = 512) -> torch.Tensor:
+    """Plain PyTorch version of :func:`mean_field_resident`, one frame at a
+    time (one (N, N) M in float32 holding bf16 values)."""
+    unary = -torch.log(torch.clamp_min(probs_pairs.float(), _EPS_PROB))
+    out = torch.empty_like(unary)
+    for ci, m in resident_matrix_reference(imgs_u8, taps, w1, w2, alpha, beta, gamma, h=h,
+                                           w=w, row_block=row_block):
         q = pair_softmax(-unary[ci])
         for _ in range(iters):
             q = pair_softmax(m @ q.to(torch.bfloat16).float() - unary[ci])
@@ -124,20 +177,15 @@ def mean_field_resident(imgs_u8, probs_pairs, taps, w1, w2, alpha, beta, gamma, 
     probs = probs_pairs.float().contiguous()
     p = probs.shape[2]
     ns = _spatial_norm(taps.to(dev), h, w).reshape(-1)
-    feats = torch.empty((c, 8, n), dtype=torch.float32, device=dev)
-    nb = torch.empty((c, n), dtype=torch.float32, device=dev)
-    m = torch.empty((c, n, n), dtype=torch.bfloat16, device=dev)
-    unary = torch.empty_like(probs)
-    qtmp = torch.empty_like(probs)
-    out = torch.empty_like(probs)
+    ws = _workspace(c, n, p, dev)
     lib = kb.library()
     with torch.cuda.device(dev):
         status = lib.cvt_mean_field_resident(
             imgs_u8.data_ptr(), probs.data_ptr(), ns.data_ptr(), c, n, w, p, float(w1),
             float(w2), float(alpha), float(beta), float(gamma), int(iters),
-            feats.data_ptr(), nb.data_ptr(), m.data_ptr(), unary.data_ptr(),
-            qtmp.data_ptr(), out.data_ptr(), torch.cuda.current_stream().cuda_stream,
+            *(ws[k].data_ptr() for k in ("feat", "part", "m", "unary", "qb", "out")),
+            torch.cuda.current_stream().cuda_stream,
         )
     kb.check(status, "mean_field_resident")
     kb.LAUNCHES["mean_field_resident"] += 1
-    return out
+    return ws["out"]

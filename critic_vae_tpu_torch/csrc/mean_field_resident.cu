@@ -1,9 +1,9 @@
 // Resident-matrix dense-CRF mean field of the device CRF's vmem build
 // (kernel B5).
 //
-// Replaces critic_vae_tpu/crf/fused_resident.py::mean_field_resident (body
-// `_resident_kernel`, called from `_resident_chunk`). Per frame of N pixels
-// with P = 2T lanes, T (neg, pos) class pairs that share the frame:
+// Replaces critic_vae_tpu/crf/fused_resident.py:226 mean_field_resident
+// (body `_resident_kernel`, called from `_resident_chunk`). Per frame of N
+// pixels with P = 2T lanes, T (neg, pos) class pairs that share the frame:
 //
 //   k[i,j]  = exp(-1/2 |dxy/alpha|^2 - 1/2 |drgb/beta|^2)   i != j, else 0
 //   nb_i    = sqrt(w1) * rsqrt(sum_j k[i,j] + 1e-20)          (f32 row sums)
@@ -18,304 +18,278 @@
 // twice, as the TPU kernel rounds it (stored k, then stored M).
 //
 // What bounds it on Hopper: the TPU kept the 33.5 MB bf16 M of a 64x64 frame
-// in 128 MiB of VMEM; a Hopper block has 227 KB of shared memory. Each
-// iteration reads M once and does P FMAs per entry of M: at P = 2 that is
-// bandwidth-bound, at P = 26 (the 13-threshold sweep) the FMAs, not the
-// bytes, set the time.
+// in 128 MiB of VMEM; a Hopper block has 227 KB of shared memory, so M lives
+// in a device workspace of the whole chunk. An iteration then reads M once,
+// 2 bytes an entry, and does 2 P8 operations an entry (P8 = P padded to 8
+// lanes): at most 32 per byte against the card's 295 bf16 operations a byte,
+// so on the tensor cores every iteration is bound by M's read (0.64 ms for
+// 64 frames at 3.35 TB/s), the build by its exps and its store of M.
+//
+// The earlier design (an H100 80GB HBM3 at 700 W, C=64, N=4096, 10
+// iterations): 12.1-12.4 ms at T=1 and 66.5-67.6 ms at T=13 a chunk. Its
+// iteration multiplied M by q as scalar f32 FMAs on the CUDA cores, P FMAs
+// per entry in groups of at most 32 lanes a launch: at T=13 it ran 558
+// GFLOP at ~8.7 TFLOP/s, 7.5 times slower than one torch.bmm of the same
+// product. Its build copied B2's earlier two passes and took each exp twice.
 //
 // What the design does about it:
-// * M lives in a device workspace of the whole chunk: the C entry runs the
-//   build for every frame and then `iters` launches of the iteration
-//   kernel, each over all frames, with q double-buffered across launches.
-//   A workspace of one frame at a time would keep its M (33.5 MB at 64x64)
-//   inside the 50 MB L2 across its iterations, but measured slower at
-//   T = 1 (19.2-20.2 against 13.9-14.5 ms for 64 frames on an H100 80GB
-//   HBM3, 700 W): 64 times more, 64 times smaller launches cost more than
-//   the L2 hits save; at T = 13 the two were equal.
-// * The build is B2's: a features pass (xy/alpha, rgb/beta, ns, xy/gamma,
-//   as the TPU kernel's feats columns), a row-sum pass with one warp per row
-//   (a fixed shuffle order, deterministic; the symmetric K gives the column
-//   normalizer from the same sums), and a store pass whose warps write
-//   contiguous runs of a row.
-// * The iteration kernel gives each warp 4 rows; a lane reads 8 bf16 of
-//   each row per 16-byte load, and the block stages bf16-rounded q a tile
-//   of 256 pixels at a time in shared memory (padded so the 32 lanes hit 32
-//   banks), reused by the block's 32 rows. Lanes of one launch are a
-//   template argument up to 32 (16 pairs); wider q runs in groups of 32.
-//   The pair softmax is the epilogue, so no separate pass touches q.
+// * The build is the symmetric-tile build of bilateral_tile.cuh (shared with
+//   B2): one exp of k per distinct entry a pass, per-tile row partials in
+//   fixed slots (deterministic), 16-byte stores of M[I, J] and, through
+//   shared memory, M[J, I]. Its entry policy folds in the spatial term with
+//   its own expf (no per-|dx|, |dy| table) and rounds twice, as above.
+// * q is kept as bf16 in a lane-major (C, P8, N) layout, padded lanes zero,
+//   double-buffered across iterations, so it is the B operand of
+//   mma.sync.m16n8k16 as it stands.
+// * One product kernel for all P8 <= 64 lanes (8 n-tiles; wider q runs in
+//   groups of 64): a block owns 128 rows of one frame, 8 warps of 16 rows,
+//   and walks all N columns in 128-column stages. M and q stream through two
+//   cp.async stages in shared memory (16-byte chunks, XOR-swizzled so
+//   ldmatrix is conflict-free; with two blocks an SM, 3-4 stages of 64 or
+//   128 columns measured slower); A fragments from ldmatrix, f32 sums in
+//   registers, so M is read exactly once an iteration for all T and no sum
+//   crosses a block (deterministic).
+// * The pair softmax is the epilogue: a (neg, pos) pair sits in one thread's
+//   two accumulator columns, so it stays in registers; it writes the next
+//   bf16 q and, on the last iteration, the f32 marginals. Padded lanes are
+//   never written.
+// * The whole-chunk workspace is kept: one frame at a time in the L2
+//   measured slower with the earlier design.
 // Built without fast math: __expf would change the row sums of isolated
 // pixels and the sigmoid of saturated logits.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "bilateral_tile.cuh"  // includes mma_bf16.cuh
 
 namespace {
 
-constexpr int kFeat = 8;          // feature planes per frame
-constexpr float kEpsNorm = 1e-20f;
 constexpr float kEpsProb = 1e-8f;
-constexpr int kThreads = 256;     // features, row sums, init, iterations
-constexpr int kBuildThreads = 128;
-constexpr int kBuildRows = 32;
-constexpr int kRowsPerWarp = 4;
-constexpr int kRowsPerBlock = kThreads / 32 * kRowsPerWarp;
-constexpr int kVec = 8;           // bf16 per 16-byte load
-constexpr int kTileJ = 32 * kVec; // pixels per staged tile of q
-constexpr int kPad = kVec + 1;
-constexpr int kMaxLanes = 32;
-
-__device__ __forceinline__ float bf16_round(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
+constexpr int kWarps = 8;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kBM = 16 * kWarps;  // rows a block
+constexpr int kBK = 128;          // columns a stage: 256 bytes a row
+constexpr int kChunks = kBK / 8;  // 16-byte chunks a row of a stage
+constexpr int kStages = 2;
+constexpr int kMaxTiles = 8;      // n-tiles of 8 lanes a launch
 
 __device__ __forceinline__ float sigmoid(float x) { return 1.0f / (1.0f + expf(-x)); }
 
-// feats: (C, 8, N) planes x/alpha, y/alpha, r/beta, g/beta, b/beta, ns, x/gamma, y/gamma
-__global__ void feats_kernel(const unsigned char* __restrict__ imgs,
-                             const float* __restrict__ ns, int frames, int n, int w,
-                             float alpha, float beta, float gamma,
-                             float* __restrict__ feats) {
-  const long e = static_cast<long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (e >= static_cast<long>(frames) * n) return;
-  const long f = e / n;
-  const int p = static_cast<int>(e - f * n);
-  const unsigned char* px = imgs + e * 3;
-  float* o = feats + f * kFeat * n + p;
-  const float x = static_cast<float>(p % w), y = static_cast<float>(p / w);
-  o[0 * n] = x / alpha;
-  o[1 * n] = y / alpha;
-  o[2 * n] = static_cast<float>(px[0]) / beta;
-  o[3 * n] = static_cast<float>(px[1]) / beta;
-  o[4 * n] = static_cast<float>(px[2]) / beta;
-  o[5 * n] = ns[p];
-  o[6 * n] = x / gamma;
-  o[7 * n] = y / gamma;
-}
-
-__device__ __forceinline__ float k_bilateral(const float* fi, const float* fj) {
-  const float dp0 = fi[0] - fj[0], dp1 = fi[1] - fj[1];
-  const float logp = -0.5f * (dp0 * dp0 + dp1 * dp1);
-  const float dc0 = fi[2] - fj[2], dc1 = fi[3] - fj[3], dc2 = fi[4] - fj[4];
-  const float logc = -0.5f * (dc0 * dc0 + dc1 * dc1 + dc2 * dc2);
-  return logp < 0.0f ? expf(logp + logc) : 0.0f;
-}
-
-// grid (ceil(N / 8), C): one warp per row; nb[c, i] = sqrt(w1) * rsqrt(rowsum + eps)
-__global__ void __launch_bounds__(kThreads)
-rowsum_kernel(const float* __restrict__ feats, int n, float w1, float* __restrict__ nb) {
-  const long f = blockIdx.y;
-  const int lane = threadIdx.x & 31;
-  const int i = blockIdx.x * (kThreads / 32) + (threadIdx.x >> 5);
-  if (i >= n) return;
-  const float* fp = feats + f * kFeat * n;
-  float fi[5];
-#pragma unroll
-  for (int c = 0; c < 5; ++c) fi[c] = fp[c * n + i];
-  float sum = 0.0f;
-  for (int j = lane; j < n; j += 32) {
-    float fj[5];
-#pragma unroll
-    for (int c = 0; c < 5; ++c) fj[c] = fp[c * n + j];
-    sum += k_bilateral(fi, fj);
+// B5's entry: the bilateral term rounded through bf16, plus the spatial term;
+// its planes are sqrt(w2) ns, x/gamma, y/gamma
+struct ResidentEntry {
+  static constexpr int kExtra = 3;
+  const float* ns;
+  float sw2, gamma;
+  int w;
+  __device__ __forceinline__ void load(int p, float* e) const {
+    e[0] = sw2 * ns[p];
+    e[1] = static_cast<float>(p % w) / gamma;
+    e[2] = static_cast<float>(p / w) / gamma;
   }
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
-  if (lane == 0) nb[f * n + i] = sqrtf(w1) * (1.0f / sqrtf(sum + kEpsNorm));
-}
-
-// grid (ceil(N / 128), ceil(N / 32), C): one (kBuildRows, kBuildThreads) tile of M
-__global__ void __launch_bounds__(kBuildThreads)
-build_kernel(const float* __restrict__ feats, const float* __restrict__ nb, int n, float w2,
-             __nv_bfloat16* __restrict__ m) {
-  __shared__ float srow[kBuildRows][kFeat];
-  __shared__ float snb[kBuildRows];
-  const long f = blockIdx.z;
-  const float* fp = feats + f * kFeat * n;
-  const float* nbf = nb + f * n;
-  const int j = blockIdx.x * kBuildThreads + threadIdx.x;
-  const int i0 = blockIdx.y * kBuildRows;
-  for (int e = threadIdx.x; e < kBuildRows * kFeat; e += kBuildThreads) {
-    const int t = e / kFeat, c = e % kFeat;
-    srow[t][c] = fp[c * n + min(i0 + t, n - 1)];
-  }
-  for (int t = threadIdx.x; t < kBuildRows; t += kBuildThreads) snb[t] = nbf[min(i0 + t, n - 1)];
-  __syncthreads();
-  if (j >= n) return;
-  float fj[kFeat];
-#pragma unroll
-  for (int c = 0; c < kFeat; ++c) fj[c] = fp[c * n + j];
-  const float sw2 = sqrtf(w2);
-  const float gj = sw2 * fj[5];
-  const float nbj = nbf[j];
-  const int rows = min(kBuildRows, n - i0);
-  __nv_bfloat16* o = m + (f * n + i0) * static_cast<long>(n) + j;
-  for (int t = 0; t < rows; ++t) {
-    const float* fi = srow[t];
-    const float kb = bf16_round(k_bilateral(fi, fj));
-    const float dg0 = fi[6] - fj[6], dg1 = fi[7] - fj[7];
+  // off the diagonal tiles logs < 0; the diagonal's mask as in k_bilateral
+  template <bool kDiag>
+  __device__ __forceinline__ float value(float nbi, float nbj, float k, const float* ei,
+                                         const float* ej) const {
+    const float dg0 = ei[1] - ej[1], dg1 = ei[2] - ej[2];
     const float logs = -0.5f * (dg0 * dg0 + dg1 * dg1);
-    const float ks = logs < 0.0f ? expf(logs) : 0.0f;
-    const float mb = (snb[t] * nbj) * kb;
-    const float ms = ((sw2 * fi[5]) * gj) * ks;
-    o[static_cast<long>(t) * n] = __float2bfloat16_rn(mb + ms);
+    const float ks = kDiag ? expf(logs) * static_cast<float>(logs < 0.0f) : expf(logs);
+    return (nbi * nbj) * cvt::bf16_round(k) + (ei[0] * ej[0]) * ks;
   }
-}
+};
 
-// over frames * N * P entries: the unary and q0 = pair_softmax(-U)
-__global__ void init_kernel(const float* __restrict__ probs, long count,
-                            float* __restrict__ unary, float* __restrict__ q) {
-  const long e = static_cast<long>(blockIdx.x) * blockDim.x + threadIdx.x;
+// over frames * N * ldq entries, lane fastest: the unary, bf16 q0 =
+// pair_softmax(-U) into qb0 (zero in the padded lanes of both buffers), and
+// with write_out the f32 q0 as the marginals (iters == 0)
+__global__ void init_kernel(const float* __restrict__ probs, int n, int p, int ldq,
+                            long long count, int write_out, float* __restrict__ unary,
+                            __nv_bfloat16* __restrict__ qb0, __nv_bfloat16* __restrict__ qb1,
+                            float* __restrict__ out) {
+  const long long e = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (e >= count) return;
-  const float u = -logf(fmaxf(probs[e], kEpsProb));
-  const float up = -logf(fmaxf(probs[e ^ 1], kEpsProb));  // P even: e ^ 1 is the pair
-  unary[e] = u;
-  q[e] = sigmoid(-u - -up);
+  const long long fi = e / ldq;  // frame * n + pixel
+  const int l = static_cast<int>(e - fi * ldq);
+  const long long f = fi / n;
+  const long long qi = (f * ldq + l) * n + (fi - f * n);
+  if (l >= p) {
+    qb0[qi] = __float2bfloat16_rn(0.0f);
+    qb1[qi] = __float2bfloat16_rn(0.0f);
+    return;
+  }
+  const long long pe = fi * p + l;
+  const float u = -logf(fmaxf(probs[pe], kEpsProb));
+  const float up = -logf(fmaxf(probs[pe ^ 1], kEpsProb));  // P even: pe ^ 1 is the pair
+  unary[pe] = u;
+  const float q = sigmoid(-u - -up);
+  qb0[qi] = __float2bfloat16_rn(q);
+  if (write_out) out[pe] = q;
 }
 
-// grid (ceil(N / kRowsPerBlock), C): lanes [l0, l0 + PL) of one iteration,
-// q_out = pair_softmax(M @ bf16(q_in) - U)
-template <int PL>
-__global__ void __launch_bounds__(kThreads)
-iterate_kernel(const __nv_bfloat16* __restrict__ m, const float* __restrict__ q_in,
-               const float* __restrict__ unary, int n, int ldp, int l0,
-               float* __restrict__ q_out) {
-  __shared__ float qs[PL][kTileJ / kVec * kPad];
-  const long f = blockIdx.y;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int row0 = blockIdx.x * kRowsPerBlock + warp * kRowsPerWarp;
-  const __nv_bfloat16* mf = m + f * n * static_cast<long>(n);
-  const long qoff = f * n * static_cast<long>(ldp) + l0;
-  const float* qf = q_in + qoff;
-  float acc[kRowsPerWarp][PL];
-#pragma unroll
-  for (int r = 0; r < kRowsPerWarp; ++r)
-#pragma unroll
-    for (int l = 0; l < PL; ++l) acc[r][l] = 0.0f;
+__host__ __device__ constexpr int stage_elems(int nt) { return (kBM + 8 * nt) * kBK; }
 
-  for (int j0 = 0; j0 < n; j0 += kTileJ) {
-    const int cols = min(kTileJ, n - j0);
-    __syncthreads();
-    for (int e = threadIdx.x; e < cols * PL; e += kThreads) {
-      const int jj = e / PL, l = e - jj * PL;
-      qs[l][(jj / kVec) * kPad + jj % kVec] =
-          bf16_round(qf[static_cast<long>(j0 + jj) * ldp + l]);
+// grid (ceil(N / kBM), C): lanes [l0, l0 + 8 NT) of one iteration,
+// q = pair_softmax(M @ qb_in - U) -> qb_out (bf16) and, if last, out (f32).
+// qb_*: (C, ldq, N) bf16; unary, out: (C, N, p) f32.
+template <int NT>
+__global__ void __launch_bounds__(kThreads, 2)
+product_kernel(const __nv_bfloat16* __restrict__ m, const __nv_bfloat16* __restrict__ qb_in,
+               const float* __restrict__ unary, int n, int p, int ldq, int l0, int last,
+               __nv_bfloat16* __restrict__ qb_out, float* __restrict__ out) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* smem = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  const long long f = blockIdx.y;
+  const int row0 = blockIdx.x * kBM;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const __nv_bfloat16* mf = m + f * n * n;
+  const __nv_bfloat16* qf = qb_in + (f * ldq + l0) * n;
+  const int ktiles = (n + kBK - 1) / kBK;
+
+  // stage s <- columns [kt kBK, (kt + 1) kBK) of the block's M rows and of
+  // q's lanes; 16-byte chunk c of row r lands at chunk c ^ (r % 8)
+  auto load = [&](int s, int kt) {
+    __nv_bfloat16* sa = smem + s * stage_elems(NT);
+    __nv_bfloat16* sb = sa + kBM * kBK;
+    const int j0 = kt * kBK;
+    for (int e = tid; e < kBM * kChunks; e += kThreads) {
+      const int r = e / kChunks, ch = e % kChunks;
+      const int row = row0 + r, col = j0 + ch * 8;
+      const bool ok = row < n && col < n;  // N % 8 == 0: a chunk is whole or absent
+      cvt::cp_async16(sa + r * kBK + ((ch ^ (r & 7)) * 8),
+                      ok ? mf + static_cast<long long>(row) * n + col : mf, ok);
     }
-    __syncthreads();
-    const int jj = lane * kVec;
-    if (jj >= cols) continue;  // N % 8 == 0: a chunk is whole or absent
-    uint4 mv[kRowsPerWarp];
-#pragma unroll
-    for (int r = 0; r < kRowsPerWarp; ++r) {
-      const int row = row0 + r;
-      mv[r] = row < n ? *reinterpret_cast<const uint4*>(mf + static_cast<long>(row) * n + j0 + jj)
-                      : make_uint4(0u, 0u, 0u, 0u);
+    for (int e = tid; e < 8 * NT * kChunks; e += kThreads) {
+      const int l = e / kChunks, ch = e % kChunks;
+      const int col = j0 + ch * 8;
+      const bool ok = col < n;
+      cvt::cp_async16(sb + l * kBK + ((ch ^ (l & 7)) * 8),
+                      ok ? qf + static_cast<long long>(l) * n + col : qf, ok);
     }
+  };
+
+  float acc[NT][4];
 #pragma unroll
-    for (int u = 0; u < kVec; ++u) {
-      float qv[PL];
+  for (int t = 0; t < NT; ++t)
 #pragma unroll
-      for (int l = 0; l < PL; ++l) qv[l] = qs[l][lane * kPad + u];
+    for (int c = 0; c < 4; ++c) acc[t][c] = 0.0f;
+
 #pragma unroll
-      for (int r = 0; r < kRowsPerWarp; ++r) {
-        const unsigned word = u < 2 ? mv[r].x : u < 4 ? mv[r].y : u < 6 ? mv[r].z : mv[r].w;
-        // bf16 -> f32: the low half is the earlier element (little endian)
-        const float mval = __uint_as_float((u & 1) ? (word & 0xffff0000u) : (word << 16));
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < ktiles) load(s, s);
+    cvt::cp_async_commit();
+  }
+  const int ar = warp * 16 + (lane & 15);  // this lane's ldmatrix row of A
+  for (int kt = 0; kt < ktiles; ++kt) {
+    cvt::cp_async_wait<kStages - 2>();
+    __syncthreads();  // stage kt is in; every warp is done with stage kt - 1
+    if (kt + kStages - 1 < ktiles) load((kt + kStages - 1) % kStages, kt + kStages - 1);
+    cvt::cp_async_commit();
+    const __nv_bfloat16* sa = smem + (kt % kStages) * stage_elems(NT);
+    const __nv_bfloat16* sb = sa + kBM * kBK;
 #pragma unroll
-        for (int l = 0; l < PL; ++l) acc[r][l] = fmaf(mval, qv[l], acc[r][l]);
+    for (int kp = 0; kp < kBK / 32; ++kp) {
+      // B fragments of two k-steps: matrices = 16-byte chunks 4 kp .. 4 kp + 3
+      uint32_t b[NT][4];
+#pragma unroll
+      for (int t = 0; t < NT; ++t) {
+        const int br = t * 8 + (lane & 7);
+        cvt::ldmatrix_x4(b[t], sb + br * kBK + (((4 * kp + (lane >> 3)) ^ (br & 7)) * 8));
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int ks = 2 * kp + h;
+        uint32_t a[4];
+        cvt::ldmatrix_x4(a, sa + ar * kBK + (((2 * ks + (lane >> 4)) ^ (ar & 7)) * 8));
+#pragma unroll
+        for (int t = 0; t < NT; ++t)
+          cvt::mma_bf16_16816(acc[t], a[0], a[1], a[2], a[3], b[t][2 * h], b[t][2 * h + 1]);
       }
     }
   }
+  cvt::cp_async_wait<0>();
 
+  // acc[t]: rows g and g + 8 of the warp's 16, lanes 8t + 2q and 8t + 2q + 1,
+  // one (neg, pos) pair
+  const int g = lane >> 2, q = lane & 3;
 #pragma unroll
-  for (int r = 0; r < kRowsPerWarp; ++r)
+  for (int t = 0; t < NT; ++t) {
+    const int l = l0 + t * 8 + 2 * q;
+    if (l >= p) continue;  // a padded pair
 #pragma unroll
-    for (int l = 0; l < PL; ++l)
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        acc[r][l] += __shfl_xor_sync(0xffffffffu, acc[r][l], off);
-  if (lane != 0) return;
-#pragma unroll
-  for (int r = 0; r < kRowsPerWarp; ++r) {
-    const int row = row0 + r;
-    if (row >= n) continue;
-    const long base = qoff + static_cast<long>(row) * ldp;
-    float z[PL];
-#pragma unroll
-    for (int l = 0; l < PL; ++l) z[l] = acc[r][l] - unary[base + l];
-#pragma unroll
-    for (int l = 0; l < PL; ++l) q_out[base + l] = sigmoid(z[l] - z[l ^ 1]);
+    for (int hr = 0; hr < 2; ++hr) {
+      const int row = row0 + warp * 16 + g + 8 * hr;
+      if (row >= n) continue;
+      const long long base = (f * n + row) * p + l;
+      const float z0 = acc[t][2 * hr] - unary[base];
+      const float z1 = acc[t][2 * hr + 1] - unary[base + 1];
+      const float q0 = sigmoid(z0 - z1), q1 = sigmoid(z1 - z0);
+      qb_out[(f * ldq + l) * n + row] = __float2bfloat16_rn(q0);
+      qb_out[(f * ldq + l + 1) * n + row] = __float2bfloat16_rn(q1);
+      if (last) {
+        out[base] = q0;
+        out[base + 1] = q1;
+      }
+    }
   }
 }
 
-template <int PL>
-void launch_iterate(const __nv_bfloat16* m, const float* q_in, const float* unary, int g,
-                    int n, int ldp, int l0, float* q_out, cudaStream_t s) {
-  const dim3 grid((n + kRowsPerBlock - 1) / kRowsPerBlock, g);
-  iterate_kernel<PL><<<grid, kThreads, 0, s>>>(m, q_in, unary, n, ldp, l0, q_out);
+template <int NT>
+void launch_product(const __nv_bfloat16* m, const __nv_bfloat16* qb_in, const float* unary,
+                    int frames, int n, int p, int ldq, int l0, int last,
+                    __nv_bfloat16* qb_out, float* out, cudaStream_t s) {
+  constexpr int smem = kStages * stage_elems(NT) * static_cast<int>(sizeof(__nv_bfloat16));
+  cudaFuncSetAttribute(product_kernel<NT>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  product_kernel<NT><<<dim3((n + kBM - 1) / kBM, frames), kThreads, smem, s>>>(
+      m, qb_in, unary, n, p, ldq, l0, last, qb_out, out);
 }
 
-void iterate(const __nv_bfloat16* m, const float* q_in, const float* unary, int g, int n,
-             int p, float* q_out, cudaStream_t s) {
-  for (int l0 = 0; l0 < p; l0 += kMaxLanes) {
-    switch (min(kMaxLanes, p - l0)) {
-      case 2: launch_iterate<2>(m, q_in, unary, g, n, p, l0, q_out, s); break;
-      case 4: launch_iterate<4>(m, q_in, unary, g, n, p, l0, q_out, s); break;
-      case 6: launch_iterate<6>(m, q_in, unary, g, n, p, l0, q_out, s); break;
-      case 8: launch_iterate<8>(m, q_in, unary, g, n, p, l0, q_out, s); break;
-      case 10: launch_iterate<10>(m, q_in, unary, g, n, p, l0, q_out, s); break;
-      case 12: launch_iterate<12>(m, q_in, unary, g, n, p, l0, q_out, s); break;
-      case 14: launch_iterate<14>(m, q_in, unary, g, n, p, l0, q_out, s); break;
-      case 16: launch_iterate<16>(m, q_in, unary, g, n, p, l0, q_out, s); break;
-      case 18: launch_iterate<18>(m, q_in, unary, g, n, p, l0, q_out, s); break;
-      case 20: launch_iterate<20>(m, q_in, unary, g, n, p, l0, q_out, s); break;
-      case 22: launch_iterate<22>(m, q_in, unary, g, n, p, l0, q_out, s); break;
-      case 24: launch_iterate<24>(m, q_in, unary, g, n, p, l0, q_out, s); break;
-      case 26: launch_iterate<26>(m, q_in, unary, g, n, p, l0, q_out, s); break;
-      case 28: launch_iterate<28>(m, q_in, unary, g, n, p, l0, q_out, s); break;
-      case 30: launch_iterate<30>(m, q_in, unary, g, n, p, l0, q_out, s); break;
-      default: launch_iterate<32>(m, q_in, unary, g, n, p, l0, q_out, s); break;
+void product(const __nv_bfloat16* m, const __nv_bfloat16* qb_in, const float* unary,
+             int frames, int n, int p, int ldq, int last, __nv_bfloat16* qb_out, float* out,
+             cudaStream_t s) {
+  for (int l0 = 0; l0 < p; l0 += 8 * kMaxTiles) {
+    const int tiles = (min(8 * kMaxTiles, p - l0) + 7) / 8;
+#define CVT_PRODUCT(NT) \
+  case NT: launch_product<NT>(m, qb_in, unary, frames, n, p, ldq, l0, last, qb_out, out, s); break;
+    switch (tiles) {
+      CVT_PRODUCT(1) CVT_PRODUCT(2) CVT_PRODUCT(3) CVT_PRODUCT(4)
+      CVT_PRODUCT(5) CVT_PRODUCT(6) CVT_PRODUCT(7) CVT_PRODUCT(8)
     }
+#undef CVT_PRODUCT
   }
 }
 
 }  // namespace
 
 // imgs: (C, N, 3) uint8; probs: (C, N, P) f32, P even; ns: (N,) f32, N % 8
-// == 0. Workspace: feats (C, 8, N) f32, nb (C, N) f32, m (C, N, N) bf16.
-// unary, qtmp and out: (C, N, P) f32; out gets the marginals. All
-// contiguous, C <= 65535. Frames are h x w with N = h * w, pixel p at
-// (x, y) = (p % w, p / w). Returns cudaGetLastError().
+// == 0. Workspace: feat (C, 9, N rounded up to 64) f32, part (C, ceil(N /
+// 64), N) f32, m (C, N, N) bf16, unary (C, N, P) f32, qb (2, C, ldq, N) bf16
+// with ldq = P rounded up to a multiple of 8; out (C, N, P) f32 gets the
+// marginals. All contiguous,
+// C <= 65535. Frames are h x w with N = h * w, pixel p at (x, y) = (p % w,
+// p / w). Returns cudaGetLastError().
 extern "C" int cvt_mean_field_resident(const void* imgs, const void* probs, const void* ns,
                                        int frames, int n, int w, int p, float w1, float w2,
                                        float alpha, float beta, float gamma, int iters,
-                                       void* feats, void* nb, void* m, void* unary, void* qtmp,
+                                       void* feat, void* part, void* m, void* unary, void* qb,
                                        void* out, void* stream) {
   if (frames > 0 && n > 0 && p > 0) {
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    float* fe = static_cast<float*>(feats);
-    float* nbv = static_cast<float*>(nb);
+    const int ldq = (p + 7) / 8 * 8;
     __nv_bfloat16* mw = static_cast<__nv_bfloat16*>(m);
     float* u = static_cast<float*>(unary);
-    float* bufs[2] = {static_cast<float*>(out), static_cast<float*>(qtmp)};
-    const long count = static_cast<long>(frames) * n * p;
-    feats_kernel<<<static_cast<unsigned>((static_cast<long>(frames) * n + kThreads - 1) /
-                                         kThreads),
-                   kThreads, 0, s>>>(static_cast<const unsigned char*>(imgs),
-                                     static_cast<const float*>(ns), frames, n, w, alpha, beta,
-                                     gamma, fe);
-    rowsum_kernel<<<dim3((n + kThreads / 32 - 1) / (kThreads / 32), frames), kThreads, 0, s>>>(
-        fe, n, w1, nbv);
-    build_kernel<<<dim3((n + kBuildThreads - 1) / kBuildThreads,
-                        (n + kBuildRows - 1) / kBuildRows, frames),
-                   kBuildThreads, 0, s>>>(fe, nbv, n, w2, mw);
-    // the last of iters + 1 writes must land in out
-    int cur = iters % 2;
+    float* o = static_cast<float*>(out);
+    __nv_bfloat16* q[2] = {static_cast<__nv_bfloat16*>(qb),
+                           static_cast<__nv_bfloat16*>(qb) + static_cast<long long>(frames) *
+                                                                 ldq * n};
+    const ResidentEntry entry{static_cast<const float*>(ns), sqrtf(w2), gamma, w};
+    cvt::tile_build(static_cast<const unsigned char*>(imgs), frames, n, w, w1, alpha, beta,
+                    entry, static_cast<float*>(feat), static_cast<float*>(part), mw, s);
+    const long long count = static_cast<long long>(frames) * n * ldq;
     init_kernel<<<static_cast<unsigned>((count + kThreads - 1) / kThreads), kThreads, 0, s>>>(
-        static_cast<const float*>(probs), count, u, bufs[cur]);
-    for (int it = 0; it < iters; ++it) {
-      iterate(mw, bufs[cur], u, frames, n, p, bufs[1 - cur], s);
-      cur = 1 - cur;
-    }
+        static_cast<const float*>(probs), n, p, ldq, count, iters == 0, u, q[0], q[1], o);
+    for (int it = 0; it < iters; ++it)
+      product(mw, q[it % 2], u, frames, n, p, ldq, it == iters - 1, q[1 - it % 2], o, s);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -109,7 +109,7 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.cvt_diff_mask.argtypes = [p, p, i, i, i, p, p, p]
     lib.cvt_diff_mask.restype = i
-    lib.cvt_bilateral_build.argtypes = [p, i, i, i, f, f, f, p, p, i, p]
+    lib.cvt_bilateral_build.argtypes = [p, i, i, i, f, f, f, p, p, p, i, p]
     lib.cvt_bilateral_build.restype = i
     lib.cvt_kernel_i8_build.argtypes = [p, i, i, i, f, f, p, p, p]
     lib.cvt_kernel_i8_build.restype = i
