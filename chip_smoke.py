@@ -16,11 +16,13 @@ exits non-zero:
    1e-3; bf16: within 1 bf16 ulp; the diagonal exactly 0; M bitwise
    symmetric), then at the main path's C=64 in bf16 (the same bars), two
    launches bitwise identical in bf16 and f32, and timed there;
-5. kernel B3 (kernel_i8_build) against its plain version at C=4 and at
-   the main path's C=64, N=4096: int8 identical on >= 99.99% of entries and
-   never more than 1 level apart, row sums equal to the kernel's own int8
-   row sums, diagonal 0; timed at C=64 (the timed runs' outputs are the
-   ones checked);
+5. kernel B3 (kernel_i8_build) against its plain version at C=4 with
+   N=4096, N=1024 (32x32) and a ragged N=400 (20x20: divides by 16, not by
+   the 64-pixel tile), and at the main path's C=64, N=4096: int8 identical
+   on >= 99.99% of entries and never more than 1 level apart, row sums
+   equal to the kernel's own int8 row sums, diagonal 0, K8 bitwise equal
+   to its transpose; timed at C=64 (the timed runs' outputs are the ones
+   checked), and two launches bitwise identical there (K8 and row sums);
 6. kernel B4 (matvec_i8) against its plain version at C=4 and C=64, L=2,
    on B3's K — bar: relative error <= 1e-5 (f32 summation order); timed;
 7. kernel B5 (mean_field_resident) against its plain version at N=1024
@@ -74,9 +76,13 @@ exits non-zero:
    B=1024, F=4; from NCHW frames the fused path, s2d packing plus kernel,
    beside the same function by library calls; and the cuDNN merged front
    end) with the launch count read as in 11; then both variants at B=1024
-   against the plain version (within one bf16 ulp, or 1e-5 where f32 order
-   moves a sum across 0 under the ReLU), and on 8 real frames with the
-   merged 3->40 weights against ReLU of the phase max of
+   and F = 2, 4 and 8 against the plain version (within one bf16 ulp, or
+   1e-5 where f32 order moves a sum across 0 under the ReLU); a run whose x
+   holds +Inf in the first s2d scanline of every odd frame, right after the
+   even frame's last window (an unmasked K pad would read it), against the
+   plain version with NaN positions compared as equal and every output row
+   that the plain version leaves finite finite; and on 8 real frames with
+   the merged 3->40 weights against ReLU of the phase max of
    s2d_conv_pool2_phases in f32 (within 2^-8 relative + 1e-5: one bf16
    rounding).
 
@@ -309,18 +315,19 @@ def phase_b2(dev):
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
 
 
-def _crf_imgs(c, seed, dev):
-    """(c, N, 3) uint8 synthetic 64x64 frames on the card."""
+def _crf_imgs(c, seed, dev, side=H):
+    """(c, N, 3) uint8 synthetic side x side frames on the card."""
     import torch
 
     from critic_vae_tpu_torch.data.synthetic import generate_frames
 
-    frames, _ = generate_frames(c, seed=seed)
-    return torch.from_numpy(frames.reshape(c, NPIX, 3)).to(dev)
+    frames, _ = generate_frames(c, size=side, seed=seed)
+    return torch.from_numpy(frames.reshape(c, side * side, 3)).to(dev)
 
 
-def _check_b3(k8, rowsum, k8r, c):
-    """B3 against its plain version's int8 on C=c frames; returns the max level gap."""
+def _check_b3(k8, rowsum, k8r, c, n=NPIX):
+    """B3 against its plain version's int8 on C=c frames of n pixels;
+    returns the max level gap."""
     import torch
 
     lvl = (k8.int() - k8r.int()).abs()
@@ -328,13 +335,16 @@ def _check_b3(k8, rowsum, k8r, c):
     same = (lvl == 0).double().mean().item()
     own = k8.sum(dim=1, keepdim=True, dtype=torch.int32).float()
     rows_ok = torch.equal(rowsum, own)
-    diag = torch.diagonal(k8.view(c, NPIX, NPIX), dim1=1, dim2=2).abs().max().item()
-    log(f"[5 B3 kernel_i8_build] C={c} N={NPIX}: int8 identical {same:.8f} (bar 0.9999), "
+    kv = k8.view(c, n, n)
+    diag = torch.diagonal(kv, dim1=1, dim2=2).abs().max().item()
+    sym = torch.equal(kv, kv.transpose(1, 2))
+    log(f"[5 B3 kernel_i8_build] C={c} N={n}: int8 identical {same:.8f} (bar 0.9999), "
         f"max {err} level (bar 1); row sums equal to its own int8 row sums: {rows_ok}; "
-        f"diagonal max {diag}")
-    require(same >= 0.9999 and err <= 1, f"B3 C={c}: identical {same}, max {err} levels")
-    require(rows_ok, f"B3 C={c}: row sums differ from the sums of the stored int8 rows")
-    require(diag == 0, f"B3 C={c}: diagonal not 0 ({diag})")
+        f"diagonal max {diag}; bitwise symmetric {sym}")
+    require(same >= 0.9999 and err <= 1, f"B3 C={c} N={n}: identical {same}, max {err} levels")
+    require(rows_ok, f"B3 C={c} N={n}: row sums differ from the sums of the stored int8 rows")
+    require(diag == 0, f"B3 C={c} N={n}: diagonal not 0 ({diag})")
+    require(sym, f"B3 C={c} N={n}: K8 is not bitwise symmetric")
     return err
 
 
@@ -345,19 +355,30 @@ def phase_b3(dev):
     from critic_vae_tpu_torch.crf.fused_build import build_kernel_i8, build_kernel_i8_reference
 
     alpha, beta = REFERENCE_CRF_PARAMS[1:3]
-    small = _crf_imgs(4, 1, dev)
-    k8, rowsum = build_kernel_i8(small, alpha, beta, h=H, w=W)
-    k8r, _ = build_kernel_i8_reference(small, alpha, beta, h=H, w=W)
-    torch.cuda.synchronize()
-    err = _check_b3(k8, rowsum, k8r, 4)
-    del k8, k8r
+    err = 0
+    # N=4096, N=1024 and a ragged N=400 (20x20: divides by 16 for the int8
+    # 16-byte stores, but not by the 64-pixel tile)
+    for side in (H, 32, 20):
+        small = _crf_imgs(4, 1, dev, side)
+        k8, rowsum = build_kernel_i8(small, alpha, beta, h=side, w=side)
+        k8r, _ = build_kernel_i8_reference(small, alpha, beta, h=side, w=side)
+        torch.cuda.synchronize()
+        err = max(err, _check_b3(k8, rowsum, k8r, 4, side * side))
+        del k8, k8r
     chunk = _crf_imgs(CRF_CHUNK, 2, dev)
     ms, (k8, rowsum) = timed(lambda: build_kernel_i8(chunk, alpha, beta, h=H, w=W), iters=10)
     plain_ms, (k8r, _) = timed(lambda: build_kernel_i8_reference(chunk, alpha, beta, h=H, w=W),
                                iters=2, warmup=1)
-    log(f"[5 B3 kernel_i8_build] C={CRF_CHUNK} N={NPIX}: kernel {ms:.3f} ms, plain "
-        f"{plain_ms:.3f} ms")
+    b3_bound = crf_bounds()[2]["bound_ms"]
+    log(f"[5 B3 kernel_i8_build] C={CRF_CHUNK} N={NPIX}: kernel {ms:.3f} ms ({b3_bound / ms:.1%} "
+        f"of its {b3_bound:.3f} ms byte bound), plain {plain_ms:.3f} ms")
     err = max(err, _check_b3(k8, rowsum, k8r, CRF_CHUNK))
+    del k8r
+    k8b, rowsum_b = build_kernel_i8(chunk, alpha, beta, h=H, w=W)
+    same = torch.equal(k8, k8b) and torch.equal(rowsum, rowsum_b)
+    log(f"[5 B3 kernel_i8_build] C={CRF_CHUNK}: two launches bitwise identical (K8 and row "
+        f"sums) {same}")
+    require(same, "B3: two launches differ")
     return {"max_abs_err": float(err), "ms": ms, "plain_ms": plain_ms}
 
 
@@ -846,6 +867,20 @@ def phase_p1(dev):
             **bound(nbytes, [(2 * rows3 * 128 * 160, BF16_FLOPS)]), "library_ms": None}
 
 
+def _p2_agreement(k, r):
+    """P2's bf16 output against the plain version's: the share within one
+    bf16 ulp or 1e-5 (NaN where both are NaN counts as equal), the max abs
+    error and the max ulp distance over the finite entries."""
+    import torch
+
+    ulps = (k.view(torch.int16).int() - r.view(torch.int16).int()).abs()
+    diff = (k.float() - r.float()).abs()
+    both_nan = torch.isnan(k) & torch.isnan(r)
+    ok = ((ulps <= 1) | (diff <= 1e-5) | both_nan).double().mean().item()
+    fin = torch.isfinite(k.float()) & torch.isfinite(r.float())
+    return ok, diff[fin].max().item(), ulps[fin].max().item()
+
+
 def phase_p2(dev, critic, vae):
     """Probe P2 through its entry path, then the kernel against its plain
     version at B=1024 and against the s2d phase conv on real frames."""
@@ -865,7 +900,8 @@ def phase_p2(dev, critic, vae):
     launches = kb.LAUNCHES["front_end_probe"]
     log(f"[12 P2 copy_floor_probe] B={res['frames']} F={res['frames_per_block']}: dot_only "
         f"{res['dot_only_ms']:.4f} ms, copies_and_dot {res['copies_and_dot_ms']:.4f} ms, "
-        f"copy_floor {res['copy_floor_ms']:.4f} ms ({res['ns_per_copy']:.4f} ns per copy), "
+        f"copy_floor {res['copy_floor_ms']:.4f} ms ({res['ns_per_copy']:.4f} ns per frame's "
+        f"bulk copy), "
         f"{launches} launches")
     log(f"[12 P2 copy_floor_probe] from NCHW bf16 frames: fused path (s2d packing + kernel) "
         f"{res['fused_path_ms']:.4f} ms, library path (s2d packing, cuDNN s2d conv, phase "
@@ -877,18 +913,35 @@ def phase_p2(dev, critic, vae):
     x, w = p2.probe_inputs(b, dev)
     err = 0.0
     for copies in (True, False):
-        k = p2.front_end_probe(x, w, copies=copies)
         r = p2.front_end_probe_reference(x, w, copies=copies)
-        torch.cuda.synchronize()
-        ulps = (k.view(torch.int16).int() - r.view(torch.int16).int()).abs()
-        diff = (k.float() - r.float()).abs()
-        ok = ((ulps <= 1) | (diff <= 1e-5)).double().mean().item()
-        err = max(err, diff.max().item())
-        log(f"[12 P2 copy_floor_probe] {'copies_and_dot' if copies else 'dot_only'} B={b} vs "
-            f"plain: within 1 bf16 ulp (or 1e-5) {ok:.8f} (bar 1), max_abs_err "
-            f"{diff.max().item():.3e}, max {ulps.max().item()} ulp")
-        require(ok == 1.0, f"P2 copies={copies}: {ok} of outputs within the bar")
-        del k, r, ulps, diff
+        for fpb in (2, 4, 8):
+            k = p2.front_end_probe(x, w, frames_per_block=fpb, copies=copies)
+            torch.cuda.synchronize()
+            ok, diff, ulps = _p2_agreement(k, r)
+            err = max(err, diff)
+            log(f"[12 P2 copy_floor_probe] {'copies_and_dot' if copies else 'dot_only'} B={b} "
+                f"F={fpb} vs plain: within 1 bf16 ulp (or 1e-5) {ok:.8f} (bar 1), max_abs_err "
+                f"{diff:.3e}, max {ulps} ulp")
+            require(ok == 1.0, f"P2 copies={copies} F={fpb}: {ok} of outputs within the bar")
+            del k
+        del r
+    # +Inf in the first s2d scanline of every odd frame: it sits right after
+    # the even frame's last window, where the K pad's window reads land
+    xi = x.clone().view(b, p2.S2D_ROWS, p2.S2D_C)
+    xi[1::2, :p2.S2D_SIDE] = float("inf")
+    xi = xi.view(-1, p2.S2D_C)
+    k, r = p2.front_end_probe(xi, w), p2.front_end_probe_reference(xi, w)
+    torch.cuda.synchronize()
+    same_nan = torch.equal(torch.isnan(k), torch.isnan(r))
+    ok, diff, ulps = _p2_agreement(k, r)
+    rows = torch.isfinite(r.float()).all(dim=1)
+    kept = torch.isfinite(k.float())[rows].all().item()
+    log(f"[12 P2 copy_floor_probe] +Inf in odd frames' first scanline: NaN positions equal to "
+        f"the plain version's {same_nan} ({int(torch.isnan(r).sum())} NaN); elsewhere within "
+        f"1 bf16 ulp (or 1e-5) {ok:.8f} (bar 1); the {int(rows.sum())} rows the plain version "
+        f"leaves finite all finite {kept}")
+    require(same_nan and ok == 1.0 and kept, "P2: the +Inf run differs from the plain version")
+    del xi, k, r
     plain_ms = cuda_ms(lambda: p2.front_end_probe_reference(x, w), iters=3, warmup=1)
     xs = x.view(b, p2.S2D_SIDE, p2.S2D_SIDE, p2.S2D_C).permute(0, 3, 1, 2)
     w3 = w[:p2.PATCH].view(3, 3, p2.S2D_C, p2.N).permute(3, 2, 0, 1).contiguous()

@@ -22,9 +22,11 @@ fixed slots, summed in slot order.
 
 The int8 build (``build="int8"``) has two more kernels on the same K:
 
-* B3 :func:`build_kernel_i8` (``csrc/kernel_i8_build.cu``): one sweep
-  stores int8 ``round(127 k)`` of the unnormalized kernel and the f32 sums
-  of the stored values per row;
+* B3 :func:`build_kernel_i8` (``csrc/kernel_i8_build.cu``): one pass of
+  the same symmetric-tile build stores int8 ``round(127 k)`` of the
+  unnormalized kernel for K8[I, J] and K8[J, I] of each tile pair, and
+  adds the integer row partials of both halves into the f32 row sums of
+  the stored values (exact: integers below 2^24);
 * B4 :func:`matvec_i8` (``csrc/matvec_i8.cu``): per frame, the int8 K
   widened to bf16 times a bf16 (N, L) vector, summed in f32.
 """
@@ -39,7 +41,7 @@ from critic_vae_tpu_torch.kernels import build as kb
 OUT_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 MAX_LAUNCH_FRAMES = 65535  # the kernels put frames on a grid's y or z axis
 TILE = 64  # pixels a side of the symmetric build's tiles (csrc/bilateral_tile.cuh)
-B2_PLANES = 6  # per-pixel planes of B2's build: x, y, r, g, b, nb
+B2_PLANES = 6  # per-pixel planes of B2's and B3's builds: x, y, r, g, b, nb (B3 leaves nb)
 
 
 def _f32(v, device) -> torch.Tensor:
@@ -52,12 +54,17 @@ def row_sum_slots(n: int) -> int:
     return -(-n // TILE)
 
 
+def feature_planes(frames: int, n: int, planes: int, device) -> torch.Tensor:
+    """The symmetric build's (frames, planes, N padded to whole tiles) f32
+    per-pixel planes: the 5 bilateral features, nb, the entry's own."""
+    return torch.empty((frames, planes, row_sum_slots(n) * TILE), dtype=torch.float32,
+                       device=device)
+
+
 def build_scratch(frames: int, n: int, planes: int, device) -> tuple:
-    """The symmetric build's scratch: (frames, planes, N padded to whole
-    tiles) f32 per-pixel planes (the 5 bilateral features, nb, the entry's
-    own) and the (frames, slots, N) f32 row-sum partials."""
-    return (torch.empty((frames, planes, row_sum_slots(n) * TILE), dtype=torch.float32,
-                        device=device),
+    """B2's and B5's scratch: the feature planes and the (frames, slots, N)
+    f32 row-sum partials."""
+    return (feature_planes(frames, n, planes, device),
             torch.empty((frames, row_sum_slots(n), n), dtype=torch.float32, device=device))
 
 
@@ -167,8 +174,12 @@ def build_kernel_i8(imgs_u8: torch.Tensor, alpha, beta, *, h: int, w: int):
     K_i8 = round_half_even(127 k) of the UNNORMALIZED kernel k in [0, 1)
     (diagonal 0), and ``rowsum`` the sums of the stored values, from which
     the caller normalizes (the exactly normalized 8-bit model of the JAX
-    package's ``build_kernel_i8``). CUDA tensors launch kernel B3 (N must
-    divide by 16) or raise; CPU tensors take the plain version."""
+    package's ``build_kernel_i8``). K8 is bitwise symmetric; the kernel
+    computes each distinct entry once and its row sums are exact, so they
+    are reproducible launch to launch. CUDA tensors launch kernel B3 (N
+    must divide by 16, for its 16-byte stores and for B4) or raise, with
+    (C, 6, N padded to 64) f32 feature planes as scratch; CPU tensors take
+    the plain version."""
     _check_frames("build_kernel_i8", imgs_u8, h, w)
     c, n, _ = imgs_u8.shape
     if imgs_u8.device.type == "cpu":
@@ -177,12 +188,13 @@ def build_kernel_i8(imgs_u8: torch.Tensor, alpha, beta, *, h: int, w: int):
         raise ValueError(f"build_kernel_i8: N={n} must divide by 16 on CUDA")
     lib = kb.library()
     dev = imgs_u8.device
+    feat = feature_planes(c, n, B2_PLANES, dev)
     k8 = torch.empty((c * n, n), dtype=torch.int8, device=dev)
     rowsum = torch.empty((c * n, 1), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         status = lib.cvt_kernel_i8_build(
-            imgs_u8.data_ptr(), c, n, w, float(alpha), float(beta), k8.data_ptr(),
-            rowsum.data_ptr(), torch.cuda.current_stream().cuda_stream,
+            imgs_u8.data_ptr(), c, n, w, float(alpha), float(beta), feat.data_ptr(),
+            k8.data_ptr(), rowsum.data_ptr(), torch.cuda.current_stream().cuda_stream,
         )
     kb.check(status, "kernel_i8_build")
     kb.LAUNCHES["kernel_i8_build"] += 1

@@ -1,5 +1,6 @@
 // Symmetric-tile build of the device CRF's bilateral matrix, shared by
-// kernels B2 (bilateral_build.cu) and B5 (mean_field_resident.cu).
+// kernels B2 (bilateral_build.cu) and B5 (mean_field_resident.cu); kernel
+// B3 (kernel_i8_build.cu) runs its pieces in one pass of its own.
 //
 //   K[i,j] = exp(-1/2 |dxy/alpha|^2 - 1/2 |drgb/beta|^2)   i != j, 0 on i == j
 //   nb_i   = sqrt(w1) * rsqrt(sum_j K[i,j] + 1e-20)

@@ -1,13 +1,16 @@
-"""Probe P2: the copy floor of the fused front-end kernel on Hopper.
+"""Probe P2: the fused front-end kernel on Hopper, and its copy floor.
 
 Counterpart of examples/mosaic_copy_floor_probe.py, at its shapes: B = 1024
-frames, F frames per block (``PROBE_F``, default 4), x (B·1156, 12) bf16 —
-each frame's space-to-depth input, (34, 34, 12) scanline rows — w (128,
-160) bf16, output (B·1024, 40) bf16. The kernel (``csrc/front_end_probe.cu``)
-builds each output row's (32F, 128) im2col slab in shared memory, runs one
-(32F, 128) @ (128, 160) tensor-core product and keeps only ReLU of the max
-over the four 40-column phase groups. ``dot_only`` skips the copies (zeroed
-slab); the difference of the two times is the copy floor.
+frames, F frames per block (``PROBE_F``, default 4: the frames a block takes
+at a time; the grid is about one block an SM), x (B·1156, 12) bf16 — each
+frame's space-to-depth input, (34, 34, 12) scanline rows — w (128, 160)
+bf16, output (B·1024, 40) bf16. The kernel (``csrc/front_end_probe.cu``)
+brings whole frames into shared memory with bulk async copies and reads
+each output row's im2col operand straight from the frame's scanlines, with
+no slab: one ``wgmma`` (2 frames × 32 columns, 112) @ (112, 160) product a
+row, keeping only ReLU of the max over the four 40-column phase groups.
+``dot_only`` runs it on zeroed frames without the copies; the difference of
+the two times is the copy floor.
 
 With x the space-to-depth of padded frames and w ``s2d_pool_weights`` of the
 merged 3→40 first-conv weights as (108, 160) rows, zero-padded to 128, the
@@ -54,14 +57,17 @@ S2D_C = 12
 OUT_SIDE = 32
 OUT_ROWS = OUT_SIDE * OUT_SIDE
 K, N, PHASE_C = 128, 160, 40
-PATCH = 9 * S2D_C  # 108 im2col columns; 108..127 stay zero
+PATCH = 9 * S2D_C  # 108 im2col columns; w's rows 108..127 meet zeros
+K_PAD = 112        # PATCH padded to whole wgmma k-steps of 16
 DEFAULT_FRAMES_PER_BLOCK = 4
+RING = 3             # frame-pair buffers of a block
 SMEM_LIMIT = 232448  # bytes of shared memory one Hopper block may use
 
 
-def smem_bytes(frames_per_block: int) -> int:
-    """Shared memory of one block: w^T and the slab, rows padded to K + 8."""
-    return (N + OUT_SIDE * frames_per_block) * (K + 8) * 2
+def smem_bytes() -> int:
+    """Shared memory of one block: w (K_PAD, N) bf16, a ring of RING frame
+    pairs, and two 8-byte mbarriers a pair buffer."""
+    return K_PAD * N * 2 + RING * (2 * S2D_ROWS * S2D_C * 2 + 16)
 
 
 def im2col_rows(frames: int, device) -> torch.Tensor:
@@ -101,9 +107,9 @@ def _check(x: torch.Tensor, w: torch.Tensor, frames_per_block: int) -> int:
     if x.device != w.device:
         raise ValueError(f"front_end_probe: inputs on {x.device} and {w.device}")
     frames = x.shape[0] // S2D_ROWS
-    if frames_per_block < 1 or smem_bytes(frames_per_block) > SMEM_LIMIT:
-        raise ValueError(f"front_end_probe: frames_per_block {frames_per_block} needs "
-                         f"{smem_bytes(frames_per_block)} bytes of shared memory")
+    if frames_per_block < 2 or frames_per_block % 2:
+        raise ValueError(f"front_end_probe: frames_per_block {frames_per_block} must be even "
+                         "(wgmma's 64-row tile takes two frames)")
     if frames % frames_per_block:
         raise ValueError(f"front_end_probe: {frames} frames not a multiple of "
                          f"frames_per_block {frames_per_block}")
@@ -122,8 +128,8 @@ def front_end_probe(x: torch.Tensor, w: torch.Tensor, *,
         return front_end_probe_reference(x, w, copies=copies)
     if x.device.type != "cuda":
         raise ValueError(f"front_end_probe: unsupported device {x.device}")
-    if not (x.is_contiguous() and w.is_contiguous()):
-        raise ValueError("front_end_probe: inputs must be contiguous")
+    if not (x.is_contiguous() and w.is_contiguous()) or x.data_ptr() % 16:
+        raise ValueError("front_end_probe: inputs must be contiguous, x 16-byte aligned")
     out = torch.empty((frames * OUT_ROWS, PHASE_C), dtype=torch.bfloat16, device=x.device)
     with torch.cuda.device(x.device):
         status = kb.library().cvt_front_end_probe(
@@ -185,7 +191,7 @@ def run(device: torch.device, frames: int = FRAMES,
     res = {"platform": "gpu" if device.type == "cuda" else "cpu",
            "device": torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu",
            "frames": frames, "frames_per_block": frames_per_block,
-           "copies_per_batch": frames * OUT_SIDE * 9}
+           "copies_per_batch": frames}  # one bulk copy a frame
     if device.type != "cuda":
         for copies in (False, True):
             out = front_end_probe(x, w, frames_per_block=frames_per_block, copies=copies)

@@ -108,6 +108,42 @@ def test_front_end_probe_plain_matches_the_tpu_kernel(copies):
         assert not got.any()
 
 
+LINE = p2.S2D_SIDE * p2.S2D_C  # 408 bf16 of a frame's s2d scanline
+
+
+@pytest.mark.parametrize("frame", [0, 1, 3])
+def test_window_view_is_the_im2col_slab(frame):
+    """The kernel's A operand of output row i is a strided view of the
+    frame's own flat s2d input, entry (j, 36 r + m) at 408 (i + r) + 12 j +
+    m: no im2col copy is needed."""
+    x, _ = p2.probe_inputs(4, CPU)
+    flat = x.view(-1)[frame * p2.S2D_ROWS * p2.S2D_C:(frame + 1) * p2.S2D_ROWS * p2.S2D_C]
+    slab = x[p2.im2col_rows(4, CPU)].reshape(4, p2.OUT_SIDE, p2.OUT_SIDE, p2.PATCH)
+    for i in range(p2.OUT_SIDE):
+        window = torch.as_strided(flat, (p2.OUT_SIDE, 3, 36), (p2.S2D_C, LINE, 1),
+                                  flat.storage_offset() + LINE * i)
+        assert torch.equal(window.reshape(p2.OUT_SIDE, p2.PATCH), slab[frame, i])
+    # the pad's window reads (k = 108..111, "r = 3") of row 31 land on the
+    # next frame's first scanline: why the kernel zeroes them
+    k = torch.arange(p2.PATCH, p2.K_PAD)
+    assert (LINE * (31 + k // 36) + (k - 36 * (k // 36))).min() == p2.S2D_ROWS * p2.S2D_C
+
+
+@pytest.mark.parametrize("pad_fill", [0.0, float("nan"), float("inf")])
+def test_padded_k_product_equals_the_patch_product(pad_fill):
+    """K padded from 108 to 112 with the pad columns of A zeroed gives the
+    108-column product, whatever the pad reads held."""
+    x, w = p2.probe_inputs(2, CPU)
+    a = x[p2.im2col_rows(2, CPU)].reshape(-1, p2.PATCH).float()
+    raw = torch.cat([a, torch.full((a.shape[0], p2.K_PAD - p2.PATCH), pad_fill)], dim=1)
+    zeroed = raw.clone()
+    zeroed[:, p2.PATCH:] = 0.0
+    want = a @ w[:p2.PATCH].float()
+    assert torch.equal(zeroed @ w[:p2.K_PAD].float(), want)
+    if pad_fill != 0.0:  # unmasked, the pad poisons every output (NaN or Inf)
+        assert not torch.isfinite(raw @ w[:p2.K_PAD].float()).any()
+
+
 def test_front_end_probe_plain_is_the_s2d_phase_conv():
     """On s2d'd frames and the merged 3->40 weights, the probe computes ReLU
     of the pool-phase max of the JAX package's s2d_conv_pool2_phases."""
@@ -146,10 +182,11 @@ def test_front_end_probe_wrapper_checks_and_counts_nothing_on_cpu():
     with pytest.raises(ValueError):
         p2.front_end_probe(x, w, frames_per_block=3)  # 4 frames
     with pytest.raises(ValueError):
-        p2.front_end_probe(x, w, frames_per_block=32)  # beyond 227 KB of shared memory
+        p2.front_end_probe(x, w, frames_per_block=1)  # wgmma's 64-row tile takes frame pairs
     with pytest.raises(ValueError):
         p2.front_end_probe(x.to("meta"), w.to("meta"))
-    assert p2.smem_bytes(21) <= p2.SMEM_LIMIT < p2.smem_bytes(22)
+    # w (112, 160) and three frame pairs with their two mbarriers fit one block
+    assert p2.smem_bytes() == 112 * 160 * 2 + 3 * (2 * 1156 * 12 * 2 + 16) <= p2.SMEM_LIMIT
 
 
 def test_copy_floor_probe_entry_point(tmp_path, monkeypatch):
@@ -158,7 +195,7 @@ def test_copy_floor_probe_entry_point(tmp_path, monkeypatch):
     assert p2.main([str(out), "--device", "cpu", "--frames", "4"]) == 0
     rec = json.loads(out.read_text())
     assert rec["platform"] == "cpu" and rec["frames_per_block"] == 2
-    assert rec["copies_per_batch"] == 4 * 32 * 9
+    assert rec["copies_per_batch"] == 4  # one bulk copy a frame
     assert "dot_only_ms" not in rec  # no device time from a CPU run
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError):

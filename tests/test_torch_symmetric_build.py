@@ -1,14 +1,18 @@
-"""Premises of the symmetric-tile build that kernels B2 and B5 share
+"""Premises of the symmetric-tile build that kernels B2, B3 and B5 share
 (csrc/bilateral_tile.cuh), checked on their plain versions on the CPU: K
 and the stored matrices are bitwise symmetric, so one exp serves M[i, j] and
-M[j, i]; row sums taken as 64-column tile partials, summed in slot order,
-stand in for the plain row sums; and the wrappers' scratch is what their
-byte counts say. The kernels themselves are held to the same bars on the
-card by chip_smoke.py (phases 4 and 7)."""
+M[j, i]; row sums taken as 64-column tile partials, summed in slot order
+(B2, B5) or in any order (B3's integers), stand in for the plain row sums;
+and the wrappers' scratch is what their byte counts say. The kernels
+themselves are held to the same bars on the card by chip_smoke.py (phases
+4, 5 and 7)."""
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+
+from critic_vae_tpu.crf.fused_build import build_kernel_i8 as jax_build_i8
 
 from critic_vae_tpu_torch.crf import REFERENCE_CRF_PARAMS
 from critic_vae_tpu_torch.crf.device import _EPS_NORM, _spatial_taps
@@ -18,7 +22,10 @@ from critic_vae_tpu_torch.crf.fused_build import (
     bilateral_k,
     build_bilateral,
     build_bilateral_reference,
+    build_kernel_i8,
+    build_kernel_i8_reference,
     build_scratch,
+    feature_planes,
     row_sum_slots,
 )
 from critic_vae_tpu_torch.crf.fused_resident import (
@@ -129,3 +136,50 @@ def test_resident_workspace_matches_its_byte_count(n, lanes):
     assert ws["qb"].shape == (2, 3, _q_lanes(lanes), n) and _q_lanes(lanes) % 8 == 0
     assert _q_lanes(lanes) - lanes < 8
     assert (_q_lanes(2), _q_lanes(26)) == (8, 32)
+
+
+@pytest.mark.parametrize("h, w", SHAPES)
+def test_plain_b3_k8_is_symmetric_with_exact_tile_sums(h, w):
+    """B3's int8 K8 is bitwise symmetric with a zero diagonal, so its row
+    partials over the columns of I are the column partials of K8[I, J]; the
+    partials are integers, so the 64-column tile partials summed in any order
+    give the row sums exactly, and so do the column sums."""
+    n = h * w
+    k8, rowsum = build_kernel_i8_reference(_frames(2, h, w, 6), ALPHA, BETA, h=h, w=w)
+    rng = np.random.default_rng(6)
+    for ci in range(2):
+        k = k8[ci * n:(ci + 1) * n]
+        assert torch.equal(k, k.T) and (torch.diagonal(k) == 0).all() and k.sum() > 0
+        parts = [k[:, s * TILE:(s + 1) * TILE].sum(dim=1, dtype=torch.int32).float()
+                 for s in range(row_sum_slots(n))]
+        want = rowsum[ci * n:(ci + 1) * n, 0]
+        assert torch.equal(k.sum(dim=0, dtype=torch.int32).float(), want)  # columns
+        for order in (range(len(parts)), reversed(range(len(parts))),
+                      rng.permutation(len(parts))):
+            total = torch.zeros(n)
+            for s in order:
+                total = total + parts[s]
+            assert torch.equal(total, want)
+
+
+def test_plain_b3_matches_jax_build_kernel_i8():
+    h = w = 16
+    imgs = _frames(2, h, w, 7)
+    k8_j, rowsum_j = jax_build_i8(jnp.asarray(imgs.numpy()), jnp.float32(ALPHA),
+                                  jnp.float32(BETA), h=h, w=w)
+    k8, rowsum = build_kernel_i8(imgs, ALPHA, BETA, h=h, w=w)  # CPU: the plain version
+    # the JAX package's bar (tests/test_crf_device.py): <= 1 level on < 0.1%
+    diff = np.abs(k8.numpy().astype(np.int32) - np.asarray(k8_j).astype(np.int32))
+    assert diff.max() <= 1 and (diff > 0).mean() < 1e-3
+    np.testing.assert_allclose(rowsum.numpy(), np.asarray(rowsum_j),
+                               atol=float(diff.sum(axis=1).max()))
+
+
+@pytest.mark.parametrize("c, n", [(64, 4096), (4, 400), (4, 1024)])
+def test_b3_scratch_is_the_feature_planes(c, n):
+    """B3's only scratch: (C, 6, N padded to 64) f32 planes, 1.6 MB a
+    64-frame chunk of 64x64 frames."""
+    feat = feature_planes(c, n, B2_PLANES, "meta")
+    assert feat.shape == (c, 6, -(-n // 64) * 64) and feat.dtype == torch.float32
+    assert feat.numel() * feat.element_size() == c * 6 * -(-n // 64) * 64 * 4
+    assert build_scratch(c, n, B2_PLANES, "meta")[0].shape == feat.shape  # B2's planes too
