@@ -9,8 +9,19 @@ exits non-zero:
 1. card identity (nvidia-smi name and power limit, torch's device name);
 2. kernel build: one nvcc per critic_vae_tpu_torch/csrc/*.cu for sm_90a,
    all started together, linked into one library;
-3. kernel B1 (diff_mask) against its plain version at (512, 3, 64, 64),
-   f32 and bf16 — bar: max abs error <= 1e-6 on grey maps and maxima;
+3. kernel B1 (diff_mask) against its plain version on the main path's
+   (2 x 512, 3, 64, 64) decode and on a ragged (8, 3, 25, 25) one (the
+   scalar-load instantiation) in f32, in bf16 with f32_tanh (the Pallas
+   kernel's widened tanh) and in bf16 by default (tanh rounded to bf16, the
+   JAX default) — bar: max abs error <= 1e-6 on grey maps and maxima; then
+   every one of the 65,536 bf16 bit patterns in channel 0 of the decode at
+   the critic value (16 frames, all else 0, so grey is exactly 0.2989
+   |bf16 tanh|): the kernel equal to the plain version on the card with NaN
+   positions equal, at most 16 values differing and each by at most one
+   bf16 ulp of tanh, and the same bar against a CPU torch.tanh table. Each
+   mode's device time (torch.profiler's kernel time over 50 launches, the
+   inputs in turn over 4 decodes so that they come from HBM, not the L2),
+   call time (CUDA events over 50 calls of the Python wrapper) and plain time;
 4. kernel B2 (bilateral_build) against its plain version at C=4, N=4096
    and at a ragged N=2500 (50x50) (f32: <= 1e-5 relative on entries >
    1e-3; bf16: within 1 bf16 ulp; the diagonal exactly 0; M bitwise
@@ -70,8 +81,10 @@ exits non-zero:
    chunk 512 and a torch.profiler breakdown of the default stage's kernels;
 11. probe P1 (caps_probe): its entry path on the card with the launch count
    set to 0 just before and read just after; its three answers must be
-   true, and each question's kernel is held against its plain version
-   (Q1, Q2 exact; Q3 <= 1e-5 relative);
+   true (Q3 on wgmma, a frame pair's rows a 64-row tile), and each
+   question's kernel is held against its plain version (Q1, Q2 exact; Q3
+   <= 1e-5 relative) and timed on the device beside a kernel that does
+   nothing (they are launch-bound), and by call;
 12. probe P2 (copy_floor_probe): its entry path (both variants timed at
    B=1024, F=4; from NCHW frames the fused path, s2d packing plus kernel,
    beside the same function by library calls; and the cuDNN merged front
@@ -92,9 +105,13 @@ its plain version, its times, its bound (the larger of its bytes over the
 HBM rate and its operations over the peak rate of their type, from this
 run's shapes) and the time of one PyTorch call computing the same function
 where there is one (for B5, of its iteration's product; its row also has
-build_ms and iter_ms, and each time again at T=13 as *_t13); the last line
-is {"ok": true, "device": {...}}. Without CUDA the script fails and prints
-no result. About a minute on an H100, the build (~10 s) included.
+build_ms and iter_ms, and each time again at T=13 as *_t13). B1's and P1's
+``ms`` is device time and their ``call_ms`` the time of a call through the
+Python wrapper (P1's rows sum the three questions, with ``empty_ms`` the
+empty kernel's device time); the other kernels' ``ms`` are CUDA-event times
+of calls, which their device time dominates. The last line is {"ok": true,
+"device": {...}}. Without CUDA the script fails and prints no result. About
+a minute on an H100, the build (~10 s) included.
 """
 
 from __future__ import annotations
@@ -122,6 +139,8 @@ BF16_PRED_BAR = 2.0 ** -6  # bf16 preds across front ends: 4 bf16 ulps below 1
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12        # tensor cores
 F32_FLOPS = 67e12          # float32 outside the tensor cores
+B1_BUFFERS = 4             # B1's timed decodes: 4 x 25.2 MB in turn exceed the 50 MB L2
+B1_RAGGED_SIDE = 25        # B1's ragged frames: H*W = 625, no multiple of a 16-byte vector
 # float32 operations of one bilateral kernel entry (5 feature differences, 5
 # squares, 4 sums, 1 scale, 1 exp): a lower count, as a bound wants
 ENTRY_OPS = 16
@@ -206,30 +225,95 @@ def phase_build():
     return lib
 
 
-def phase_b1(dev):
+def _b1_tanh_ulps(x, y):
+    """B1's grey maps x and y of the exhaustive check: (whether their NaN
+    positions are equal, how many non-NaN values differ, the largest gap in
+    bf16 ulps of the tanh each implies, grey / 0.2989 rounded to bf16)."""
     import torch
 
-    from critic_vae_tpu_torch.device import cuda_ms
+    from critic_vae_tpu_torch.ops.diff_mask import REC601
+
+    same_nan = torch.equal(torch.isnan(x), torch.isnan(y))
+    differ = (x != y) & ~torch.isnan(x) & ~torch.isnan(y)
+    count = int(differ.sum())
+    if not count:
+        return same_nan, 0, 0
+    tx, ty = ((v[differ].float() / REC601[0]).bfloat16().view(torch.int16).int() for v in (x, y))
+    return same_nan, count, int((tx - ty).abs().max())
+
+
+def phase_b1(dev):
+    """B1 against its plain version in its three modes at the main path's
+    shape, on every bf16 value, and its device, call and plain times."""
+    import itertools
+
+    import torch
+
+    from critic_vae_tpu_torch.device import cuda_ms, device_ms
     from critic_vae_tpu_torch.ops.diff_mask import diff_mask, diff_mask_reference
 
     g = torch.Generator(device=dev).manual_seed(1)
-    shape = (MAIN_BATCH, 3, 64, 64)
-    row = None
-    for dt in (torch.float32, torch.bfloat16):
-        a = (2.0 * torch.randn(shape, generator=g, device=dev)).to(dt)
-        b = (2.0 * torch.randn(shape, generator=g, device=dev)).to(dt)
-        grey_k, max_k = diff_mask(a, b)
-        grey_r, max_r = diff_mask_reference(a, b)
-        torch.cuda.synchronize()
-        err = max((grey_k - grey_r).abs().max().item(), (max_k - max_r).abs().max().item())
-        ms = cuda_ms(lambda: diff_mask(a, b), iters=50)
-        plain_ms = cuda_ms(lambda: diff_mask_reference(a, b), iters=50)
-        log(f"[3 B1 diff_mask] {tuple(shape)} {str(dt)[6:]}: max_abs_err {err:.3e} "
-            f"(bar 1e-6); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-        require(err <= 1e-6, f"B1 {dt}: max abs error {err} > 1e-6")
-        if dt == torch.bfloat16:  # the main path's dtype
-            row = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
-    return row
+    shape = (2 * MAIN_BATCH, 3, H, W)  # the (2B, 3, H, W) decode
+    err, row = 0.0, None
+    for dt, f32_tanh in ((torch.float32, False), (torch.bfloat16, True), (torch.bfloat16, False)):
+        # B1_BUFFERS decodes in turn, so a timed launch finds its input out of the L2
+        pres = [(2.0 * torch.randn(shape, generator=g, device=dev)).to(dt)
+                for _ in range(B1_BUFFERS)]
+        # and a ragged 25x25 decode: H*W = 625 is odd, so the planes are not
+        # 16-byte aligned and the scalar-load instantiation runs
+        ragged = (2.0 * torch.randn((8, 3, B1_RAGGED_SIDE, B1_RAGGED_SIDE), generator=g,
+                                    device=dev)).to(dt)
+        e = 0.0
+        for pre in (pres[0], ragged):
+            grey_k, max_k = diff_mask(pre, f32_tanh=f32_tanh)
+            grey_r, max_r = diff_mask_reference(pre, f32_tanh=f32_tanh)
+            torch.cuda.synchronize()
+            e = max(e, (grey_k - grey_r).abs().max().item(), (max_k - max_r).abs().max().item())
+        err = max(err, e)
+        turn = itertools.cycle(pres)
+        ms = device_ms(lambda: diff_mask(next(turn), f32_tanh=f32_tanh), "diff_mask_kernel")
+        call_ms = cuda_ms(lambda: diff_mask(next(turn), f32_tanh=f32_tanh), iters=50)
+        plain_ms = cuda_ms(lambda: diff_mask_reference(next(turn), f32_tanh=f32_tanh), iters=20)
+        label = f"{str(dt)[6:]}{' f32_tanh' if f32_tanh else ''}"
+        b1 = b1_bound(pres[0].element_size())["bound_ms"]
+        log(f"[3 B1 diff_mask] {shape} and {tuple(ragged.shape)} {label}: max_abs_err {e:.3e} "
+            f"(bar 1e-6); {shape}: device "
+            f"{ms:.4f} ms ({b1 / ms:.1%} of its {b1:.4f} ms byte bound), "
+            f"call {call_ms:.4f} ms, plain {plain_ms:.4f} ms")
+        require(e <= 1e-6, f"B1 {label}: max abs error {e} > 1e-6")
+        row = {"ms": ms, "call_ms": call_ms, "plain_ms": plain_ms}  # bf16 default, the last
+        del pres, grey_k, grey_r
+    # every bf16 bit pattern in channel 0 of the decode at the critic value,
+    # all else 0: grey is exactly 0.2989 |bf16 tanh|, with no FMA-order noise
+    bits = torch.arange(-2**15, 2**15, dtype=torch.int32).to(torch.int16).view(torch.bfloat16)
+    frames = bits.numel() // NPIX
+    one = torch.zeros((frames, 3, H, W), dtype=torch.bfloat16)
+    one[:, 0] = bits.view(frames, H, W)
+    pre_cpu = torch.cat([one, torch.zeros_like(one)])
+    pre = pre_cpu.to(dev)
+    grey_k, max_k = diff_mask(pre)
+    grey_r, max_r = diff_mask_reference(pre)
+    grey_c, _ = diff_mask_reference(pre_cpu)  # the CPU's torch.tanh, rounded to bf16
+    torch.cuda.synchronize()
+    same_nan, count, ulps = _b1_tanh_ulps(grey_k, grey_r)
+    max_nan, max_count, _ = _b1_tanh_ulps(max_k, max_r)
+    if count:
+        at = torch.nonzero((grey_k != grey_r) & ~torch.isnan(grey_k) & ~torch.isnan(grey_r))
+        for f, y, x in at[:16].tolist():
+            log(f"[3 B1 diff_mask]   differs at bf16 input {bits.view(frames, H, W)[f, y, x]}: "
+                f"kernel {grey_k[f, y, x].item()!r}, plain {grey_r[f, y, x].item()!r}")
+    log(f"[3 B1 diff_mask] every bf16 ({bits.numel()} bit patterns, {frames} frames): kernel vs "
+        f"plain on the card: NaN positions equal {same_nan and max_nan}, {count + max_count} "
+        f"values differ (bar 16), max {ulps} bf16 ulp (bar 1)")
+    require(same_nan and max_nan and count + max_count <= 16 and ulps <= 1,
+            "B1: the kernel's bf16 tanh differs from its plain version's")
+    cpu_nan, cpu_count, cpu_ulps = _b1_tanh_ulps(grey_k.cpu(), grey_c)
+    log(f"[3 B1 diff_mask] every bf16: the card's rounding vs a CPU torch.tanh table: NaN "
+        f"positions equal {cpu_nan}, {cpu_count} finite values differ (bar 16), max "
+        f"{cpu_ulps} bf16 ulp (bar 1)")
+    require(cpu_nan and cpu_count <= 16 and cpu_ulps <= 1,
+            "B1: the card's bf16 tanh differs from the CPU's")
+    return {"max_abs_err": err, **row}
 
 
 def _bf16_ulps(x, y) -> int:
@@ -830,7 +914,7 @@ def phase_p1(dev):
     its plain version."""
     import torch
 
-    from critic_vae_tpu_torch.device import cuda_ms
+    from critic_vae_tpu_torch.device import cuda_ms, device_ms
     from critic_vae_tpu_torch.kernels import build as kb
     from critic_vae_tpu_torch.probes import caps_probe as p1
 
@@ -844,27 +928,34 @@ def phase_p1(dev):
     require(all(res[k] is True for k in p1.INSTRUCTIONS), f"P1 answers {res}")
     require(launches >= 3, f"P1: {launches} launches")
     x1, x2, x3, w3 = p1.probe_inputs(dev)
-    pairs = ((lambda: p1.q1_lane_offset_write(x1), lambda: p1.q1_reference(x1)),
-             (lambda: p1.q2_phase_max_40(x2), lambda: p1.q2_reference(x2)),
-             (lambda: p1.q3_fori_dyn_dot(x3, w3), lambda: p1.q3_reference(x3, w3)))
-    errs, ms, plain_ms = [], 0.0, 0.0
-    for q, (kern, plain) in enumerate(pairs, 1):
+    # (kernel, plain version, the kernel's name in csrc/caps_probe.cu)
+    questions = (
+        (lambda: p1.q1_lane_offset_write(x1), lambda: p1.q1_reference(x1), "q1_lane_offset_write"),
+        (lambda: p1.q2_phase_max_40(x2), lambda: p1.q2_reference(x2), "q2_phase_max"),
+        (lambda: p1.q3_fori_dyn_dot(x3, w3), lambda: p1.q3_reference(x3, w3), "q3_loop_dyn_dot"))
+    # the questions are launch-bound: the yardstick is a kernel that does nothing
+    empty_ms = device_ms(lambda: p1.empty_launch(dev), "empty_kernel")
+    errs, ms, call_ms, plain_ms = [], 0.0, 0.0, 0.0
+    for q, (kern, plain, name) in enumerate(questions, 1):
         k, r = kern(), plain()
         torch.cuda.synchronize()
         errs.append((k - r).abs().max().item())
         scale = r.abs().max().item()
         bar = 0.0 if q < 3 else 1e-5 * scale
-        k_ms, p_ms = cuda_ms(kern, iters=50), cuda_ms(plain, iters=50)
-        ms, plain_ms = ms + k_ms, plain_ms + p_ms
+        k_ms, c_ms = device_ms(kern, name), cuda_ms(kern, iters=50)
+        p_ms = cuda_ms(plain, iters=50)
+        ms, call_ms, plain_ms = ms + k_ms, call_ms + c_ms, plain_ms + p_ms
         log(f"[11 P1 caps_probe] Q{q} kernel vs plain: max_abs_err {errs[-1]:.3e} (bar "
-            f"{bar:.3e}); kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms")
+            f"{bar:.3e}); device {k_ms:.4f} ms (an empty kernel {empty_ms:.4f} ms), call "
+            f"{c_ms:.4f} ms, plain {p_ms:.4f} ms")
         require(errs[-1] <= bar, f"P1 Q{q}: error {errs[-1]}")
     # Q1 and Q2 in and out in f32; Q3 reads only its 4 frames' 32 rows of x
     rows3 = p1.FRAMES * p1.FRAME_ROWS
     nbytes = (128 * 20 + 128 * 128) * 4 + (128 * 160 + 128 * 40) * 4 + (
         rows3 * 128 * 2 + 128 * 160 * 2 + rows3 * 160 * 4)
-    return {"launches": launches, "max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms,
-            **bound(nbytes, [(2 * rows3 * 128 * 160, BF16_FLOPS)]), "library_ms": None}
+    return {"launches": launches, "max_abs_err": max(errs), "ms": ms, "call_ms": call_ms,
+            "plain_ms": plain_ms, **bound(nbytes, [(2 * rows3 * 128 * 160, BF16_FLOPS)]),
+            "library_ms": None, "empty_ms": empty_ms}
 
 
 def _p2_agreement(k, r):
@@ -900,8 +991,9 @@ def phase_p2(dev, critic, vae):
     launches = kb.LAUNCHES["front_end_probe"]
     log(f"[12 P2 copy_floor_probe] B={res['frames']} F={res['frames_per_block']}: dot_only "
         f"{res['dot_only_ms']:.4f} ms, copies_and_dot {res['copies_and_dot_ms']:.4f} ms, "
-        f"copy_floor {res['copy_floor_ms']:.4f} ms ({res['ns_per_copy']:.4f} ns per frame's "
-        f"bulk copy), "
+        f"copy_floor {res['copy_floor_ms']:.4f} ms ({res['ns_per_bulk_copy']:.4f} ns per "
+        f"frame's bulk copy; {res['ns_per_copy']:.6f} ns per im2col block copy of the TPU "
+        f"probe's count, {res['copies_per_batch']}, which this kernel does not make), "
         f"{launches} launches")
     log(f"[12 P2 copy_floor_probe] from NCHW bf16 frames: fused path (s2d packing + kernel) "
         f"{res['fused_path_ms']:.4f} ms, library path (s2d packing, cuDNN s2d conv, phase "
@@ -975,13 +1067,20 @@ def phase_p2(dev, critic, vae):
                                    "library_path_ms", "cudnn_front_end_ms")}}
 
 
+def b1_bound(itemsize: int) -> dict:
+    """B1's bound at the main path's (2 x 512, 3, 64, 64) decode of
+    ``itemsize``-byte values: the decode read once, the f32 grey and maxima
+    written once; two tanh, a difference and the grey's FMAs a channel."""
+    pix = MAIN_BATCH * NPIX
+    return bound(2 * 3 * pix * itemsize + pix * 4 + MAIN_BATCH * 4, [(pix * 19, F32_FLOPS)])
+
+
 def crf_bounds():
     """Bounds of B1-B5 at the shapes their phases time: B1 at (512, 3, 64,
     64) bf16; B2-B5 at C=64 frames of N=4096 pixels; B4 with L=2; B5 with 10
     iterations at T=1 and T=13."""
     c, n = CRF_CHUNK, NPIX
-    pix = MAIN_BATCH * NPIX
-    b1 = bound(2 * 3 * pix * 2 + pix * 4 + MAIN_BATCH * 4, [(pix * 19, F32_FLOPS)])
+    b1 = b1_bound(2)
     # the n(n - 1)/2 distinct entries of the symmetric K, each one exp
     build = (c * n * (n - 1) // 2 * ENTRY_OPS, F32_FLOPS)
     b2 = bound(c * n * 3 + c * n * n * 2, [build])

@@ -6,8 +6,13 @@ reconstructions, panels or GIFs: critic, VAE double decode, diff maps,
 normalisation, threshold, device CRF, and the whole-stack IoUs printed as
 ``thr_iou=`` / ``crf_iou=``. With ``--sweep`` (reference: -thresh) it runs
 the threshold sweep instead and prints one ``thr=, thr_iou=, crf_iou=``
-line per threshold. The device CRF's build is chosen, as in the JAX
-package, by ``CRITIC_VAE_TPU_CRF_BUILD`` (auto|pallas|int8|vmem).
+line per threshold. The CRF backend is resolved once, before any weights
+load, as in the JAX package: ``--crf-backend auto`` prints ``crf backend:
+device (auto)``, and a backend that cannot run here (``auto`` off CUDA
+resolves to the host CRF, not ported yet) prints ``error: ...`` and exits
+with 1. The device CRF's build is chosen, as in the JAX package, by
+``CRITIC_VAE_TPU_CRF_BUILD`` (auto|pallas|int8|vmem), and its per-chunk
+memory budget by ``CRITIC_VAE_TPU_CRF_MEM`` (bytes, default 6 GiB).
 """
 
 from __future__ import annotations
@@ -82,6 +87,20 @@ def cmd_video(args) -> int:
         print("error: --sweep needs IoU scoring, and the episode has no Y.npy",
               file=sys.stderr)
         return 1
+    if not args.no_crf:
+        # resolve 'auto' (and check an explicit 'device') against the
+        # episode's resolution and the device once, before any weights load
+        from critic_vae_tpu_torch.crf.policy import resolve_crf_backend
+
+        try:
+            backend = resolve_crf_backend(args.crf_backend, frames.shape[1], frames.shape[2],
+                                          device=device)
+        except (ValueError, NotImplementedError) as e:
+            print(f"error: {e}", file=sys.stderr)
+            return 1
+        if args.crf_backend == "auto":
+            print(f"crf backend: {backend} (auto)")
+        args.crf_backend = backend
     critic = weights.critic_from_params(weights.load_critic_npz(args.critic)).to(device)
     params, state = (weights.load_vae_npz(args.vae) if args.vae
                      else weights.numpy_vae_params(args.vae_seed))

@@ -43,11 +43,13 @@ from critic_vae_tpu_torch.crf import REFERENCE_CRF_PARAMS
 _EPS_PROB = 1e-8   # unary clamp, as densecrf.cpp
 _EPS_NORM = 1e-20  # normalizer epsilon, as densecrf.cpp
 
-# Per-chunk budget for the N^2 workspaces. The JAX package sized it for a
-# 16 GB TPU chip (its crf/device.py _run_chunked); kept as is until it is
-# measured on the 80 GB H100 (ROADMAP A.5). At 64x64 it allows 95 f32, 190
-# bf16 or 381 int8 frames, above the default chunk of 64.
+# Per-chunk budget for the N^2 workspaces, in bytes; MEM_ENV overrides it,
+# as in the JAX package (its crf/device.py _run_chunked). The JAX package
+# sized the default for a 16 GB TPU chip; kept as is until it is measured on
+# the 80 GB H100 (ROADMAP A.7). At 64x64 it allows 95 f32, 190 bf16 or 381
+# int8 frames, above the default chunk of 64.
 _MEM_BUDGET = 6 * 1024**3
+MEM_ENV = "CRITIC_VAE_TPU_CRF_MEM"
 
 # the JAX package's build override (its crf/device.py _resolve_build)
 BUILD_ENV = "CRITIC_VAE_TPU_CRF_BUILD"
@@ -209,13 +211,19 @@ def _resolve_build(build: str, h: int, w: int) -> str:
     every value routes to a kernel on a CUDA tensor (the plain versions run
     only for CPU tensors). ``int8`` and ``vmem`` keep the JAX package's TPU
     limits for parity (ROADMAP C): H*W divisible by 128, and for ``vmem``
-    H*W <= MAX_RESIDENT_N. The Gram-form ``xla`` build is not ported."""
+    H*W <= MAX_RESIDENT_N. The Gram-form ``xla`` build is not ported.
+
+    A known deviation (ROADMAP C.3): at H*W % 128 != 0 the JAX package
+    raises for ``pallas`` and runs its float32 ``xla`` build for ``auto``;
+    here both take B2, in bf16 on CUDA, so the masks at such sizes (20x20
+    crops, say) differ from the JAX default's. It resolves as the JAX
+    package does once the ``xla`` build is ported (ROADMAP A.7)."""
     from critic_vae_tpu_torch.crf.fused_resident import MAX_RESIDENT_N
 
     build = os.environ.get(BUILD_ENV, build)
     if build == "xla":
         raise NotImplementedError(
-            "build='xla': the Gram-form build is not ported yet (ROADMAP A.9)"
+            "build='xla': the Gram-form build is not ported yet (ROADMAP A.7)"
         )
     if build in ("auto", "pallas"):
         return "pallas"
@@ -233,9 +241,10 @@ def _resolve_build(build: str, h: int, w: int) -> str:
 def _chunk_frames(frame_chunk: int, fused: str, multi: bool, compute_dtype: str,
                   npix: int, lanes: int) -> int:
     """Frames per chunk: at most ``frame_chunk`` (and at least 1) whose N^2
-    workspace fits the budget. Per frame that is the int8 K (``int8``, one
-    mask), M in bf16 (``int8`` with many masks) or in ``compute_dtype``, or
-    for ``vmem`` kernel B5's workspace (fused_resident.workspace_bytes)."""
+    workspace fits the budget (``CRITIC_VAE_TPU_CRF_MEM`` bytes, default 6
+    GiB). Per frame that is the int8 K (``int8``, one mask), M in bf16
+    (``int8`` with many masks) or in ``compute_dtype``, or for ``vmem``
+    kernel B5's workspace (fused_resident.workspace_bytes)."""
     if fused == "vmem":
         from critic_vae_tpu_torch.crf.fused_resident import workspace_bytes
 
@@ -246,7 +255,8 @@ def _chunk_frames(frame_chunk: int, fused: str, multi: bool, compute_dtype: str,
         frame_bytes = 2 * npix * npix
     else:
         frame_bytes = 4 * npix * npix
-    return max(1, min(frame_chunk, _MEM_BUDGET // frame_bytes))
+    budget = int(os.environ.get(MEM_ENV, _MEM_BUDGET))
+    return max(1, min(frame_chunk, budget // frame_bytes))
 
 
 def _run_chunked(flat_imgs: torch.Tensor, flat_masks: torch.Tensor, params, h: int,
@@ -307,7 +317,9 @@ def refine_masks_device(frames_u8, thr_masks, params: Tuple = REFERENCE_CRF_PARA
     Tensors are used where they lie; numpy inputs need ``device``.
     ``compute_dtype="auto"`` stores B2's M in bf16 on CUDA (the kernel's
     fast path; held to >= 99.9% segmentation agreement with float32) and
-    float32 on the CPU; ``int8`` and ``vmem`` fix their own storage."""
+    float32 on the CPU; ``int8`` and ``vmem`` fix their own storage. At
+    H*W % 128 != 0 ``auto`` and ``pallas`` both run B2, where the JAX
+    package runs its ``xla`` build or raises (:func:`_resolve_build`)."""
     frames, device = _frames_on(frames_u8, device, "refine_masks_device")
     n, h, w_, _ = frames.shape
     if tuple(thr_masks.shape) != (n, h, w_):

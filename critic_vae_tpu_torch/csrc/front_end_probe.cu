@@ -37,9 +37,9 @@
 //   because the window formula there reads the next frame's first row (or
 //   past the ring), and NaN or Inf times w's zero rows would be NaN.
 // * B = w resident in shared memory once a block, in wgmma's canonical
-//   K-major layout without swizzle: 8 x 8 bf16 core matrices of 128
-//   contiguous bytes, k-adjacent ones 128 bytes apart (LBO), n-adjacent
-//   ones 1,792 (SBO); 112 x 160 bf16, 35,840 bytes.
+//   K-major layout without swizzle (wgmma_bf16.cuh): 8 x 8 bf16 core
+//   matrices of 128 contiguous bytes, k-adjacent ones 128 bytes apart
+//   (LBO), n-adjacent ones 1,792 (SBO); 112 x 160 bf16, 35,840 bytes.
 // * The epilogue in registers: wgmma's accumulators repeat mma.sync's C
 //   layout for each 8 columns, so the four phases of output channel c sit in
 //   n-tiles c/8 + 5p of the same thread; phase max, ReLU and bf16 need no
@@ -56,8 +56,11 @@
 #include <stdint.h>
 
 #include "mma_bf16.cuh"
+#include "wgmma_bf16.cuh"
 
 namespace {
+
+using cvt::smem_u32;
 
 constexpr int kConsumers = 2;                       // consumer warpgroups
 constexpr int kThreads = 128 * kConsumers + 32;     // + the producer warp
@@ -76,10 +79,6 @@ constexpr int kWBytes = kKPad * kN * 2;             // 35,840
 
 // w, the ring, then a full and an empty mbarrier a stage
 constexpr int kSmemBytes = kWBytes + kRing * (kPairBytes + 16);
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
 
 __device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
@@ -120,66 +119,6 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t b
       : "memory");
 }
 
-// the matrix descriptor of a K-major, unswizzled operand at shared address
-// `addr`: LBO between k-adjacent core matrices, SBO between n-adjacent ones
-__device__ __forceinline__ uint64_t kmajor_desc(uint32_t addr) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(kCore >> 4) << 16) | (static_cast<uint64_t>(kSbo >> 4) << 32);
-}
-
-// keep the compiler from moving accesses of d across the asynchronous product
-__device__ __forceinline__ void fence_operands(float (&d)[80]) {
-#pragma unroll
-  for (int v = 0; v < 80; ++v) asm volatile("" : "+f"(d[v])::"memory");
-}
-
-// D (64 x 160, f32) = A (64 x 16, bf16 registers) @ B (16 x 160, bf16 at
-// desc) + (accumulate ? D : 0), one warpgroup
-__device__ __forceinline__ void wgmma_m64n160k16(float (&d)[80], const uint32_t (&a)[4],
-                                                 uint64_t desc, int accumulate) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %85, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n160k16.f32.bf16.bf16 "
-      "{"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63, "
-      "%64, %65, %66, %67, %68, %69, %70, %71, "
-      "%72, %73, %74, %75, %76, %77, %78, %79 "
-      "}, "
-      "{%80, %81, %82, %83}, %84, p, 1, 1, 0;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
-        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
-        "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
-        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),
-        "+f"(d[78]), "+f"(d[79])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(accumulate));
-}
-
-// max that propagates NaN, as cvt::nan_max, in one instruction
-__device__ __forceinline__ float max_nan(float a, float b) {
-  float m;
-  asm("max.NaN.f32 %0, %1, %2;\n" : "=f"(m) : "f"(a), "f"(b));
-  return m;
-}
-
 // output row i's A fragments from the window at `win` (the thread's column
 // j of its frame): 32-bit loads at the k offsets `off`, the pad zeroed
 __device__ __forceinline__ void load_a(uint32_t (&a)[kKSteps][4], const __nv_bfloat16* win,
@@ -199,19 +138,19 @@ __device__ __forceinline__ void load_a(uint32_t (&a)[kKSteps][4], const __nv_bfl
 // issue the 7 k-steps of one output row, one commit group
 __device__ __forceinline__ void row_product(float (&d)[80], const uint32_t (&a)[kKSteps][4],
                                             uint64_t desc0) {
-  fence_operands(d);
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+  cvt::fence_operands(d);
+  cvt::wgmma_fence();
 #pragma unroll
   for (int s = 0; s < kKSteps; ++s)  // k-step s: 2 core matrices, 256 bytes on
-    wgmma_m64n160k16(d, a[s], desc0 + static_cast<uint64_t>(s * 2 * kCore >> 4), s);
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+    cvt::wgmma_m64n160k16(d, a[s], desc0 + static_cast<uint64_t>(s * 2 * kCore >> 4), s);
+  cvt::wgmma_commit();
 }
 
 // wait for the row's products, then phase max, ReLU, bf16 and the stores;
 // d[4nt + 2half + v] = D[16wq + g + 8half][8nt + 2q + v]
 __device__ __forceinline__ void row_epilogue(float (&d)[80], __nv_bfloat16* o) {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-  fence_operands(d);
+  cvt::wgmma_wait<0>();
+  cvt::fence_operands(d);
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
 #pragma unroll
@@ -219,8 +158,8 @@ __device__ __forceinline__ void row_epilogue(float (&d)[80], __nv_bfloat16* o) {
       float v0 = d[4 * ct + 2 * half], v1 = d[4 * ct + 2 * half + 1];
 #pragma unroll
       for (int p = 1; p < 4; ++p) {
-        v0 = max_nan(v0, d[4 * (ct + kPhaseTiles * p) + 2 * half]);
-        v1 = max_nan(v1, d[4 * (ct + kPhaseTiles * p) + 2 * half + 1]);
+        v0 = cvt::max_nan(v0, d[4 * (ct + kPhaseTiles * p) + 2 * half]);
+        v1 = cvt::max_nan(v1, d[4 * (ct + kPhaseTiles * p) + 2 * half + 1]);
       }
       *reinterpret_cast<__nv_bfloat162*>(o + 8 * half * kPhaseC + 8 * ct) =
           __floats2bfloat162_rn(cvt::nan_max(v0, 0.0f), cvt::nan_max(v1, 0.0f));
@@ -295,7 +234,7 @@ front_end_probe_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16*
       off[s][h] = k < kPatch ? (kLine - 36) * (k / 36) + k : 0;
     }
   const bool pad = 16 * (kKSteps - 1) + 8 + 2 * q >= kPatch;  // a[6][2..3]
-  const uint64_t desc0 = kmajor_desc(smem_u32(smem));
+  const uint64_t desc0 = cvt::kmajor_desc(smem_u32(smem), kCore, kSbo);
   float d[80];
 
   for (int t = wg; t < pairs; t += kConsumers) {

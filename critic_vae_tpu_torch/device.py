@@ -20,9 +20,32 @@ def resolve_device(name: str) -> torch.device:
     raise ValueError(f"unknown device {name!r} (cuda|cpu)")
 
 
+def device_ms(fn, kernel: str, iters: int = 50, warmup: int = 2) -> float:
+    """Mean device time in ms of one launch of the kernel whose name holds
+    ``kernel``, over ``iters`` calls of ``fn`` traced by torch.profiler: the
+    kernel's own time on the card, without the host's time around its
+    launch (which :func:`cuda_ms` of a short kernel mostly measures)."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if kernel in e.key and e.self_device_time_total > 0]
+    # the trace may drop a launch's record now and then; none, or more than
+    # were made, means the name picks out no kernel or others besides it
+    launches = sum(e.count for e in events)
+    if not 0 < launches <= iters:
+        raise RuntimeError(f"device_ms: {launches} launches of a kernel named like {kernel!r} "
+                           f"traced in {iters} calls")
+    return sum(e.self_device_time_total for e in events) / launches / 1e3
+
+
 def cuda_ms(fn, iters: int = 10, warmup: int = 2, reps: int = 1) -> float:
     """Milliseconds per call of ``fn`` on the card: after ``warmup`` calls,
-    the median over ``reps`` of the CUDA-event time of ``iters`` calls."""
+    the median over ``reps`` of the CUDA-event time of ``iters`` calls, the
+    host's time of the calls included where it exceeds the device's."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()

@@ -107,7 +107,7 @@ def build() -> Path:
 
 def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.cvt_diff_mask.argtypes = [p, p, i, i, i, p, p, p]
+    lib.cvt_diff_mask.argtypes = [p, i, i, i, i, p, p, p]
     lib.cvt_diff_mask.restype = i
     lib.cvt_bilateral_build.argtypes = [p, i, i, i, f, f, f, p, p, p, i, p]
     lib.cvt_bilateral_build.restype = i
@@ -121,8 +121,10 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.cvt_caps_q1.argtypes = [p, p, p]
     lib.cvt_caps_q2.argtypes = [p, p, p]
     lib.cvt_caps_q3.argtypes = [p, p, p, p]
+    lib.cvt_caps_empty.argtypes = [p]
     lib.cvt_front_end_probe.argtypes = [p, p, i, i, i, p, p]
-    for fn in (lib.cvt_caps_q1, lib.cvt_caps_q2, lib.cvt_caps_q3, lib.cvt_front_end_probe):
+    for fn in (lib.cvt_caps_q1, lib.cvt_caps_q2, lib.cvt_caps_q3, lib.cvt_caps_empty,
+               lib.cvt_front_end_probe):
         fn.restype = i
     return lib
 

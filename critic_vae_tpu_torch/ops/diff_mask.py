@@ -1,18 +1,22 @@
 """Kernel B1: the fused diff-mask tail of the mask stage.
 
-Counterpart of critic_vae_tpu/ops/pallas_kernels.py::fused_diff_mask: from
-the decoder's two pre-tanh outputs, |tanh(pre_zero) - tanh(pre_one)|, the
+Counterpart of critic_vae_tpu/ops/pallas_kernels.py::fused_diff_mask and of
+the XLA tail of critic_vae_tpu/ops/mask.py ``diff_images``: from the
+decoder's two pre-tanh outputs, |tanh(pre_zero) - tanh(pre_one)|, the
 Rec.601 grey projection and the per-frame max. The CUDA kernel is
 ``csrc/diff_mask.cu``; :func:`diff_mask_reference` is its plain version.
 
-The inputs are NCHW decoder outputs, (B, 3, H, W), f32 or bf16 — the two
-halves ``pre[:B]`` and ``pre[B:]`` of one (2B, 3, H, W) decode. tanh runs in
-float32 in both versions (bf16 inputs are widened first), as in the Pallas
-kernel; for float32 inputs both equal the JAX package's XLA tail
-(ops/mask.py ``diff_images``).
+The input is one NCHW decode, (2B, 3, H, W), f32 or bf16: ``pre[:B]`` is
+the decode at the critic value, ``pre[B:]`` the one at 0. By default tanh
+follows the JAX package's default tail (``use_pallas=False``): tanh of the
+input dtype, so for bf16 the float32 tanh rounded to bf16, then widened.
+``f32_tanh=True`` is the arithmetic of its opt-in Pallas kernel: widen
+first, tanh in float32. For float32 inputs the two are the same.
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import torch
 
@@ -21,47 +25,53 @@ from critic_vae_tpu_torch.kernels import build as kb
 REC601 = (0.2989, 0.5870, 0.1140)
 
 
-def diff_mask_reference(pre_one: torch.Tensor, pre_zero: torch.Tensor):
+def _recon(pre: torch.Tensor, f32_tanh: bool) -> torch.Tensor:
+    """tanh of ``pre`` as float32: rounded to ``pre``'s dtype unless
+    ``f32_tanh``."""
+    t = torch.tanh(pre.float())
+    return t if f32_tanh else t.to(pre.dtype).float()
+
+
+def diff_mask_reference(pre: torch.Tensor, *, f32_tanh: bool = False):
     """Plain PyTorch version: (grey (B, H, W) f32, max (B,) f32)."""
-    d = torch.abs(torch.tanh(pre_zero.float()) - torch.tanh(pre_one.float()))
+    b = pre.shape[0] // 2
+    d = torch.abs(_recon(pre[b:], f32_tanh) - _recon(pre[:b], f32_tanh))
     grey = d[:, 0] * REC601[0] + d[:, 1] * REC601[1] + d[:, 2] * REC601[2]
     return grey, torch.amax(grey, dim=(1, 2))
 
 
-def _check(pre_one: torch.Tensor, pre_zero: torch.Tensor) -> None:
-    if pre_one.shape != pre_zero.shape or pre_one.dim() != 4 or pre_one.shape[1] != 3:
-        raise ValueError(
-            f"diff_mask: want two (B, 3, H, W) tensors, got "
-            f"{tuple(pre_one.shape)} and {tuple(pre_zero.shape)}"
-        )
-    if pre_one.dtype != pre_zero.dtype or pre_one.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"diff_mask: want float32 or bfloat16, got {pre_one.dtype}/{pre_zero.dtype}")
-    if pre_one.device != pre_zero.device:
-        raise ValueError(f"diff_mask: inputs on {pre_one.device} and {pre_zero.device}")
+def _check(pre: torch.Tensor) -> None:
+    if pre.dim() != 4 or pre.shape[1] != 3 or pre.shape[0] % 2:
+        raise ValueError(f"diff_mask: want one (2B, 3, H, W) decode, got {tuple(pre.shape)}")
+    if pre.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"diff_mask: want float32 or bfloat16, got {pre.dtype}")
 
 
-def diff_mask(pre_one: torch.Tensor, pre_zero: torch.Tensor):
-    """(grey (B, H, W) f32, max (B,) f32) of the two pre-tanh decodes.
+def diff_mask(pre: torch.Tensor, *, f32_tanh: bool = False):
+    """(grey (B, H, W) f32, max (B,) f32) of the (2B, 3, H, W) decode ``pre``.
 
     CUDA tensors launch the kernel (or raise); CPU tensors take the plain
     version."""
-    _check(pre_one, pre_zero)
-    if pre_one.device.type == "cpu":
-        return diff_mask_reference(pre_one, pre_zero)
-    if pre_one.device.type != "cuda":
-        raise ValueError(f"diff_mask: unsupported device {pre_one.device}")
-    if not (pre_one.is_contiguous() and pre_zero.is_contiguous()):
-        raise ValueError("diff_mask: inputs must be contiguous NCHW")
-    b, _, h, w = pre_one.shape
+    _check(pre)
+    if pre.device.type == "cpu":
+        return diff_mask_reference(pre, f32_tanh=f32_tanh)
+    if pre.device.type != "cuda":
+        raise ValueError(f"diff_mask: unsupported device {pre.device}")
+    if not pre.is_contiguous():
+        raise ValueError("diff_mask: the decode must be contiguous NCHW")
+    b2, _, h, w = pre.shape
     lib = kb.library()
-    grey = torch.empty((b, h, w), dtype=torch.float32, device=pre_one.device)
-    maxv = torch.empty((b,), dtype=torch.float32, device=pre_one.device)
-    with torch.cuda.device(pre_one.device):
+    grey = torch.empty((b2 // 2, h, w), dtype=torch.float32, device=pre.device)
+    maxv = torch.empty((b2 // 2,), dtype=torch.float32, device=pre.device)
+    index = pre.device.index
+    # switch the current device only when the decode lies on another card;
+    # the raw stream handle skips building a torch.cuda.Stream each call
+    on = (contextlib.nullcontext() if index == torch.cuda.current_device()
+          else torch.cuda.device(index))
+    with on:
         status = lib.cvt_diff_mask(
-            pre_one.data_ptr(), pre_zero.data_ptr(),
-            int(pre_one.dtype == torch.bfloat16), b, h * w,
-            grey.data_ptr(), maxv.data_ptr(),
-            torch.cuda.current_stream().cuda_stream,
+            pre.data_ptr(), int(pre.dtype == torch.bfloat16), int(f32_tanh), b2 // 2, h * w,
+            grey.data_ptr(), maxv.data_ptr(), torch._C._cuda_getCurrentRawStream(index),
         )
     kb.check(status, "diff_mask")
     kb.LAUNCHES["diff_mask"] += 1

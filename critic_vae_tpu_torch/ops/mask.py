@@ -2,7 +2,8 @@
 
 Per frame: critic score; encode; decode the same latent twice, at the
 critic value and at 0, as one 2B batch; |tanh diff| -> Rec.601 grey ->
-per-frame max (kernel B1 on CUDA). Then the global mean-max normalisation to
+per-frame max (kernel B1 on CUDA; tanh in the decode's dtype, as the JAX
+default). Then the global mean-max normalisation to
 uint8 and the threshold compare.
 
 The front end (the critic's and the encoder's first convs over the
@@ -37,12 +38,18 @@ DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 FRONT_ENDS = ("split", "merged")
 
 
-def diff_images(vae: VAE, x: torch.Tensor, values: torch.Tensor, *, fused_pool=False,
+def diff_images(vae: VAE, x: torch.Tensor, values: torch.Tensor, *,
+                use_pallas: bool | None = None, fused_pool=False,
                 fold_bn: bool = False, pool_impl: str = "reduce_window",
                 block0_f32: bool = False, downstream_dtype: torch.dtype | None = None,
                 start_block: int = 0):
     """Batched double-decode diff of NCHW frames ``x`` (B, 3, H, W), or of
     block ``start_block-1``'s activation; the options are the encoder's.
+
+    ``use_pallas`` picks the JAX package's tail arithmetic: ``None`` or
+    ``False`` its default, tanh in the decode's dtype (bf16-rounded for a
+    bf16 decode), ``True`` its Pallas kernel's, tanh of the widened decode in
+    float32. Both run kernel B1 on CUDA.
 
     Returns (diff (B, H, W) f32, max_value (B,) f32). The reconstructions
     are never formed: only their pre-tanh activations reach kernel B1."""
@@ -55,7 +62,7 @@ def diff_images(vae: VAE, x: torch.Tensor, values: torch.Tensor, *, fused_pool=F
         torch.cat([values.reshape(b), torch.zeros(b, dtype=values.dtype, device=values.device)]),
         apply_tanh=False,
     )
-    return diff_mask(pre[:b], pre[b:])
+    return diff_mask(pre, f32_tanh=bool(use_pallas))
 
 
 def normalize_diffs(diffs: torch.Tensor, max_values: torch.Tensor):

@@ -9,12 +9,14 @@ against the same numpy expectation with the same tolerance as the TPU probe:
   build), then the tile stored;
 * Q2 ``q2_phase_max_40``: the max over four 40-wide column groups of a
   (128, 160) tile (the pool-phase max);
-* Q3 ``q3_fori_dyn_dot``: a loop over 4 frames with run-time row offsets 64f,
+* Q3 ``q3_fori_dyn_dot``: a run-time loop over 4 frames at row offsets 64f,
   each a (32, 128) @ (128, 160) bf16 tensor-core product with f32
-  accumulation.
+  accumulation, asked with ``wgmma`` (a frame pair's 2 × 32 rows a tile).
 
 Each question has a plain PyTorch version here; the wrappers launch the
 kernel for CUDA tensors and take the plain version for CPU tensors.
+:func:`empty_launch` launches a kernel that does nothing: the yardstick of
+the questions' device times, which are launch-bound.
 
 Run:  python -m critic_vae_tpu_torch.probes.caps_probe [OUT_JSON] [--device cuda|cpu]
 """
@@ -45,8 +47,9 @@ INSTRUCTIONS = {
         "16-byte ld.global.v4.f32 staging into shared memory, then four ld.shared.f32 at "
         "columns 40p + c and a NaN-propagating max in registers"),
     "q3_fori_dyn_dot": (
-        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 in a run-time loop over the "
-        "4 frames; not wgmma, whose 64-row M tile is twice the 32 rows one frame gives"),
+        "wgmma.mma_async.sync.aligned.m64n160k16.f32.bf16.bf16 in a run-time loop over the "
+        "2 frame pairs: each pair's 2 x 32 rows make one 64-row M tile, A from registers, "
+        "w resident in shared memory in the canonical K-major core-matrix layout"),
 }
 
 
@@ -113,12 +116,22 @@ def q3_fori_dyn_dot(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"q3_fori_dyn_dot: inputs on {x.device} and {w.device}")
     if x.device.type == "cpu":
         return q3_reference(x, w)
+    if x.data_ptr() % 4 or w.data_ptr() % 16:
+        raise ValueError("q3_fori_dyn_dot: x must be 4-byte and w 16-byte aligned")
     out = torch.empty((128, 160), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         _run("caps_probe q3", kb.library().cvt_caps_q3(
             x.data_ptr(), w.data_ptr(), out.data_ptr(),
             torch.cuda.current_stream().cuda_stream))
     return out
+
+
+def empty_launch(device: torch.device) -> None:
+    """One launch of a kernel that does nothing on the card ``device``; not
+    one of the questions, so it counts no launch."""
+    with torch.cuda.device(device):
+        kb.check(kb.library().cvt_caps_empty(torch.cuda.current_stream().cuda_stream),
+                 "caps_probe empty")
 
 
 def probe_inputs(device: torch.device):

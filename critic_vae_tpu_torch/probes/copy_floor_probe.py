@@ -18,6 +18,12 @@ output is ReLU of the pool-phase max of ``s2d_conv_pool2_phases``: the
 pooled merged front end before its biases (:func:`pack_frames`,
 :func:`pack_weights`).
 
+``copies_per_batch`` and ``ns_per_copy`` keep the TPU probe's meaning, the
+B·32·9 im2col block copies it made; this kernel makes none of them, and
+``bulk_copies_per_batch`` and ``ns_per_bulk_copy`` count its own copies, one
+bulk copy a frame. ``frames_per_block`` must be even: each ``wgmma`` tile
+takes two frames.
+
 The record also holds, at the same B in bf16 from NCHW frames:
 
 * ``fused_path_ms``: the s2d packing of the frames plus the kernel;
@@ -62,6 +68,9 @@ K_PAD = 112        # PATCH padded to whole wgmma k-steps of 16
 DEFAULT_FRAMES_PER_BLOCK = 4
 RING = 3             # frame-pair buffers of a block
 SMEM_LIMIT = 232448  # bytes of shared memory one Hopper block may use
+FRAMES_PER_BLOCK_NOTE = (
+    "frames_per_block must be even (the TPU probe takes any F dividing B): wgmma's "
+    "64-row M tile takes two frames' 32 output columns, so a block works in frame pairs")
 
 
 def smem_bytes() -> int:
@@ -108,8 +117,8 @@ def _check(x: torch.Tensor, w: torch.Tensor, frames_per_block: int) -> int:
         raise ValueError(f"front_end_probe: inputs on {x.device} and {w.device}")
     frames = x.shape[0] // S2D_ROWS
     if frames_per_block < 2 or frames_per_block % 2:
-        raise ValueError(f"front_end_probe: frames_per_block {frames_per_block} must be even "
-                         "(wgmma's 64-row tile takes two frames)")
+        raise ValueError(f"front_end_probe: frames_per_block {frames_per_block}: "
+                         + FRAMES_PER_BLOCK_NOTE)
     if frames % frames_per_block:
         raise ValueError(f"front_end_probe: {frames} frames not a multiple of "
                          f"frames_per_block {frames_per_block}")
@@ -191,7 +200,10 @@ def run(device: torch.device, frames: int = FRAMES,
     res = {"platform": "gpu" if device.type == "cuda" else "cpu",
            "device": torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu",
            "frames": frames, "frames_per_block": frames_per_block,
-           "copies_per_batch": frames}  # one bulk copy a frame
+           "frames_per_block_note": FRAMES_PER_BLOCK_NOTE,
+           # the TPU probe's count: the im2col copies of a (32, 12) block, B·32·9
+           "copies_per_batch": frames * OUT_SIDE * 9,
+           "bulk_copies_per_batch": frames}  # this kernel's: one bulk copy a frame
     if device.type != "cuda":
         for copies in (False, True):
             out = front_end_probe(x, w, frames_per_block=frames_per_block, copies=copies)
@@ -207,6 +219,7 @@ def run(device: torch.device, frames: int = FRAMES,
             lambda: front_end_probe(x, w, frames_per_block=frames_per_block, copies=copies))
     res["copy_floor_ms"] = res["copies_and_dot_ms"] - res["dot_only_ms"]
     res["ns_per_copy"] = 1e6 * res["copy_floor_ms"] / res["copies_per_batch"]
+    res["ns_per_bulk_copy"] = 1e6 * res["copy_floor_ms"] / res["bulk_copies_per_batch"]
     critic, vae = synthetic_models(device)
     wm = merged_conv0_weight(vae, critic).to(torch.bfloat16)
     wk, w3 = pack_weights(wm), s2d_pool_weights(wm)

@@ -7,11 +7,21 @@ import numpy as np
 import pytest
 import torch
 
+from critic_vae_tpu.crf.device import _resolve_build as jax_resolve_build
 from critic_vae_tpu.crf.device import refine_masks_device as jax_refine
 from critic_vae_tpu.crf.fused_build import build_bilateral as jax_build
 from critic_vae_tpu.data.synthetic import generate_frames
 from critic_vae_tpu_torch.crf import REFERENCE_CRF_PARAMS
-from critic_vae_tpu_torch.crf.device import BUILD_ENV, _resolve_build, refine_masks_device
+from critic_vae_tpu_torch.crf import device as crf_device
+from critic_vae_tpu_torch.crf.device import (
+    BUILD_ENV,
+    MEM_ENV,
+    _mask_probs,
+    _mean_field_iterate_multi,
+    _resolve_build,
+    _spatial_taps,
+    refine_masks_device,
+)
 from critic_vae_tpu_torch.crf.fused_build import build_bilateral, build_bilateral_reference
 from critic_vae_tpu_torch.crf.policy import resolve_crf_backend
 from critic_vae_tpu_torch.kernels import build as kb
@@ -123,6 +133,55 @@ def test_unported_builds_raise(build, monkeypatch):
     assert _resolve_build("auto", 64, 64) == "pallas"
     with pytest.raises(ValueError):
         _resolve_build("lattice", 64, 64)
+
+
+def test_mem_env_caps_the_chunk_without_changing_masks(monkeypatch):
+    """``CRITIC_VAE_TPU_CRF_MEM`` is the per-chunk byte budget, as in the JAX
+    package (its tests/test_crf_device.py): a budget of one float32 64x64
+    matrix gives chunks of one frame and the same masks."""
+    monkeypatch.delenv(BUILD_ENV, raising=False)
+    monkeypatch.delenv(MEM_ENV, raising=False)
+    frames, gt = generate_frames(3, seed=5)
+    noisy = gt ^ (np.random.default_rng(4).random(gt.shape) < 0.08)
+    chunks = []
+    chunk_frames = crf_device._chunk_frames
+
+    def spy(*args):
+        chunks.append(chunk_frames(*args))
+        return chunks[-1]
+
+    monkeypatch.setattr(crf_device, "_chunk_frames", spy)
+    whole = refine_masks_device(frames, noisy, device="cpu")
+    monkeypatch.setenv(MEM_ENV, str((64 * 64) ** 2 * 4))
+    capped = refine_masks_device(frames, noisy, device="cpu")
+    assert chunks == [3, 1]
+    np.testing.assert_array_equal(capped, whole)
+
+
+def test_ragged_sizes_take_b2_where_jax_does_not(monkeypatch):
+    """ROADMAP C.3, pinned until the ``xla`` build is ported (A.7): at H*W %
+    128 != 0 the JAX package raises for ``pallas`` and runs ``xla`` for
+    ``auto``; the port accepts ``pallas``, and ``auto`` runs B2 (its plain
+    version on the CPU) with the mean field."""
+    monkeypatch.delenv(BUILD_ENV, raising=False)
+    side = 20
+    with pytest.raises(ValueError, match="divisible by 128"):
+        jax_resolve_build("pallas", side, side)
+    assert jax_resolve_build("auto", side, side) == "xla"
+    assert _resolve_build("pallas", side, side) == _resolve_build("auto", side, side) == "pallas"
+    frames, gt = generate_frames(2, size=side, seed=3)
+    noisy = gt ^ (np.random.default_rng(1).random(gt.shape) < 0.08)
+    got = refine_masks_device(frames, noisy, build="auto", device="cpu")
+    np.testing.assert_array_equal(
+        refine_masks_device(frames, noisy, build="pallas", device="cpu"), got)
+    w1, alpha, beta, w2, gamma, iters = REFERENCE_CRF_PARAMS
+    n = side * side
+    mb = build_bilateral_reference(torch.from_numpy(frames.reshape(2, n, 3)), w1, alpha, beta,
+                                   h=side, w=side, out_dtype="float32")
+    probs = _mask_probs(torch.from_numpy(noisy.reshape(2, n, 1).astype(np.uint8)))
+    taps = torch.from_numpy(_spatial_taps(gamma, side, side))
+    want = _mean_field_iterate_multi(mb, probs, taps, w2, side, side, iters)[:, 0]
+    np.testing.assert_array_equal(got.reshape(2, n), want.bool().numpy())
 
 
 def test_crf_backend_policy():

@@ -195,7 +195,10 @@ def test_copy_floor_probe_entry_point(tmp_path, monkeypatch):
     assert p2.main([str(out), "--device", "cpu", "--frames", "4"]) == 0
     rec = json.loads(out.read_text())
     assert rec["platform"] == "cpu" and rec["frames_per_block"] == 2
-    assert rec["copies_per_batch"] == 4  # one bulk copy a frame
+    # the TPU probe's meaning, B·32·9 im2col copies; the bulk copies beside it
+    assert rec["copies_per_batch"] == 4 * 32 * 9
+    assert rec["bulk_copies_per_batch"] == 4  # one bulk copy a frame
+    assert "must be even" in rec["frames_per_block_note"]
     assert "dot_only_ms" not in rec  # no device time from a CPU run
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError):

@@ -140,6 +140,7 @@ def _run_video(tmp_path, capsys, *extra, with_gt=True):
 def test_cli_video_sweep(tmp_path, capsys):
     rc, out, err = _run_video(tmp_path, capsys, "--sweep")
     assert rc == 0, err
+    assert not any(ln.startswith("crf backend:") for ln in out.splitlines())  # not auto
     lines = [ln for ln in out.splitlines() if ln.startswith("thr=")]
     assert [ln.split(",")[0] for ln in lines] == [f"thr={t}" for t in DEFAULT_SWEEP]
     assert all(", thr_iou=" in ln and ", crf_iou=" in ln for ln in lines)
@@ -156,6 +157,28 @@ def test_cli_video_sweep_range(tmp_path, capsys):
 def test_cli_video_sweep_needs_ground_truth(tmp_path, capsys):
     rc, _, err = _run_video(tmp_path, capsys, "--sweep", with_gt=False)
     assert rc == 1 and "--sweep needs IoU scoring" in err
+
+
+def test_cli_video_backend_error_is_reported(tmp_path, capsys):
+    """``--crf-backend auto`` on the CPU resolves to the host CRF, which is
+    not ported: ``error: ...`` on stderr and exit code 1, as the JAX
+    package's ``video`` reports a backend it cannot run, not a traceback."""
+    rc, out, err = _run_video(tmp_path, capsys, "--crf-backend", "auto")
+    assert rc == 1
+    assert err.startswith("error: ") and "host" in err and "Traceback" not in err
+    assert "processing" not in out  # resolved before anything ran
+
+
+def test_cli_video_prints_the_auto_backend(tmp_path, capsys, monkeypatch):
+    """Where ``auto`` resolves to the device CRF (on CUDA), ``video`` says so
+    with the JAX package's ``crf backend: device (auto)`` line."""
+    from critic_vae_tpu_torch.crf import policy
+
+    monkeypatch.setattr(policy, "resolve_crf_backend", lambda *a, **kw: "device")
+    rc, out, err = _run_video(tmp_path, capsys, "--crf-backend", "auto")
+    assert rc == 0, err
+    assert "crf backend: device (auto)" in out.splitlines()
+    assert any(ln.startswith("crf_iou=") for ln in out.splitlines())
 
 
 @pytest.mark.parametrize("build", ["int8", "vmem"])
