@@ -11,17 +11,18 @@ exits non-zero:
    all started together, linked into one library;
 3. kernel B1 (diff_mask) against its plain version on the main path's
    (2 x 512, 3, 64, 64) decode and on a ragged (8, 3, 25, 25) one (the
-   scalar-load instantiation) in f32, in bf16 with f32_tanh (the Pallas
-   kernel's widened tanh) and in bf16 by default (tanh rounded to bf16, the
-   JAX default) — bar: max abs error <= 1e-6 on grey maps and maxima; then
-   every one of the 65,536 bf16 bit patterns in channel 0 of the decode at
-   the critic value (16 frames, all else 0, so grey is exactly 0.2989
-   |bf16 tanh|): the kernel equal to the plain version on the card with NaN
-   positions equal, at most 16 values differing and each by at most one
-   bf16 ulp of tanh, and the same bar against a CPU torch.tanh table. Each
-   mode's device time (torch.profiler's kernel time over 50 launches, the
-   inputs in turn over 4 decodes so that they come from HBM, not the L2),
-   call time (CUDA events over 50 calls of the Python wrapper) and plain time;
+   scalar-load instantiation) in f32 and in bf16 (tanh of the widened
+   decode in float32, what both JAX tails compute as XLA compiles them) —
+   bar: max abs error <= 1e-6 on grey maps and maxima; then every one of
+   the 65,536 bf16 bit patterns in channel 0 of the decode at the critic
+   value (16 frames, all else 0, so grey is 0.2989 |tanh| rounded once):
+   the kernel against the plain version on the card with NaN positions
+   equal, at most 16 values differing and each within 2^-20 relative (a
+   few float32 ulps), and within the same relative bar of a CPU torch.tanh
+   table. Each dtype's device time (torch.profiler's kernel time over 50
+   launches, the inputs in turn over 4 decodes so that they come from HBM,
+   not the L2), call time (CUDA events over 50 calls of the Python wrapper)
+   and plain time;
 4. kernel B2 (bilateral_build) against its plain version at C=4, N=4096
    and at a ragged N=2500 (50x50) (f32: <= 1e-5 relative on entries >
    1e-3; bf16: within 1 bf16 ulp; the diagonal exactly 0; M bitwise
@@ -97,7 +98,47 @@ exits non-zero:
    that the plain version leaves finite finite; and on 8 real frames with
    the merged 3->40 weights against ReLU of the phase max of
    s2d_conv_pool2_phases in f32 (within 2^-8 relative + 1e-5: one bf16
-   rounding).
+   rounding);
+13. decoder: the phase-split decode (``fused=True``, the default of every
+   path above) against the literal repeat-then-conv graph on the card, at
+   full width on 512 frames: in float32 with TF32 off the pre-tanh decodes
+   within 1e-5 of their largest magnitude and the maps and masks at the f32
+   bars; in bf16 the maps and masks no further from the literal bf16 ones
+   than literal bf16 is from literal float32 (the noise floor, as in 10);
+   then the device stage's ms per 512-frame chunk with each decoder (bf16,
+   merged, the median of 7 CUDA-event reps of 10 calls) beside its kernels'
+   device time and launches a chunk (torch.profiler);
+14. the ``xla`` CRF build (Gram form, float32) on the card: at 64x64 its
+   masks >= 99.9% identical to B2's; at a ragged 20x20 ``auto`` resolves to
+   ``xla`` on CUDA and its masks are >= 99.9% the CPU run's;
+15. the host CRF: its g++ build on this machine, then ``eval_episode`` with
+   ``crf_backend="host"`` over 512 synthetic frames in bf16 (frames/s), its
+   masks' agreement with the device CRF's recorded (no bar);
+16. the CLI: ``python -m critic_vae_tpu_torch video`` on a 48-frame synthetic
+   episode with ``--encoder/--decoder`` artifacts written here in the JAX
+   package's zip layout, once plain and once with nonzero FiLM params, a
+   ``.pt`` critic written by ``torch.save`` and ``--crf-params``: exit code
+   0, the thr_iou/crf_iou lines, ``bin_info_vae1.txt`` under ``--root``, and
+   without Pillow the line that says no GIF is written (with Pillow, the
+   GIF);
+17. bf16 against the JAX package: for each seed of
+   tests/golden/torch_slice_golden_bf16.npz (seeds 0 and 1: the frames and
+   ``numpy_vae_params``), ``eval_episode`` in bf16 on the card (B2 CRF)
+   against the JAX package's bf16 run on the CPU — preds within 2^-6, uint8
+   maps within one level >= 55%, threshold masks >= 98%, CRF masks >= 99%,
+   thr and CRF IoU within 0.002 (BF16_GOLDEN_BARS) — and, recorded beside
+   it, the CPU port's run of the same inputs against the golden and the
+   card's against the CPU port's. cuDNN's bf16 convs sum in another order
+   than XLA:CPU's or PyTorch's CPU conv, which moves a bf16 result by an
+   ulp, and the diff maps amplify that: on an H100 the card lay as far from
+   the CPU port (68% and 54% of maps within one level) as from JAX (71%,
+   58%), while the CPU port lay within 88% and 84% of JAX. The bars lie
+   below the card's readings and above those of the port's bf16 arithmetic
+   before C.6 (48% and 38%), which this phase was run on once (PERF.md).
+
+``python3 chip_smoke.py --bf16-golden-only [--port DIR]`` runs phases 1, 2
+and 17 alone, driving the critic_vae_tpu_torch package in DIR (for example
+an older checkout) against this checkout's goldens.
 
 The second-to-last line is a JSON object with, for each of the seven kernels
 (B1-B5, P1, P2), its launches on the path that runs it, its error against
@@ -106,12 +147,13 @@ HBM rate and its operations over the peak rate of their type, from this
 run's shapes) and the time of one PyTorch call computing the same function
 where there is one (for B5, of its iteration's product; its row also has
 build_ms and iter_ms, and each time again at T=13 as *_t13). B1's and P1's
-``ms`` is device time and their ``call_ms`` the time of a call through the
+``ms`` is device time (B1 in bf16, the mask path's dtype) and their
+``call_ms`` the time of a call through the
 Python wrapper (P1's rows sum the three questions, with ``empty_ms`` the
 empty kernel's device time); the other kernels' ``ms`` are CUDA-event times
 of calls, which their device time dominates. The last line is {"ok": true,
 "device": {...}}. Without CUDA the script fails and prints no result. About
-a minute on an H100, the build (~10 s) included.
+a minute and a half on an H100, the build (~10 s) included.
 """
 
 from __future__ import annotations
@@ -135,6 +177,12 @@ SWEEP_VMEM_FRAMES = 512    # frames of the vmem sweep path (9e)
 RAGGED_SIDE = 50           # B2's ragged frames: N = 2500
 FRONT_FRAMES = 512         # frames of the front-end phase (10)
 BF16_PRED_BAR = 2.0 ** -6  # bf16 preds across front ends: 4 bf16 ulps below 1
+# phase 17's bars, the card's bf16 against the JAX package's on the CPU: below
+# the card's readings at both seeds (maps within one level 0.7095 and 0.5767,
+# threshold masks 0.9886 and 0.9957, CRF masks 0.9993 and 0.9989) and above
+# the port's arithmetic before C.6 (maps 0.4835 and 0.3791, threshold masks
+# 0.9748 at seed 0); NVIDIA H100 80GB HBM3, 700 W
+BF16_GOLDEN_BARS = {"within1": 0.55, "thr": 0.98, "crf": 0.99, "iou": 2e-3}
 # the card's published peaks (H100 SXM, dense): the bounds of the kernels line
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12        # tensor cores
@@ -225,26 +273,27 @@ def phase_build():
     return lib
 
 
-def _b1_tanh_ulps(x, y):
-    """B1's grey maps x and y of the exhaustive check: (whether their NaN
-    positions are equal, how many non-NaN values differ, the largest gap in
-    bf16 ulps of the tanh each implies, grey / 0.2989 rounded to bf16)."""
-    import torch
+B1_TANH_REL = 2.0 ** -20  # two float32 tanhs and the product 0.2989·|tanh|: a few ulps
 
-    from critic_vae_tpu_torch.ops.diff_mask import REC601
+
+def _b1_tanh_gap(x, y):
+    """B1's grey maps x and y of the exhaustive check: (whether their NaN
+    positions are equal, how many non-NaN values differ, the largest gap
+    relative to y's magnitude (grey is 0.2989 |tanh|, so this is tanh's))."""
+    import torch
 
     same_nan = torch.equal(torch.isnan(x), torch.isnan(y))
     differ = (x != y) & ~torch.isnan(x) & ~torch.isnan(y)
     count = int(differ.sum())
     if not count:
-        return same_nan, 0, 0
-    tx, ty = ((v[differ].float() / REC601[0]).bfloat16().view(torch.int16).int() for v in (x, y))
-    return same_nan, count, int((tx - ty).abs().max())
+        return same_nan, 0, 0.0
+    gap = (x[differ] - y[differ]).abs() / y[differ].abs().clamp_min(2.0 ** -126)
+    return same_nan, count, gap.max().item()
 
 
 def phase_b1(dev):
-    """B1 against its plain version in its three modes at the main path's
-    shape, on every bf16 value, and its device, call and plain times."""
+    """B1 against its plain version in f32 and bf16 at the main path's shape,
+    on every bf16 value, and its device, call and plain times."""
     import itertools
 
     import torch
@@ -255,7 +304,7 @@ def phase_b1(dev):
     g = torch.Generator(device=dev).manual_seed(1)
     shape = (2 * MAIN_BATCH, 3, H, W)  # the (2B, 3, H, W) decode
     err, row = 0.0, None
-    for dt, f32_tanh in ((torch.float32, False), (torch.bfloat16, True), (torch.bfloat16, False)):
+    for dt in (torch.float32, torch.bfloat16):
         # B1_BUFFERS decodes in turn, so a timed launch finds its input out of the L2
         pres = [(2.0 * torch.randn(shape, generator=g, device=dev)).to(dt)
                 for _ in range(B1_BUFFERS)]
@@ -265,26 +314,28 @@ def phase_b1(dev):
                                     device=dev)).to(dt)
         e = 0.0
         for pre in (pres[0], ragged):
-            grey_k, max_k = diff_mask(pre, f32_tanh=f32_tanh)
-            grey_r, max_r = diff_mask_reference(pre, f32_tanh=f32_tanh)
+            grey_k, max_k = diff_mask(pre)
+            grey_r, max_r = diff_mask_reference(pre)
             torch.cuda.synchronize()
             e = max(e, (grey_k - grey_r).abs().max().item(), (max_k - max_r).abs().max().item())
         err = max(err, e)
         turn = itertools.cycle(pres)
-        ms = device_ms(lambda: diff_mask(next(turn), f32_tanh=f32_tanh), "diff_mask_kernel")
-        call_ms = cuda_ms(lambda: diff_mask(next(turn), f32_tanh=f32_tanh), iters=50)
-        plain_ms = cuda_ms(lambda: diff_mask_reference(next(turn), f32_tanh=f32_tanh), iters=20)
-        label = f"{str(dt)[6:]}{' f32_tanh' if f32_tanh else ''}"
+        ms = device_ms(lambda: diff_mask(next(turn)), "diff_mask_kernel")
+        call_ms = cuda_ms(lambda: diff_mask(next(turn)), iters=50)
+        plain_ms = cuda_ms(lambda: diff_mask_reference(next(turn)), iters=20)
+        label = str(dt)[6:]
         b1 = b1_bound(pres[0].element_size())["bound_ms"]
         log(f"[3 B1 diff_mask] {shape} and {tuple(ragged.shape)} {label}: max_abs_err {e:.3e} "
             f"(bar 1e-6); {shape}: device "
             f"{ms:.4f} ms ({b1 / ms:.1%} of its {b1:.4f} ms byte bound), "
             f"call {call_ms:.4f} ms, plain {plain_ms:.4f} ms")
         require(e <= 1e-6, f"B1 {label}: max abs error {e} > 1e-6")
-        row = {"ms": ms, "call_ms": call_ms, "plain_ms": plain_ms}  # bf16 default, the last
+        if dt == torch.bfloat16:  # the mask path's dtype
+            row = {"ms": ms, "call_ms": call_ms, "plain_ms": plain_ms}
         del pres, grey_k, grey_r
     # every bf16 bit pattern in channel 0 of the decode at the critic value,
-    # all else 0: grey is exactly 0.2989 |bf16 tanh|, with no FMA-order noise
+    # all else 0: grey is exactly 0.2989 |tanh| rounded once, with no
+    # FMA-order noise
     bits = torch.arange(-2**15, 2**15, dtype=torch.int32).to(torch.int16).view(torch.bfloat16)
     frames = bits.numel() // NPIX
     one = torch.zeros((frames, 3, H, W), dtype=torch.bfloat16)
@@ -293,10 +344,10 @@ def phase_b1(dev):
     pre = pre_cpu.to(dev)
     grey_k, max_k = diff_mask(pre)
     grey_r, max_r = diff_mask_reference(pre)
-    grey_c, _ = diff_mask_reference(pre_cpu)  # the CPU's torch.tanh, rounded to bf16
+    grey_c, _ = diff_mask_reference(pre_cpu)  # the CPU's float32 torch.tanh
     torch.cuda.synchronize()
-    same_nan, count, ulps = _b1_tanh_ulps(grey_k, grey_r)
-    max_nan, max_count, _ = _b1_tanh_ulps(max_k, max_r)
+    same_nan, count, gap = _b1_tanh_gap(grey_k, grey_r)
+    max_nan, max_count, _ = _b1_tanh_gap(max_k, max_r)
     if count:
         at = torch.nonzero((grey_k != grey_r) & ~torch.isnan(grey_k) & ~torch.isnan(grey_r))
         for f, y, x in at[:16].tolist():
@@ -304,15 +355,14 @@ def phase_b1(dev):
                 f"kernel {grey_k[f, y, x].item()!r}, plain {grey_r[f, y, x].item()!r}")
     log(f"[3 B1 diff_mask] every bf16 ({bits.numel()} bit patterns, {frames} frames): kernel vs "
         f"plain on the card: NaN positions equal {same_nan and max_nan}, {count + max_count} "
-        f"values differ (bar 16), max {ulps} bf16 ulp (bar 1)")
-    require(same_nan and max_nan and count + max_count <= 16 and ulps <= 1,
-            "B1: the kernel's bf16 tanh differs from its plain version's")
-    cpu_nan, cpu_count, cpu_ulps = _b1_tanh_ulps(grey_k.cpu(), grey_c)
-    log(f"[3 B1 diff_mask] every bf16: the card's rounding vs a CPU torch.tanh table: NaN "
-        f"positions equal {cpu_nan}, {cpu_count} finite values differ (bar 16), max "
-        f"{cpu_ulps} bf16 ulp (bar 1)")
-    require(cpu_nan and cpu_count <= 16 and cpu_ulps <= 1,
-            "B1: the card's bf16 tanh differs from the CPU's")
+        f"values differ (bar 16), max relative gap {gap:.3e} (bar {B1_TANH_REL:.3e})")
+    require(same_nan and max_nan and count + max_count <= 16 and gap <= B1_TANH_REL,
+            "B1: the kernel's tanh differs from its plain version's")
+    cpu_nan, cpu_count, cpu_gap = _b1_tanh_gap(grey_k.cpu(), grey_c)
+    log(f"[3 B1 diff_mask] every bf16: the card's tanh vs a CPU torch.tanh table: NaN "
+        f"positions equal {cpu_nan}, {cpu_count} finite values differ (recorded), max "
+        f"relative gap {cpu_gap:.3e} (bar {B1_TANH_REL:.3e})")
+    require(cpu_nan and cpu_gap <= B1_TANH_REL, "B1: the card's tanh differs from the CPU's")
     return {"max_abs_err": err, **row}
 
 
@@ -757,8 +807,8 @@ def phase_main(dev, critic, vae):
     episode_device_stage(vae, critic, frames_dev, MAIN_BATCH, compute_dtype="bfloat16")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    preds, _, _, _ = episode_device_stage(vae, critic, frames_dev, MAIN_BATCH,
-                                          compute_dtype="bfloat16")
+    preds = episode_device_stage(vae, critic, frames_dev, MAIN_BATCH,
+                                 compute_dtype="bfloat16")[0]
     torch.cuda.synchronize()
     stage_fps = MAIN_FRAMES / (time.perf_counter() - t0)
     log(f"[9 main] device stage {stage_fps:.1f} frames/s over {MAIN_FRAMES} frames")
@@ -1067,6 +1117,309 @@ def phase_p2(dev, critic, vae):
                                    "library_path_ms", "cudnn_front_end_ms")}}
 
 
+@contextlib.contextmanager
+def literal_decoder(vae):
+    """The VAE's decoder as the literal repeat-then-conv graph
+    (``fused=False``) for every caller, the pipelines included."""
+    dec = vae.decoder
+    dec.forward = lambda z, value, apply_tanh=True, fused=True: type(dec).forward(
+        dec, z, value, apply_tanh, fused=False)
+    try:
+        yield
+    finally:
+        del dec.forward
+
+
+def phase_decoder(dev, critic, vae):
+    """The phase-split decode against the literal graph, then the device
+    stage's time with each."""
+    import torch
+
+    from critic_vae_tpu_torch.data.synthetic import generate_frames
+    from critic_vae_tpu_torch.device import cuda_ms
+    from critic_vae_tpu_torch.ops.mask import episode_forward
+
+    frames, _ = generate_frames(FRONT_FRAMES, seed=13)
+    fr = torch.from_numpy(frames).to(dev)
+    z = torch.randn(FRONT_FRAMES, 32, generator=torch.Generator().manual_seed(0)).to(dev)
+    v = torch.rand(FRONT_FRAMES, generator=torch.Generator().manual_seed(1)).to(dev)
+
+    def agreement(out, base):
+        (u8, thr), (bu8, bthr) = _u8_thr(out), _u8_thr(base)
+        return (((u8.int() - bu8.int()).abs() <= 1).double().mean().item(),
+                (thr == bthr).double().mean().item())
+
+    with no_tf32(), torch.inference_mode():
+        fused = vae.decode(z, v, apply_tanh=False)
+        literal = vae.decode(z, v, apply_tanh=False, fused=False)
+        rel = ((fused - literal).abs().max() / literal.abs().max()).item()
+        fused32 = episode_forward(vae, critic, fr, compute_dtype="float32")
+        with literal_decoder(vae):
+            literal32 = episode_forward(vae, critic, fr, compute_dtype="float32")
+    within1, same = agreement(fused32, literal32)
+    log(f"[13 decoder] phase-split vs literal, float32, TF32 off: decode max err {rel:.3e} "
+        f"of its largest magnitude (bar 1e-5); diff_u8 within 1 level {within1:.6f} "
+        f"(bar 0.999); thr masks identical {same:.6f} (bar 0.998)")
+    require(rel <= 1e-5, f"phase-split decode float32 error {rel}")
+    require(within1 >= 0.999 and same >= 0.998, "phase-split decode float32 misses a bar")
+    fused16 = episode_forward(vae, critic, fr, compute_dtype="bfloat16")
+    with literal_decoder(vae):
+        literal16 = episode_forward(vae, critic, fr, compute_dtype="bfloat16")
+    floor_within1, floor_same = agreement(literal16, literal32)
+    within1, same = agreement(fused16, literal16)
+    log(f"[13 decoder] noise floor, literal bf16 vs literal float32: diff_u8 within 1 level "
+        f"{floor_within1:.6f}; thr masks identical {floor_same:.6f}")
+    log(f"[13 decoder] phase-split vs literal, bfloat16: diff_u8 within 1 level {within1:.6f} "
+        f"(bar {floor_within1:.6f}); thr masks identical {same:.6f} (bar {floor_same:.6f})")
+    require(within1 >= floor_within1 and same >= floor_same,
+            "phase-split decode bfloat16: maps or masks below the bf16 noise floor")
+    times = {}
+    for name in ("phase-split", "literal"):
+        with literal_decoder(vae) if name == "literal" else contextlib.nullcontext():
+            stage = lambda: episode_forward(vae, critic, fr, compute_dtype="bfloat16")  # noqa: E731
+            times[name] = cuda_ms(stage, iters=10, reps=7)
+            kernel_ms, launches = _kernel_ms(stage)
+        log(f"[13 decoder] {name}: device stage {times[name]:.4f} ms per {FRONT_FRAMES}-frame "
+            f"chunk ({FRONT_FRAMES / times[name] * 1e3:.1f} frames/s, bf16, merged; median of "
+            f"7 reps of 10 calls, CUDA events); its kernels {kernel_ms:.4f} ms in {launches:.0f} "
+            f"launches a chunk (torch.profiler); events - kernels "
+            f"{times[name] - kernel_ms:.4f} ms")
+    return times
+
+
+def _kernel_ms(fn, reps: int = 3):
+    """(device ms of all kernels per call of ``fn``, kernel launches per
+    call), from torch.profiler over ``reps`` calls."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+    return (sum(e.self_device_time_total for e in kernels) / reps / 1e3,
+            sum(e.count for e in kernels) / reps)
+
+
+def phase_xla(dev):
+    """The Gram-form ``xla`` CRF build on the card."""
+    import numpy as np
+    import torch
+
+    from critic_vae_tpu_torch.crf import REFERENCE_CRF_PARAMS
+    from critic_vae_tpu_torch.crf.device import _resolve_build, refine_masks_device
+    from critic_vae_tpu_torch.data.synthetic import generate_frames
+
+    frames, gt = generate_frames(CRF_CHUNK, seed=14)
+    noisy = gt ^ (np.random.default_rng(14).random(gt.shape) < 0.08)
+    fr, nz = torch.from_numpy(frames).to(dev), torch.from_numpy(noisy).to(dev)
+    xla = refine_masks_device(fr, nz, REFERENCE_CRF_PARAMS, build="xla")
+    b2 = refine_masks_device(fr, nz, REFERENCE_CRF_PARAMS, build="pallas")
+    agree = float(np.mean(xla == b2))
+    log(f"[14 xla] 64x64, {CRF_CHUNK} frames: xla (f32 Gram) masks identical to B2's (bf16) "
+        f"{agree:.6f} (bar 0.999)")
+    require(agree >= 0.999, f"xla build agreement with B2 {agree}")
+    side = 20
+    frames, gt = generate_frames(16, size=side, seed=15)
+    noisy = gt ^ (np.random.default_rng(15).random(gt.shape) < 0.08)
+    resolved = _resolve_build("auto", side, side, dev)
+    got = refine_masks_device(torch.from_numpy(frames).to(dev), torch.from_numpy(noisy).to(dev),
+                              REFERENCE_CRF_PARAMS)
+    cpu = refine_masks_device(frames, noisy, REFERENCE_CRF_PARAMS, device="cpu")
+    agree = float(np.mean(got == cpu))
+    log(f"[14 xla] 20x20 (H*W % 128 != 0): auto resolves to {resolved!r} on CUDA; masks "
+        f"identical to the CPU run's {agree:.6f} (bar 0.999)")
+    require(resolved == "xla", f"auto at 20x20 on CUDA resolved to {resolved}")
+    require(agree >= 0.999, f"ragged xla masks agreement with the CPU {agree}")
+
+
+def phase_host_crf(dev, critic, vae):
+    """The host CRF's build here, then ``eval_episode`` on it."""
+    import numpy as np
+    import torch
+
+    from critic_vae_tpu_torch.crf import host
+    from critic_vae_tpu_torch.data.synthetic import generate_frames
+    from critic_vae_tpu_torch.pipelines.video import eval_episode
+
+    t0 = time.perf_counter()
+    lib = host.compile_library()
+    log(f"[15 host] {lib.name} built with g++ in {time.perf_counter() - t0:.2f} s")
+    n = MAIN_BATCH
+    frames, gt = generate_frames(n, seed=16)
+    kw = dict(device=dev, batch_size=MAIN_BATCH, compute_dtype="bfloat16")
+    eval_episode(vae, critic, frames[:8], gt[:8], crf_backend="host", **kw)  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = eval_episode(vae, critic, frames, gt, crf_backend="host", **kw)
+    secs = time.perf_counter() - t0
+    dev_res = eval_episode(vae, critic, frames, gt, crf_backend="device", **kw)
+    agree = float(np.mean(res.crf_masks == dev_res.crf_masks))
+    log(f"[15 host] eval_episode crf_backend='host', {n} frames bf16: {n / secs:.1f} frames/s "
+        f"({secs:.3f} s, {os.cpu_count()} CPU cores); crf_iou {res.crf_iou} (device "
+        f"{dev_res.crf_iou}); masks identical to the device CRF's {agree:.6f} (recorded, no bar)")
+    require(res.crf_masks.shape == (n, H, W) and res.thr_iou == dev_res.thr_iou,
+            "host CRF run malformed")
+    return n / secs, agree
+
+
+def _save_zip_pytree(path, tree):
+    """A pytree of numpy arrays in the JAX package's ``save_pytree`` layout:
+    a stored zip of '/'-joined ``<path>.npy`` entries."""
+    import zipfile
+
+    import numpy as np
+
+    def leaves(t, prefix=""):
+        for k, v in t.items():
+            if isinstance(v, dict):
+                yield from leaves(v, f"{prefix}{k}/")
+            else:
+                yield f"{prefix}{k}", np.asarray(v)
+
+    with zipfile.ZipFile(path, "w", zipfile.ZIP_STORED) as zf:
+        for key, arr in leaves(tree):
+            with zf.open(f"{key}.npy", "w") as entry:
+                np.lib.format.write_array(entry, arr)
+
+
+def phase_cli(dev, scratch: Path):
+    """``python -m critic_vae_tpu_torch video`` with JAX-layout artifacts,
+    plain and FiLM, a ``torch.save`` critic and ``--crf-params``."""
+    import numpy as np
+    import torch
+
+    from critic_vae_tpu_torch.data.synthetic import generate_episode
+    from critic_vae_tpu_torch.io import weights
+
+    ep = scratch / "episode"
+    generate_episode(str(ep), num_frames=48, seed=17)
+    params, state = weights.numpy_vae_params(17)
+    film = dict(params["decoder"])
+    rng = np.random.default_rng(18)
+    for i, co in enumerate((128, 64, 32, 32)):
+        film[f"film{i}"] = {"w": rng.normal(0, 0.5, (1, 2 * co)).astype(np.float32),
+                            "b": rng.normal(0, 0.2, (2 * co,)).astype(np.float32)}
+    crit = weights.load_critic_npz(str(ROOT / "saved-networks" / "critic-synthetic.npz"))
+    sd = {}
+    for i, key in enumerate(("features.0", "features.3", "features.6", "features.10")):
+        sd[f"{key}.weight"] = np.transpose(crit[f"conv{i}_w"], (3, 2, 0, 1))
+        sd[f"{key}.bias"] = crit[f"conv{i}_b"]
+    sd["features.14.weight"] = np.transpose(crit["conv4_w"], (3, 2, 0, 1))
+    sd["features.14.bias"] = crit["conv4_b"]
+    for name, key in (("fc0", "crit.1"), ("fc1", "crit.4")):
+        sd[f"{key}.weight"], sd[f"{key}.bias"] = crit[f"{name}_w"].T, crit[f"{name}_b"]
+    critic_pt = scratch / "critic.pt"
+    torch.save({k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in sd.items()}, critic_pt)
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    for name, dec in (("plain", params["decoder"]), ("film", film)):
+        enc_path, dec_path = scratch / f"{name}_encoder.ckpt", scratch / f"{name}_decoder.ckpt"
+        _save_zip_pytree(enc_path, {"params": params["encoder"], "bn_state": state})
+        _save_zip_pytree(dec_path, {"params": dec})
+        root = scratch / f"root_{name}"
+        root.mkdir()
+        cmd = [sys.executable, "-m", "critic_vae_tpu_torch", "video", "--episode", str(ep),
+               "--no-slice", "--encoder", str(enc_path), "--decoder", str(dec_path),
+               "--critic", str(critic_pt), "--crf-params", "44,12,3.1,8,1.8,5", "--root",
+               str(root), "--device", dev.type, "--dtype", "bfloat16"]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True, timeout=300, cwd=scratch,
+                              env=env)
+        secs = time.perf_counter() - t0
+        lines = proc.stdout.splitlines()
+        log(f"[16 cli] video --encoder/--decoder ({name}) --critic critic.pt --crf-params: "
+            f"exit {proc.returncode} in {secs:.1f} s; " + " | ".join(lines))
+        require(proc.returncode == 0, f"video ({name}) failed: {proc.stderr[-2000:]}")
+        require(any(ln.startswith("thr_iou=") for ln in lines)
+                and any(ln.startswith("crf_iou=") for ln in lines), f"video ({name}): no IoUs")
+        backend = "device" if dev.type == "cuda" else "host"
+        require(f"crf backend: {backend} (auto)" in lines, f"video ({name}): auto is not {backend}")
+        require((root / "bin_info_vae1.txt").is_file(), f"video ({name}): no bin_info")
+        try:
+            import PIL  # noqa: F401
+            pillow = True
+        except ImportError:
+            pillow = False
+        gif = root / "videos" / "video-threshold=50.gif"
+        if pillow:
+            require(gif.is_file() and f"wrote {gif}" in lines, f"video ({name}): no GIF")
+        else:
+            require("Pillow is not installed: no GIF is written (as with --no-gif)" in lines
+                    and not gif.exists(), f"video ({name}): no Pillow line")
+        log(f"[16 cli] {name}: bin_info_vae1.txt written; Pillow "
+            f"{'present: GIF written' if pillow else 'absent: the no-GIF line printed'}")
+
+
+def _bf16_agreement(got, preds, diff_u8, thr, crf, thr_iou, crf_iou) -> dict:
+    """How far an ``eval_episode`` result lies from another's arrays."""
+    import numpy as np
+
+    return {"preds": float(np.abs(got.preds - preds).max()),
+            "within1": float(np.mean(np.abs(got.diff_u8.astype(int) - diff_u8.astype(int)) <= 1)),
+            "equal": float(np.mean(got.diff_u8 == diff_u8)),
+            "thr": float(np.mean(got.thr_masks == thr)),
+            "crf": float(np.mean(got.crf_masks == crf)),
+            "thr_iou": abs(got.thr_iou - thr_iou), "crf_iou": abs(got.crf_iou - crf_iou)}
+
+
+def _meets_bf16_bars(a: dict) -> bool:
+    b = BF16_GOLDEN_BARS
+    return (a["preds"] <= BF16_PRED_BAR and a["within1"] >= b["within1"] and a["thr"] >= b["thr"]
+            and a["crf"] >= b["crf"] and a["thr_iou"] <= b["iou"] and a["crf_iou"] <= b["iou"])
+
+
+def phase_bf16_golden(dev, critic):
+    """The card's bf16 ``eval_episode`` against the JAX package's bf16 runs,
+    one a seed of the golden, beside two witnesses of where the gap lies:
+    the CPU port's run of the same inputs against the same golden, and the
+    card's run against the CPU port's."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from critic_vae_tpu_torch.data.synthetic import generate_frames
+    from critic_vae_tpu_torch.io import weights
+    from critic_vae_tpu_torch.pipelines.video import eval_episode
+
+    gold = np.load(ROOT / "tests" / "golden" / "torch_slice_golden_bf16.npz")
+    cpu = torch.device("cpu")
+    critic_cpu = copy.deepcopy(critic).to(cpu)
+    b = BF16_GOLDEN_BARS
+    bars = (f"bars: preds {BF16_PRED_BAR:.3e}, within 1 level {b['within1']}, thr {b['thr']}, "
+            f"crf {b['crf']}, IoU {b['iou']}")
+    failed = []
+    for i, seed in enumerate(int(s) for s in gold["seeds"]):
+        frames, gt = generate_frames(int(gold["num_frames"]), seed=seed)
+        vae_cpu = weights.vae_from_params(*weights.numpy_vae_params(seed))
+        vae = copy.deepcopy(vae_cpu).to(dev)
+        kw = dict(threshold=int(gold["threshold"]), compute_dtype="bfloat16", crf_backend="device")
+        card = eval_episode(vae, critic, frames, gt, device=dev, **kw)
+        port = eval_episode(vae_cpu, critic_cpu, frames, gt, device=cpu, **kw)
+        want = (gold["preds"][i], gold["diff_u8"][i],
+                np.unpackbits(gold["thr_bits"][i], axis=-1).astype(bool),
+                np.unpackbits(gold["crf_bits"][i], axis=-1).astype(bool),
+                float(gold["thr_iou"][i]), float(gold["crf_iou"][i]))
+        rows = (("card vs JAX", _bf16_agreement(card, *want)),
+                ("CPU port vs JAX", _bf16_agreement(port, *want)),
+                ("card vs CPU port", _bf16_agreement(card, port.preds, port.diff_u8,
+                                                     port.thr_masks, port.crf_masks,
+                                                     port.thr_iou, port.crf_iou)))
+        for name, a in rows:
+            log(f"[17 bf16 golden] seed {seed}, {len(frames)} frames, {name}: preds max_abs_err "
+                f"{a['preds']:.3e}; diff_u8 within 1 level {a['within1']:.6f}, equal "
+                f"{a['equal']:.6f}; thr masks identical {a['thr']:.6f}; crf masks identical "
+                f"{a['crf']:.6f}; |thr_iou gap| {a['thr_iou']:.4f}, |crf_iou gap| "
+                f"{a['crf_iou']:.4f}")
+        ok = _meets_bf16_bars(rows[0][1])
+        log(f"[17 bf16 golden] seed {seed}: card vs JAX meets the {bars}: {ok}")
+        if not ok:
+            failed.append(seed)
+    require(not failed, f"bf16 golden: seeds {failed} miss a bar")
+
+
 def b1_bound(itemsize: int) -> dict:
     """B1's bound at the main path's (2 x 512, 3, 64, 64) decode of
     ``itemsize``-byte values: the decode read once, the f32 grey and maxima
@@ -1096,7 +1449,16 @@ def crf_bounds():
                             "bound_by_t13": t13["bound_by"]}
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description="Smoke test of the PyTorch/CUDA port on one card.")
+    ap.add_argument("--bf16-golden-only", action="store_true",
+                    help="run only the card's identity, the build and phase 17")
+    ap.add_argument("--port", type=Path, default=ROOT,
+                    help="directory holding the critic_vae_tpu_torch package to drive "
+                         "(default: this script's; the goldens are always this script's)")
+    args = ap.parse_args(argv)
     try:
         import torch
     except ImportError:
@@ -1106,12 +1468,21 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False; this script needs a CUDA card",
               file=sys.stderr)
         return 1
-    if not (ROOT / "critic_vae_tpu_torch").is_dir():
-        print(f"chip_smoke: no critic_vae_tpu_torch package beside {__file__}", file=sys.stderr)
+    port = args.port.resolve()
+    if not (port / "critic_vae_tpu_torch").is_dir() or not (ROOT / "tests" / "golden").is_dir():
+        print(f"chip_smoke: no critic_vae_tpu_torch package in {port}, or no tests/golden "
+              f"beside {__file__}", file=sys.stderr)
         return 1
-    sys.path.insert(0, str(ROOT))
+    sys.path.insert(0, str(port))
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
+    if args.bf16_golden_only:
+        from critic_vae_tpu_torch.io.weights import synthetic_models
+
+        phase_identity()
+        phase_build()
+        phase_bf16_golden(dev, synthetic_models(dev)[0])
+        return 0
 
     phase_identity()
     phase_build()
@@ -1128,6 +1499,14 @@ def main() -> int:
     phase_front_end(dev, critic, vae)
     p1 = phase_p1(dev)
     p2 = phase_p2(dev, critic, vae)
+    phase_decoder(dev, critic, vae)
+    phase_xla(dev)
+    phase_host_crf(dev, critic, vae)
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as scratch:
+        phase_cli(dev, Path(scratch))
+    phase_bf16_golden(dev, critic)
     bounds = dict(zip(("b1", "b2", "b3", "b4", "b5"), crf_bounds()))
 
     kernels = [

@@ -1,17 +1,25 @@
 """Command line of the port: ``python -m critic_vae_tpu_torch video ...``.
 
-The ``video`` subcommand is the mask-video path of the JAX package's
-``video`` mode (critic_vae_tpu/cli.py ``cmd_video``) without
-reconstructions, panels or GIFs: critic, VAE double decode, diff maps,
-normalisation, threshold, device CRF, and the whole-stack IoUs printed as
-``thr_iou=`` / ``crf_iou=``. With ``--sweep`` (reference: -thresh) it runs
-the threshold sweep instead and prints one ``thr=, thr_iou=, crf_iou=``
-line per threshold. The CRF backend is resolved once, before any weights
-load, as in the JAX package: ``--crf-backend auto`` prints ``crf backend:
-device (auto)``, and a backend that cannot run here (``auto`` off CUDA
-resolves to the host CRF, not ported yet) prints ``error: ...`` and exits
-with 1. The device CRF's build is chosen, as in the JAX package, by
-``CRITIC_VAE_TPU_CRF_BUILD`` (auto|pallas|int8|vmem), and its per-chunk
+The ``video`` subcommand is the JAX package's ``video`` mode
+(critic_vae_tpu/cli.py ``cmd_video``) for the faithful diff mask source:
+critic, VAE double decode, diff maps, normalisation, threshold, dense CRF,
+the whole-stack IoUs printed as ``thr_iou=`` / ``crf_iou=``,
+``bin_info_vae1.txt`` under ``--root`` when the episode has Y.npy, and the
+annotated GIF ``videos/video-threshold=T.gif`` under ``--root`` unless
+``--no-gif``. Without Pillow it acts as with ``--no-gif`` and prints one
+line saying why. With ``--sweep`` (reference:
+-thresh) it runs the threshold sweep and prints one ``thr=, thr_iou=,
+crf_iou=`` line per threshold.
+
+Weights: ``--encoder/--decoder`` are the JAX package's ``train`` artifacts
+(FiLM decoders included); ``--vae`` a combined ``.npz``; else random weights
+from ``--vae-seed``. ``--critic`` is a ``.npz`` or the reference's torch
+``.pt``. The CRF backend is resolved once, before any weights load, as in
+the JAX package: ``--crf-backend auto`` prints ``crf backend: device
+(auto)`` or ``host (auto)``, and a backend that cannot run prints
+``error: ...`` and exits with 1. ``--crf-params`` replaces the reference's
+CRF tuple. The device CRF's build is chosen, as in the JAX package, by
+``CRITIC_VAE_TPU_CRF_BUILD`` (auto|xla|pallas|int8|vmem), and its per-chunk
 memory budget by ``CRITIC_VAE_TPU_CRF_MEM`` (bytes, default 6 GiB).
 """
 
@@ -23,6 +31,9 @@ from pathlib import Path
 from typing import Optional
 
 DEFAULT_CRITIC = Path(__file__).resolve().parent.parent / "saved-networks" / "critic-synthetic.npz"
+# the JAX package's output paths under --root (its config.py PathConfig)
+BIN_INFO_PATH = "bin_info_vae1.txt"
+VIDEO_PATH = "videos"
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -32,19 +43,32 @@ def build_parser() -> argparse.ArgumentParser:
     v.add_argument("--episode", required=True, help="episode dir with X.npy (and Y.npy)")
     v.add_argument("--no-slice", action="store_true",
                    help="use every frame instead of the reference's [100:5000:2] slice")
-    v.add_argument("--critic", default=str(DEFAULT_CRITIC), help="critic .npz (JAX flat format)")
+    v.add_argument("--root", default=".", help="working directory of the outputs "
+                   "(bin_info_vae1.txt, videos/)")
+    v.add_argument("--critic", default=str(DEFAULT_CRITIC),
+                   help="critic: .npz (JAX flat format) or the reference's torch .pt")
     vae = v.add_mutually_exclusive_group()
+    vae.add_argument("--encoder", default=None,
+                     help="encoder artifact of the JAX package's train (with --decoder)")
     vae.add_argument("--vae", default=None, help="VAE .npz (io/weights.py format)")
     vae.add_argument("--vae-seed", type=int, default=0,
                      help="random VAE weights from this seed (numpy_vae_params)")
+    v.add_argument("--decoder", default=None,
+                   help="decoder artifact of the JAX package's train (with --encoder)")
     v.add_argument("--threshold", type=int, default=50)
     v.add_argument("--sweep", action="store_true", help="threshold sweep 0..120 (reference: -thresh)")
     v.add_argument("--sweep-range", default=None, metavar="LO:HI[:STEP]",
                    help="the sweep's thresholds, HI inclusive (default 0:120:10); implies --sweep")
     v.add_argument("--batch-size", type=int, default=512)
     v.add_argument("--dtype", default="float32", choices=["float32", "bfloat16"])
-    v.add_argument("--crf-backend", default="auto", choices=["auto", "device"])
+    v.add_argument("--crf-backend", default="auto", choices=["auto", "host", "device"],
+                   help="'host': the C++ lattice; 'device': the exact mean field on the "
+                   "card; 'auto': device on CUDA at <= 128x128, else host")
+    v.add_argument("--crf-params", default=None, metavar="W1,ALPHA,BETA,W2,GAMMA,ITERS",
+                   help="explicit CRF parameter 6-tuple (default: the reference's "
+                   "22,12,3.1,8,1.8,10)")
     v.add_argument("--no-crf", action="store_true")
+    v.add_argument("--no-gif", action="store_true")
     v.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     return p
 
@@ -68,16 +92,48 @@ def _parse_sweep_range(spec: str) -> list:
     return list(range(lo, hi + 1, step))
 
 
+def _parse_crf_params(spec: str) -> tuple:
+    """'w1,alpha,beta,w2,gamma,iters' -> the CRF 6-tuple (as the JAX
+    package's cli._parse_crf_params)."""
+    parts = [p.strip() for p in spec.split(",")]
+    if len(parts) != 6:
+        raise SystemExit(
+            f"bad --crf-params {spec!r}: expected 6 comma-separated values "
+            "(w1,alpha,beta,w2,gamma,iters)"
+        )
+    try:
+        return tuple([float(v) for v in parts[:5]] + [int(parts[5])])
+    except ValueError:
+        raise SystemExit(
+            f"bad --crf-params {spec!r}: first five must be numbers, iters an integer"
+        )
+
+
+def _load_vae(args, weights):
+    """(params, bn_state) from --encoder/--decoder, --vae or --vae-seed."""
+    if args.encoder is not None:
+        return weights.load_final_weights(args.encoder, args.decoder)
+    if args.vae is not None:
+        return weights.load_vae_npz(args.vae)
+    return weights.numpy_vae_params(args.vae_seed)
+
+
 def cmd_video(args) -> int:
+    from critic_vae_tpu_torch.crf import REFERENCE_CRF_PARAMS
     from critic_vae_tpu_torch.data.episode import DEFAULT_SLICE, load_episode
     from critic_vae_tpu_torch.device import resolve_device
     from critic_vae_tpu_torch.io import weights
-    from critic_vae_tpu_torch.pipelines.video import DEFAULT_SWEEP, eval_episode, threshold_sweep
+    from critic_vae_tpu_torch.pipelines import video as vid
 
-    thresholds = DEFAULT_SWEEP
+    if (args.encoder is None) != (args.decoder is None):
+        print("error: --encoder and --decoder go together", file=sys.stderr)
+        return 1
+    thresholds = vid.DEFAULT_SWEEP
     if args.sweep_range is not None:
         args.sweep = True
         thresholds = _parse_sweep_range(args.sweep_range)
+    crf_params = (_parse_crf_params(args.crf_params) if args.crf_params is not None
+                  else REFERENCE_CRF_PARAMS)
     device = resolve_device(args.device)
     frames, gt = load_episode(args.episode, None if args.no_slice else DEFAULT_SLICE)
     if len(frames) == 0:
@@ -95,36 +151,51 @@ def cmd_video(args) -> int:
         try:
             backend = resolve_crf_backend(args.crf_backend, frames.shape[1], frames.shape[2],
                                           device=device)
-        except (ValueError, NotImplementedError) as e:
+        except ValueError as e:
             print(f"error: {e}", file=sys.stderr)
             return 1
         if args.crf_backend == "auto":
             print(f"crf backend: {backend} (auto)")
         args.crf_backend = backend
-    critic = weights.critic_from_params(weights.load_critic_npz(args.critic)).to(device)
-    params, state = (weights.load_vae_npz(args.vae) if args.vae
-                     else weights.numpy_vae_params(args.vae_seed))
-    vae = weights.vae_from_params(params, state).to(device)
+    critic = weights.critic_from_params(weights.load_critic(args.critic)).to(device)
+    vae = weights.vae_from_params(*_load_vae(args, weights)).to(device)
     print(f"processing {len(frames)} frames on {device}...")
+    if gt is None:
+        print("no Y.npy ground truth: IoU scoring and bin_info are skipped")
     if args.sweep:
         print("testing thresholds (thr):")
-        results = threshold_sweep(
-            vae, critic, frames, gt, thresholds, device=device, run_crf=not args.no_crf,
-            batch_size=args.batch_size, compute_dtype=args.dtype, crf_backend=args.crf_backend,
+        results = vid.threshold_sweep(
+            vae, critic, frames, gt, thresholds, device=device, crf_params=crf_params,
+            run_crf=not args.no_crf, batch_size=args.batch_size, compute_dtype=args.dtype,
+            crf_backend=args.crf_backend,
         )
         for r in results:
             print(f"thr={r['threshold']}, thr_iou={r['thr_iou']}, crf_iou={r['crf_iou']}")
         return 0
-    result = eval_episode(
+    from critic_vae_tpu_torch.viz.gif import pillow_available, write_gif
+
+    gif = not args.no_gif
+    if gif and not pillow_available():
+        print("Pillow is not installed: no GIF is written (as with --no-gif)")
+        gif = False
+    result = vid.eval_episode(
         vae, critic, frames, gt, device=device, threshold=args.threshold,
-        run_crf=not args.no_crf, batch_size=args.batch_size,
+        crf_params=crf_params, run_crf=not args.no_crf, batch_size=args.batch_size,
         compute_dtype=args.dtype, crf_backend=args.crf_backend,
+        recons_u8=True, with_recons=gif,  # the recons feed the panels only
     )
-    if gt is None:
-        print("no Y.npy ground truth: IoU scoring skipped")
-    else:
+    root = Path(args.root)
+    if gt is not None:
         print(f"thr_iou={result.thr_iou}")
         print(f"crf_iou={result.crf_iou}")
+        diag = vid.bin_diagnostics(result.preds, gt, result.thr_masks)
+        vid.write_bin_info(diag, str(root / BIN_INFO_PATH), total_frames=len(frames))
+    if gif:
+        strips = vid.compose_frames(frames, result, gt, args.threshold)
+        out = str(root / VIDEO_PATH / f"video-threshold={args.threshold}.gif")
+        print("creating video...")
+        write_gif(strips, out)
+        print(f"wrote {out}")
     return 0
 
 

@@ -2,7 +2,8 @@
 critic_vae_tpu/crf/device.py, mask-refinement paths).
 
 Per frame of N = H*W pixels the bilateral term is the full N x N matrix M
-built by kernel B2 (crf/fused_build.py); the spatial term
+built by kernel B2 (crf/fused_build.py) or by the Gram form (``xla``); the
+spatial term
 exp(-(dx^2+dy^2)/2 gamma^2) is exactly separable, so its message is a
 truncated separable Gaussian depthwise conv. Messages run over j != i:
 
@@ -12,11 +13,14 @@ truncated separable Gaussian depthwise conv. Messages run over j != i:
 with U = -log(clamp(prob, 1e-8)) and Q0 = softmax(-U). Frames go in padded
 fixed-size chunks; the chunk's M stack is the only N^2 temporary.
 
-Builds (``_resolve_build``): ``auto``/``pallas`` is B2 as above; ``int8``
-stores the unnormalized kernel as int8 (B3) and runs each iteration's
-bilateral message as an int8 matvec (B4); ``vmem`` runs the whole mean
-field, spatial term folded into one bf16 matrix, in kernel B5
-(crf/fused_resident.py). ``refine_masks_multi_device`` refines T mask sets
+Builds (``_resolve_build``): ``pallas`` is B2 as above; ``xla`` builds M
+from Gram products in float32 with plain ops (:func:`_normalized_kernel`);
+``int8`` stores the unnormalized kernel as int8 (B3) and runs each
+iteration's bilateral message as an int8 matvec (B4); ``vmem`` runs the
+whole mean field, spatial term folded into one bf16 matrix, in kernel B5
+(crf/fused_resident.py). ``auto`` is ``pallas`` on a CUDA tensor when H*W
+divides by 128, else ``xla``, as the JAX package resolves it with the TPU
+in the card's place. ``refine_masks_multi_device`` refines T mask sets
 of the same frames against one matrix, packed as T*L lanes of Q (the
 threshold sweep).
 
@@ -61,6 +65,64 @@ def _coords(h: int, w: int, device) -> torch.Tensor:
                           torch.arange(w, dtype=torch.float32, device=device),
                           indexing="ij")
     return torch.stack([x.reshape(-1), y.reshape(-1)], dim=-1)
+
+
+def _fma_products(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """sum_k a[..., k] * b[..., k] of float32 operands as a float32 FMA chain:
+    each product exact in float64, each partial sum rounded to float32 once,
+    which is how XLA:CPU accumulates the JAX package's Gram dot and its
+    norms (bitwise equal on the CPU). Elementwise, so no TF32 setting of a
+    caller can round it on a card."""
+    acc = (a[..., 0].double() * b[..., 0].double()).float()
+    for k in range(1, a.shape[-1]):
+        acc = (acc.double() + a[..., k].double() * b[..., k].double()).float()
+    return acc
+
+
+def _half_sqdist(feats: torch.Tensor) -> torch.Tensor:
+    """-1/2 ||f_i - f_j||^2 of (N, d) float32 features by the Gram form,
+    clamped to <= 0, as the JAX package's ``_half_sqdist``, whose Gram runs
+    at ``Precision.HIGHEST``: with colour norms of ~2e4 the form cancels to
+    ~1e-3 of logk even in float32, and a TF32 Gram (~1e-3 relative on its
+    operands) would move logk by tens and break the diagonal's
+    cancellation."""
+    sq = _fma_products(feats, feats)
+    gram = _fma_products(feats[:, None, :], feats[None, :, :])
+    return torch.clamp_max(gram - 0.5 * (sq[:, None] + sq[None, :]), 0.0)
+
+
+def _normalized_kernel(pos: torch.Tensor, extra: torch.Tensor | None, weight,
+                       dtype: torch.dtype, diag_margin: float = 0.0) -> torch.Tensor:
+    """weight * (n n^T) * K over j != i with n = rsqrt(K @ 1 + eps), from
+    positional features ``pos`` and optional ``extra`` (the JAX package's
+    ``_normalized_kernel``). The diagonal is dropped by the margin predicate
+    ``logp < -diag_margin``: distinct pixels differ in position, so their
+    positional half-distance is at most -(1 px / scale)^2 / 2, while at i =
+    j it is ~0 up to float noise. A bare ``< 0`` is unsafe: XLA:CPU once
+    gave logp[i, i] = -2.4e-7, which leaked k_ii = 1 into the row's
+    normaliser."""
+    logp = _half_sqdist(pos)
+    logk = logp if extra is None else logp + _half_sqdist(extra)
+    k = torch.where(logp < -diag_margin, torch.exp(logk), 0.0)
+    n = torch.rsqrt(torch.sum(k, dim=-1) + _EPS_NORM)
+    return (weight * (n[:, None] * n[None, :]) * k).to(dtype)
+
+
+def build_bilateral_xla(imgs_u8: torch.Tensor, w1, alpha, beta, *, h: int, w: int,
+                        out_dtype: str = "float32") -> torch.Tensor:
+    """The ``xla`` build: (C, N, 3) uint8 frames -> (C, N, N) M in
+    ``out_dtype``, each frame by :func:`_normalized_kernel` on the features
+    (x, y)/alpha and rgb/beta (densecrf.cpp's order) with the margin
+    (1 px / alpha)^2 / 4, as the JAX package's ``_mean_field_frame``. One
+    frame at a time, so the float32 temporaries stay a few N^2."""
+    c, n, _ = imgs_u8.shape
+    xy = _coords(h, w, imgs_u8.device) / float(alpha)
+    margin = 0.25 / (float(alpha) * float(alpha))
+    out = torch.empty((c, n, n), dtype=getattr(torch, out_dtype), device=imgs_u8.device)
+    for i in range(c):
+        out[i] = _normalized_kernel(xy, imgs_u8[i].float() / float(beta), w1, out.dtype,
+                                    diag_margin=margin)
+    return out
 
 
 def _spatial_taps(gamma: float, h: int, w: int) -> np.ndarray:
@@ -196,46 +258,54 @@ def _crf_chunk_from_masks(imgs_u8: torch.Tensor, masks_u8: torch.Tensor,
     from critic_vae_tpu_torch.crf.fused_build import build_bilateral
 
     dt = "bfloat16" if fused == "int8" else compute_dtype
-    mb = build_bilateral(imgs_u8, w1, alpha, beta, h=h, w=w, out_dtype=dt)
+    build = build_bilateral_xla if fused == "xla" else build_bilateral
+    mb = build(imgs_u8, w1, alpha, beta, h=h, w=w, out_dtype=dt)
     return _mean_field_iterate_multi(mb, probs, taps, w2, h, w, iters)
 
 
-def _resolve_build(build: str, h: int, w: int) -> str:
-    """Resolve a build to "pallas" | "int8" | "vmem" for h x w frames.
+def _resolve_build(build: str, h: int, w: int, device) -> str:
+    """Resolve a build to "xla" | "pallas" | "int8" | "vmem" for h x w
+    frames on ``device``, as the JAX package's ``_resolve_build`` with CUDA
+    in the TPU's place.
 
-    * ``auto``/``pallas``: kernel B2 (crf/fused_build.build_bilateral);
+    * ``xla``: the Gram-form build in float32 (:func:`build_bilateral_xla`),
+      plain ops, any size;
+    * ``pallas``: kernel B2 (crf/fused_build.build_bilateral);
     * ``int8``: kernels B3 and B4 (single mask; B2 in bf16 for many);
-    * ``vmem``: kernel B5 (crf/fused_resident.mean_field_resident).
+    * ``vmem``: kernel B5 (crf/fused_resident.mean_field_resident);
+    * ``auto``: ``pallas`` on a CUDA device when H*W divides by 128, else
+      ``xla`` (the CPU included, as the JAX package's CPU runs ``xla``).
 
-    ``CRITIC_VAE_TPU_CRF_BUILD`` overrides ``build``, as in the JAX package;
-    every value routes to a kernel on a CUDA tensor (the plain versions run
-    only for CPU tensors). ``int8`` and ``vmem`` keep the JAX package's TPU
-    limits for parity (ROADMAP C): H*W divisible by 128, and for ``vmem``
-    H*W <= MAX_RESIDENT_N. The Gram-form ``xla`` build is not ported.
-
-    A known deviation (ROADMAP C.3): at H*W % 128 != 0 the JAX package
-    raises for ``pallas`` and runs its float32 ``xla`` build for ``auto``;
-    here both take B2, in bf16 on CUDA, so the masks at such sizes (20x20
-    crops, say) differ from the JAX default's. It resolves as the JAX
-    package does once the ``xla`` build is ported (ROADMAP A.7)."""
+    ``CRITIC_VAE_TPU_CRF_BUILD`` overrides ``build``. ``pallas``, ``int8``
+    and ``vmem`` keep the JAX package's TPU limits for parity (ROADMAP C):
+    H*W divisible by 128, and for ``vmem`` H*W <= MAX_RESIDENT_N; each
+    routes to its kernel on a CUDA tensor (the plain versions run only for
+    CPU tensors)."""
     from critic_vae_tpu_torch.crf.fused_resident import MAX_RESIDENT_N
 
     build = os.environ.get(BUILD_ENV, build)
     if build == "xla":
-        raise NotImplementedError(
-            "build='xla': the Gram-form build is not ported yet (ROADMAP A.7)"
-        )
-    if build in ("auto", "pallas"):
-        return "pallas"
-    if build in ("int8", "vmem"):
-        if (h * w) % 128:
+        return "xla"
+    divisible = (h * w) % 128 == 0
+    if build in ("pallas", "int8", "vmem"):
+        if not divisible:
             raise ValueError(f"build={build!r} needs H*W divisible by 128, got {h}x{w}")
         if build == "vmem" and h * w > MAX_RESIDENT_N:
             raise ValueError(
                 f"build='vmem' needs H*W <= {MAX_RESIDENT_N}, got {h}x{w} — use 'pallas'"
             )
         return build
-    raise ValueError(f"unknown build {build!r} (auto|pallas|int8|vmem)")
+    if build == "auto":
+        return "pallas" if divisible and torch.device(device).type == "cuda" else "xla"
+    raise ValueError(f"unknown build {build!r} (auto|xla|pallas|int8|vmem)")
+
+
+def _auto_dtype(fused: str, multi: bool) -> str:
+    """``compute_dtype="auto"``, as the JAX package: bf16 M for the kernel
+    builds (``int8`` too when many masks share its bf16 B2 matrix),
+    float32 for ``xla``."""
+    bf16 = ("pallas", "int8", "vmem") if multi else ("pallas", "vmem")
+    return "bfloat16" if fused in bf16 else "float32"
 
 
 def _chunk_frames(frame_chunk: int, fused: str, multi: bool, compute_dtype: str,
@@ -267,8 +337,10 @@ def _run_chunked(flat_imgs: torch.Tensor, flat_masks: torch.Tensor, params, h: i
     (n, T, N) uint8 labels, as numpy with ``fetch`` or as a device tensor
     without."""
     w1, alpha, beta, w2, gamma, iters = params
-    fused = _resolve_build(build, h, w)
+    fused = _resolve_build(build, h, w, flat_imgs.device)
     multi = flat_masks.dim() == 3
+    if compute_dtype == "auto":
+        compute_dtype = _auto_dtype(fused, multi)
     n, npix = flat_imgs.shape[0], h * w
     if n == 0:
         shape = (0, flat_masks.shape[2], npix) if multi else (0, npix)
@@ -314,12 +386,13 @@ def refine_masks_device(frames_u8, thr_masks, params: Tuple = REFERENCE_CRF_PARA
     exact dense CRF; returns (n, H, W) bool, as numpy with ``fetch`` or as a
     tensor on the device without.
 
-    Tensors are used where they lie; numpy inputs need ``device``.
-    ``compute_dtype="auto"`` stores B2's M in bf16 on CUDA (the kernel's
-    fast path; held to >= 99.9% segmentation agreement with float32) and
-    float32 on the CPU; ``int8`` and ``vmem`` fix their own storage. At
-    H*W % 128 != 0 ``auto`` and ``pallas`` both run B2, where the JAX
-    package runs its ``xla`` build or raises (:func:`_resolve_build`)."""
+    Tensors are used where they lie; numpy inputs need ``device``. The
+    build resolves as in the JAX package (:func:`_resolve_build`): B2 on
+    CUDA at H*W % 128 == 0, the ``xla`` build elsewhere (the CPU, ragged
+    sizes). ``compute_dtype="auto"`` stores B2's M in bf16 (the kernel's fast
+    path; held to >= 99.9% segmentation agreement with float32) and the
+    ``xla`` build's in float32; ``int8`` and ``vmem`` fix their own
+    storage."""
     frames, device = _frames_on(frames_u8, device, "refine_masks_device")
     n, h, w_, _ = frames.shape
     if tuple(thr_masks.shape) != (n, h, w_):
@@ -327,8 +400,6 @@ def refine_masks_device(frames_u8, thr_masks, params: Tuple = REFERENCE_CRF_PARA
             f"thr_masks shape {tuple(thr_masks.shape)} does not match frames {tuple(frames.shape)}"
         )
     masks = torch.as_tensor(thr_masks, device=device).to(torch.uint8).reshape(n, h * w_)
-    if compute_dtype == "auto":
-        compute_dtype = "bfloat16" if device.type == "cuda" else "float32"
     out = _run_chunked(
         frames.reshape(n, h * w_, 3), masks, params, h, w_, frame_chunk,
         compute_dtype, build=build, fetch=fetch,
@@ -359,8 +430,6 @@ def refine_masks_multi_device(frames_u8, thr_masks_multi,
     # frame-major, so _run_chunked slices and pads along frames
     masks = (torch.as_tensor(thr_masks_multi, device=device).to(torch.uint8)
              .permute(1, 2, 3, 0).reshape(f, h * w_, t))
-    if compute_dtype == "auto":
-        compute_dtype = "bfloat16" if device.type == "cuda" else "float32"
     out = _run_chunked(
         frames.reshape(f, h * w_, 3), masks, params, h, w_, frame_chunk,
         compute_dtype, build=build, fetch=fetch,

@@ -1,19 +1,18 @@
 // Fused diff-mask tail of the video pipeline's mask stage (kernel B1).
 //
 // Replaces critic_vae_tpu/ops/pallas_kernels.py::fused_diff_mask (body
-// `_kernel`) and, by default, the XLA tail of critic_vae_tpu/ops/mask.py
-// diff_images: per frame, |r(b) - r(a)| of the decoder's two pre-tanh
-// outputs a (at the critic value) and b (at 0), the Rec.601 grey projection
-// and the per-frame max. r is the JAX default's tanh: tanh of the input
-// dtype, so for bf16 the accurate float32 tanhf rounded to the nearest bf16
-// (what XLA gives for every finite bf16), then widened. With f32_tanh r is
-// the widened input's float32 tanh, the Pallas kernel's arithmetic.
+// `_kernel`) and the XLA tail of critic_vae_tpu/ops/mask.py diff_images:
+// per frame, |r(b) - r(a)| of the decoder's two pre-tanh outputs a (at the
+// critic value) and b (at 0), the Rec.601 grey projection and the per-frame
+// max. r is the float32 tanhf of the widened input, the arithmetic of both
+// JAX tails as XLA compiles them (the XLA tail's bf16 tanh feeds only a cast
+// to float32, so XLA drops its rounding).
 //
 // What bounds it on Hopper: memory, with the tanh close behind. At (512, 3,
 // 64, 64) bf16 it reads 25.2 MB and writes 8.4 MB, 0.0100 ms at 3.35 TB/s;
 // its 12.6 M accurate tanhf, a few tens of instructions each, take about as
-// many issue slots. No fast math: tanh.approx mis-rounds a large share of
-// the bf16 results, and each mis-rounding moves a diff by 2^-8.
+// many issue slots. No fast math: tanh.approx errs by up to 2^-11 relative,
+// where the JAX tails' float32 tanh is within an ulp or two.
 //
 // What the design does about it:
 // * One block a frame, 512 threads. Each thread takes 16 bytes of each of
@@ -87,27 +86,9 @@ __device__ __forceinline__ void store(float* p, const float (&v)[V]) {
   }
 }
 
-// x rounded to the nearest bf16 (ties to even) and widened, NaN kept NaN:
-// __float2bfloat16_rn's result by integer operations. The conversion
-// instruction (F2FP) runs at a quarter of their rate, and with it the bf16
-// default was measurably slower on an H100, timed in turns with this form
-__device__ __forceinline__ float round_bf16(float x) {
-  const uint32_t u = __float_as_uint(x);
-  const uint32_t r = (u + 0x7FFFu + ((u >> 16) & 1u)) & 0xFFFF0000u;
-  return x != x ? x : __uint_as_float(r);
-}
-
-// the reconstruction: tanhf, rounded to bf16 and widened when kRound
-template <bool kRound>
-__device__ __forceinline__ float recon(float x) {
-  const float t = tanhf(x);
-  if constexpr (kRound) return round_bf16(t);
-  return t;
-}
-
 // pre: the (2B, 3, H*W) decode; the frame at 0 lies zero_offset values after
 // the frame at the critic value
-template <typename T, int V, bool kRound>
+template <typename T, int V>
 __global__ void __launch_bounds__(kThreads, 2)
 diff_mask_kernel(const T* __restrict__ pre, long zero_offset, int hw,
                  float* __restrict__ grey, float* __restrict__ maxv) {
@@ -129,7 +110,7 @@ diff_mask_kernel(const T* __restrict__ pre, long zero_offset, int hw,
     for (int i = 0; i < V; ++i) {
       float d[3];
 #pragma unroll
-      for (int c = 0; c < 3; ++c) d[c] = fabsf(recon<kRound>(vb[c][i]) - recon<kRound>(va[c][i]));
+      for (int c = 0; c < 3; ++c) d[c] = fabsf(tanhf(vb[c][i]) - tanhf(va[c][i]));
       out[i] = __fadd_rn(__fadd_rn(__fmul_rn(d[0], kRec601R), __fmul_rn(d[1], kRec601G)),
                          __fmul_rn(d[2], kRec601B));
       m = nan_max(m, out[i]);
@@ -151,7 +132,7 @@ diff_mask_kernel(const T* __restrict__ pre, long zero_offset, int hw,
   }
 }
 
-template <typename T, bool kRound>
+template <typename T>
 void launch(const void* pre, bool vector, int batch, int hw, void* grey, void* maxv,
             cudaStream_t s) {
   constexpr int kVec = 16 / sizeof(T);
@@ -160,29 +141,26 @@ void launch(const void* pre, bool vector, int batch, int hw, void* grey, void* m
   float* g = static_cast<float*>(grey);
   float* mx = static_cast<float*>(maxv);
   if (vector)
-    diff_mask_kernel<T, kVec, kRound><<<batch, kThreads, 0, s>>>(p, zero, hw, g, mx);
+    diff_mask_kernel<T, kVec><<<batch, kThreads, 0, s>>>(p, zero, hw, g, mx);
   else
-    diff_mask_kernel<T, 1, kRound><<<batch, kThreads, 0, s>>>(p, zero, hw, g, mx);
+    diff_mask_kernel<T, 1><<<batch, kThreads, 0, s>>>(p, zero, hw, g, mx);
 }
 
 }  // namespace
 
 // pre: the (2 * batch, 3, hw) decode, contiguous, f32 (is_bf16 == 0) or bf16;
-// f32_tanh: tanh in f32 without the rounding to bf16. grey: (batch, hw) f32;
-// maxv: (batch,) f32. Returns cudaGetLastError().
-extern "C" int cvt_diff_mask(const void* pre, int is_bf16, int f32_tanh, int batch, int hw,
-                             void* grey, void* maxv, void* stream) {
+// grey: (batch, hw) f32; maxv: (batch,) f32. Returns cudaGetLastError().
+extern "C" int cvt_diff_mask(const void* pre, int is_bf16, int batch, int hw, void* grey,
+                             void* maxv, void* stream) {
   if (batch > 0) {
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     const int vec = is_bf16 ? 8 : 4;
     const bool vector = hw % vec == 0 && reinterpret_cast<uintptr_t>(pre) % 16 == 0 &&
                         reinterpret_cast<uintptr_t>(grey) % 16 == 0;
-    if (!is_bf16)
-      launch<float, false>(pre, vector, batch, hw, grey, maxv, s);
-    else if (f32_tanh)
-      launch<__nv_bfloat16, false>(pre, vector, batch, hw, grey, maxv, s);
+    if (is_bf16)
+      launch<__nv_bfloat16>(pre, vector, batch, hw, grey, maxv, s);
     else
-      launch<__nv_bfloat16, true>(pre, vector, batch, hw, grey, maxv, s);
+      launch<float>(pre, vector, batch, hw, grey, maxv, s);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -28,14 +28,19 @@ def device_ms(fn, kernel: str, iters: int = 50, warmup: int = 2) -> float:
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    events = [e for e in prof.key_averages() if kernel in e.key and e.self_device_time_total > 0]
-    # the trace may drop a launch's record now and then; none, or more than
-    # were made, means the name picks out no kernel or others besides it
-    launches = sum(e.count for e in events)
+    # the trace may drop a launch's record now and then, and has been seen to
+    # drop all of them; none, or more than were made, means the name picks
+    # out no kernel or others besides it, so a trace with none is taken again
+    for _ in range(3):
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if kernel in e.key and e.self_device_time_total > 0]
+        launches = sum(e.count for e in events)
+        if launches:
+            break
     if not 0 < launches <= iters:
         raise RuntimeError(f"device_ms: {launches} launches of a kernel named like {kernel!r} "
                            f"traced in {iters} calls")

@@ -9,11 +9,19 @@ torch layouts: convs OIHW, linears (out, in).
 Files:
 
 * a critic ``.npz`` is the JAX package's flat format (``conv0_w`` ...,
-  ``saved-networks/critic-synthetic.npz``);
-* a VAE ``.npz`` holds ``params/<encoder|decoder>/<layer>/<leaf>`` and
-  ``bn_state/bn<i>/<mean|var>`` — the '/'-joined key scheme of the JAX
-  package's ``io/checkpoint.save_pytree`` applied to
+  ``saved-networks/critic-synthetic.npz``); any other critic file is the
+  reference's torch state dict (``.pt``, zip or legacy format), read by
+  ``torch.load(weights_only=True)`` (:func:`load_critic`);
+* the JAX package's ``train`` artifacts, the encoder's ``{params, bn_state}``
+  and the decoder's ``{params}`` written by its ``io/checkpoint.save_pytree``
+  (zip files of ``<path>.npy`` entries, '/'-joined pytree paths, named
+  ``*.ckpt``): :func:`load_final_weights`, as strict as its ``load_pytree``;
+* a combined VAE ``.npz`` holds ``params/<encoder|decoder>/<layer>/<leaf>``
+  and ``bn_state/bn<i>/<mean|var>``, the same key scheme applied to
   ``{"params": params, "bn_state": state}``.
+
+A decoder whose params hold ``film{i}`` (the JAX package's ``train --film``)
+builds a FiLM decoder.
 """
 
 from __future__ import annotations
@@ -78,6 +86,36 @@ def critic_from_params(params: Dict[str, np.ndarray]) -> Critic:
     return critic.eval().requires_grad_(False)
 
 
+def critic_params_from_torch(state_dict) -> Dict[str, np.ndarray]:
+    """A torch critic state dict (OIHW convs, (out, in) linears) -> the JAX
+    flat layout, by the reference's module indices (critic_net.py:15-42):
+    features.{0,3,6,10,14} are the convs, crit.{1,4} the linears (the JAX
+    package's ``critic_params_from_torch``)."""
+    sd = {k: np.asarray(v.detach().cpu().numpy() if hasattr(v, "detach") else v)
+          for k, v in state_dict.items()}
+    params: Dict[str, np.ndarray] = {}
+    for i, key in enumerate(("features.0", "features.3", "features.6", "features.10")):
+        params[f"conv{i}_w"] = np.transpose(sd[f"{key}.weight"], (2, 3, 1, 0))
+        params[f"conv{i}_b"] = sd[f"{key}.bias"]
+    params["conv4_w"] = np.transpose(sd["features.14.weight"], (2, 3, 1, 0))
+    params["conv4_b"] = sd["features.14.bias"]
+    params["fc0_w"] = sd["crit.1.weight"].T
+    params["fc0_b"] = sd["crit.1.bias"]
+    params["fc1_w"] = sd["crit.4.weight"].T
+    params["fc1_b"] = sd["crit.4.bias"]
+    return params
+
+
+def load_critic(path: str) -> Dict[str, np.ndarray]:
+    """A critic checkpoint as JAX-layout numpy params: ``.npz`` is the JAX
+    package's flat format; anything else is a torch state dict, zip or
+    legacy format, read with ``torch.load(weights_only=True)`` (tensors and
+    plain containers only) and mapped by :func:`critic_params_from_torch`."""
+    if str(path).endswith(".npz"):
+        return load_critic_npz(path)
+    return critic_params_from_torch(torch.load(path, map_location="cpu", weights_only=True))
+
+
 def critic_to_params(critic: Critic) -> Dict[str, np.ndarray]:
     out: Dict[str, np.ndarray] = {}
     for i, layer in enumerate(critic.convs):
@@ -138,11 +176,13 @@ def numpy_vae_params(
 
 
 def vae_from_params(params: Params, state: Params) -> VAE:
+    """The port's VAE holding the JAX-layout ``(params, bn_state)``; a FiLM
+    decoder when the decoder's params hold ``film{i}``."""
     enc, dec = params["encoder"], params["decoder"]
     dims = tuple(int(np.shape(enc[f"conv{i}"]["w"])[-1]) for i in range(4))
     latent_dim, bottleneck = (int(s) for s in np.shape(enc["fc_mu"]["w"])[::-1])
     vae = VAE(dims, channels=int(np.shape(enc["conv0"]["w"])[2]),
-              latent_dim=latent_dim, bottleneck=bottleneck)
+              latent_dim=latent_dim, bottleneck=bottleneck, film="film0" in dec)
     for i, (layer, bn) in enumerate(zip(vae.encoder.convs, vae.encoder.bns)):
         _set_conv(layer, enc[f"conv{i}"]["w"], enc[f"conv{i}"]["b"])
         bn.weight.data.copy_(_t(enc[f"bn{i}"]["scale"]))
@@ -154,6 +194,8 @@ def vae_from_params(params: Params, state: Params) -> VAE:
     _set_linear(vae.decoder.input, dec["input"]["w"], dec["input"]["b"])
     for i, layer in enumerate(vae.decoder.convs):
         _set_conv(layer, dec[f"conv{i}"]["w"], dec[f"conv{i}"]["b"])
+    for i, layer in enumerate(vae.decoder.film or ()):
+        _set_linear(layer, dec[f"film{i}"]["w"], dec[f"film{i}"]["b"])
     return vae.eval().requires_grad_(False)
 
 
@@ -178,6 +220,8 @@ def vae_to_params(vae: VAE) -> Tuple[Params, Params]:
                              "b": _n(vae.decoder.input.bias)}}
     for i, layer in enumerate(vae.decoder.convs):
         dec[f"conv{i}"] = {"w": _oihw_to_hwio(layer.weight), "b": _n(layer.bias)}
+    for i, layer in enumerate(vae.decoder.film or ()):
+        dec[f"film{i}"] = {"w": np.ascontiguousarray(_n(layer.weight).T), "b": _n(layer.bias)}
     return {"encoder": enc, "decoder": dec}, state
 
 
@@ -189,6 +233,63 @@ def _flatten(tree, prefix: str, out: Dict[str, np.ndarray]) -> None:
             out[f"{prefix}{k}"] = np.asarray(v)
 
 
+def _unflatten(flat: Dict[str, np.ndarray]) -> Params:
+    tree: Params = {}
+    for key, value in flat.items():
+        node = tree
+        *parents, leaf = key.split("/")
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[leaf] = value
+    return tree
+
+
+def _load_strict(path: str, like: Params) -> Params:
+    """The JAX package's ``load_pytree``: every leaf of ``like`` must be in
+    the file with its shape and dtype, and the file may hold nothing else."""
+    with np.load(path) as data:
+        stored = {k: np.asarray(data[k]) for k in data.files}
+    want: Dict[str, np.ndarray] = {}
+    _flatten(like, "", want)
+    for key, leaf in want.items():
+        if key not in stored:
+            raise KeyError(f"checkpoint {path} is missing leaf {key!r}")
+        arr = stored[key]
+        if arr.shape != leaf.shape:
+            raise ValueError(f"checkpoint leaf {key!r} has shape {arr.shape}, "
+                             f"expected {leaf.shape}")
+        if arr.dtype != leaf.dtype:
+            raise ValueError(f"checkpoint leaf {key!r} has dtype {arr.dtype}, "
+                             f"expected {leaf.dtype}")
+    unused = sorted(set(stored) - set(want))
+    if unused:
+        raise ValueError(
+            f"checkpoint {path} carries {len(unused)} leaves the target structure has no "
+            f"slot for (e.g. {unused[:3]}); the artifact belongs to a structurally "
+            "different model")
+    return _unflatten({k: stored[k] for k in want})
+
+
+def load_final_weights(encoder_path: str, decoder_path: str) -> Tuple[Params, Params]:
+    """``(params, bn_state)`` from the JAX package's separate encoder and
+    decoder artifacts (its ``pipelines/train.py::load_final_weights``, as
+    its ``video`` calls it: the full-width model's structure).
+
+    A missing or extra leaf, or a wrong shape or dtype, raises. FiLM
+    decoders are detected from ``params/film*`` keys in the decoder's file
+    and added to the structure with the stored shapes and dtypes."""
+    like_params, like_bn = numpy_vae_params(0)
+    like_dec = dict(like_params["decoder"])
+    with np.load(decoder_path) as stored:
+        for k in stored.files:
+            if k.startswith("params/film"):
+                name, leaf = k[len("params/"):].split("/")
+                like_dec.setdefault(name, {})[leaf] = np.zeros(stored[k].shape, stored[k].dtype)
+    enc = _load_strict(encoder_path, {"params": like_params["encoder"], "bn_state": like_bn})
+    dec = _load_strict(decoder_path, {"params": like_dec})
+    return {"encoder": enc["params"], "decoder": dec["params"]}, enc["bn_state"]
+
+
 def save_vae_npz(path: str, params: Params, state: Params) -> None:
     flat: Dict[str, np.ndarray] = {}
     _flatten({"params": params, "bn_state": state}, "", flat)
@@ -197,14 +298,8 @@ def save_vae_npz(path: str, params: Params, state: Params) -> None:
 
 def load_vae_npz(path: str) -> Tuple[Params, Params]:
     """``(params, bn_state)`` numpy trees from a VAE ``.npz`` (see module doc)."""
-    tree: Params = {}
     with np.load(path) as data:
-        for key in data.files:
-            node = tree
-            *parents, leaf = key.split("/")
-            for p in parents:
-                node = node.setdefault(p, {})
-            node[leaf] = np.asarray(data[key])
+        tree = _unflatten({k: np.asarray(data[k]) for k in data.files})
     if set(tree) != {"params", "bn_state"}:
         raise ValueError(f"{path}: expected top-level params/ and bn_state/ keys, got {sorted(tree)}")
     return tree["params"], tree["bn_state"]

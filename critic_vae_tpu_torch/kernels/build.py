@@ -107,7 +107,7 @@ def build() -> Path:
 
 def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.cvt_diff_mask.argtypes = [p, i, i, i, i, p, p, p]
+    lib.cvt_diff_mask.argtypes = [p, i, i, i, p, p, p]
     lib.cvt_diff_mask.restype = i
     lib.cvt_bilateral_build.argtypes = [p, i, i, i, f, f, f, p, p, p, i, p]
     lib.cvt_bilateral_build.restype = i

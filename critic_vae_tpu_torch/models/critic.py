@@ -27,14 +27,28 @@ from critic_vae_tpu_torch.ops.poolconv import conv_pool2_max, s2d_conv_pool2_pha
 def conv(layer: nn.Conv2d, x: torch.Tensor, dtype: torch.dtype | None = None) -> torch.Tensor:
     """``layer`` applied with its weights cast to ``dtype`` (default x's
     dtype), per call, as the JAX package does; the float32 master weights are
-    never rounded in place."""
+    never rounded in place. The bias is added after the conv, in ``dtype``,
+    as the JAX package's ``conv(x, w) + b``: in bfloat16 the conv's output is
+    rounded before the sum, so the sum rounds twice (a bias folded into the
+    conv rounds once and gives another bf16 value in ~30% of outputs)."""
     dtype = x.dtype if dtype is None else dtype
-    return F.conv2d(x, layer.weight.to(dtype), layer.bias.to(dtype), padding=layer.padding)
+    y = F.conv2d(x, layer.weight.to(dtype), padding=layer.padding)
+    return y + layer.bias.to(dtype)[:, None, None]
 
 
 def linear(layer: nn.Linear, x: torch.Tensor, dtype: torch.dtype | None = None) -> torch.Tensor:
+    """``x @ w + b`` with the bias after the product, in ``dtype``, as
+    :func:`conv`."""
     dtype = x.dtype if dtype is None else dtype
-    return F.linear(x, layer.weight.to(dtype), layer.bias.to(dtype))
+    return F.linear(x, layer.weight.to(dtype)) + layer.bias.to(dtype)
+
+
+def sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """1 / (1 + exp(-x)), each op in x's dtype: XLA expands the JAX
+    package's ``jax.nn.sigmoid`` so, and in bfloat16 it rounds after every
+    op (``torch.sigmoid`` rounds once, and differs by a bf16 ulp in ~1.7% of
+    the bf16 values, 0.5 + 2^-8 against 0.5 for small logits among them)."""
+    return 1 / (1 + torch.exp(-x))
 
 
 class Critic(nn.Module):
@@ -75,4 +89,4 @@ class Critic(nn.Module):
                 x = F.max_pool2d(F.relu(x), 2)
         h = F.relu(conv(self.conv4, x, dtype)).flatten(1)
         h = F.relu(linear(self.fc0, h, dtype))
-        return torch.sigmoid(linear(self.fc1, h, dtype))
+        return sigmoid(linear(self.fc1, h, dtype))

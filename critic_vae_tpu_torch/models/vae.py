@@ -1,12 +1,17 @@
 """Critic-conditioned VAE, eval forward, NCHW (counterpart of
-critic_vae_tpu/models/vae.py::encode and ``decode(fused=False)``).
+critic_vae_tpu/models/vae.py::encode and ``decode``).
 
 * Encoder: 4x[conv5x5 SAME -> BatchNorm (running stats) -> maxpool2 ->
   ReLU], Tanh after the last block; channel-major flatten to the bottleneck,
   then fc_mu / fc_var.
 * Decoder: the critic value is concatenated onto the latent, Linear(33 ->
   bottleneck), viewed as (C, S, S), 4x[conv5x5 -> ReLU -> nearest x2], a
-  last conv5x5 to 3 channels, Tanh unless ``apply_tanh=False``.
+  last conv5x5 to 3 channels, Tanh unless ``apply_tanh=False``. By default
+  (``fused=True``, as the JAX ``decode``) each nearest x2 + conv5x5 pair runs
+  as the phase-split conv of ops/upconv.py; ``fused=False`` is the literal
+  graph. A decoder built with ``film=True`` also holds the FiLM layers of
+  the JAX package's ``film{i}`` params: per stage, (gamma, beta) =
+  Linear(value), applied as x·(1 + gamma) + beta before the ReLU.
 
 NCHW makes the JAX package's channel-major flatten/unflatten (its
 transposes around the fc layers) the natural ``view``. BatchNorm runs in
@@ -30,6 +35,7 @@ from torch import nn
 
 from critic_vae_tpu_torch.models.critic import conv, linear
 from critic_vae_tpu_torch.ops.poolconv import conv_pool2_phases, s2d_conv_pool2_phases
+from critic_vae_tpu_torch.ops.upconv import phase_weight, upsample2_conv5
 
 ENCODER_DIMS = (32, 64, 128, 256)
 LATENT_DIM = 32
@@ -42,11 +48,21 @@ POOL_IMPLS = ("reduce_window", "strided")
 FUSED_POOL_SERVING = ("s2d", False, False, False)
 
 
-def batchnorm_eval(bn: nn.BatchNorm2d, x: torch.Tensor) -> torch.Tensor:
+def batchnorm_eval(bn: nn.BatchNorm2d, x: torch.Tensor,
+                   bias: torch.Tensor | None = None) -> torch.Tensor:
     """Eval-mode BatchNorm in float32 over dim -3 (channels of (..., C, H,
-    W)), cast back to x's dtype."""
+    W)), cast back to x's dtype.
+
+    ``bias``: a conv bias, cast to x's dtype and added to x in float32,
+    unrounded. That is the JAX package's ``_batchnorm(conv(x, w) + b)`` as
+    XLA compiles it: the sum's only use is BN's cast to float32, and XLA
+    drops the sum's rounding to the activation dtype (its excess-precision
+    rule), so in bfloat16 the sum is not rounded before BN."""
+    xf = x.float()
+    if bias is not None:
+        xf = xf + bias.to(x.dtype).float()[:, None, None]
     inv = torch.rsqrt(bn.running_var + bn.eps) * bn.weight
-    y = (x.float() - bn.running_mean[:, None, None]) * inv[:, None, None]
+    y = (xf - bn.running_mean[:, None, None]) * inv[:, None, None]
     return (y + bn.bias[:, None, None]).to(x.dtype)
 
 
@@ -99,19 +115,18 @@ class Encoder(nn.Module):
                 phase_conv = (s2d_conv_pool2_phases if fused_pool[i] == "s2d"
                               else conv_pool2_phases)
                 y = phase_conv(x, layer.weight.to(x.dtype))
-                y = y + layer.bias.to(x.dtype)[:, None, None]
-                x = batchnorm_eval(bn, y).amax(dim=1)  # BN per phase, then the pool
+                x = batchnorm_eval(bn, y, layer.bias).amax(dim=1)  # BN per phase, then the pool
             elif fold_bn:
                 k = torch.rsqrt(bn.running_var + bn.eps) * bn.weight
                 w = layer.weight * k[:, None, None, None]
                 b = (layer.bias - bn.running_mean) * k + bn.bias
-                x = pool(F.conv2d(x, w.to(x.dtype), b.to(x.dtype), padding=layer.padding))
+                y = F.conv2d(x, w.to(x.dtype), padding=layer.padding)
+                x = pool(y + b.to(x.dtype)[:, None, None])
+            elif block0_f32 and i == 0:
+                x = pool(batchnorm_eval(bn, conv(layer, x.float()).to(out_dtype)))
             else:
-                f32_first = block0_f32 and i == 0
-                x = conv(layer, x.float() if f32_first else x)
-                if f32_first:
-                    x = x.to(out_dtype)
-                x = pool(batchnorm_eval(bn, x))
+                y = F.conv2d(x, layer.weight.to(x.dtype), padding=layer.padding)
+                x = pool(batchnorm_eval(bn, y, layer.bias))
             x = torch.tanh(x) if i == last else F.relu(x)
         flat = x.flatten(1)
         return linear(self.fc_mu, flat), linear(self.fc_var, flat)
@@ -119,12 +134,16 @@ class Encoder(nn.Module):
 
 class Decoder(nn.Module):
     def __init__(self, dims=ENCODER_DIMS, channels: int = 3,
-                 latent_dim: int = LATENT_DIM, bottleneck: int = BOTTLENECK):
+                 latent_dim: int = LATENT_DIM, bottleneck: int = BOTTLENECK,
+                 film: bool = False):
         super().__init__()
         self.input = nn.Linear(latent_dim + 1, bottleneck)
         pairs = [(dims[3], dims[2]), (dims[2], dims[1]), (dims[1], dims[0]),
                  (dims[0], dims[0]), (dims[0], channels)]
         self.convs = nn.ModuleList(nn.Conv2d(ci, co, 5, padding=2) for ci, co in pairs)
+        # FiLM of stages 0-3: weight (2C, 1) is the JAX film{i}/w transposed
+        self.film = (nn.ModuleList(nn.Linear(1, 2 * co) for _, co in pairs[:4])
+                     if film else None)
         spatial = int(round((bottleneck / dims[3]) ** 0.5))
         if spatial * spatial * dims[3] != bottleneck:
             raise ValueError(
@@ -132,31 +151,69 @@ class Decoder(nn.Module):
                 f"(C={dims[3]}) x S x S"
             )
         self.start_shape = (dims[3], spatial, spatial)
+        # (stage, dtype) -> (the weight's identity, its phase_weight)
+        self._phase_weights = {}
 
-    def forward(self, z: torch.Tensor, value: torch.Tensor,
-                apply_tanh: bool = True) -> torch.Tensor:
+    def _upconv(self, i: int, x: torch.Tensor) -> torch.Tensor:
+        """Stage ``i``'s nearest ×2 + conv5 by phase split. Its phase weight
+        in x's dtype is built once from the frozen weight, and again only when
+        that weight's storage, device or in-place version changes (so a load
+        or a move rebuilds it)."""
+        layer = self.convs[i]
+        w = layer.weight
+        ident = (w.data_ptr(), w.device, None if w.is_inference() else w._version)
+        hit = self._phase_weights.get((i, x.dtype))
+        if hit is None or hit[0] != ident:
+            with torch.no_grad():
+                hit = (ident, phase_weight(w, x.dtype))
+            self._phase_weights[(i, x.dtype)] = hit
+        return upsample2_conv5(x, w, layer.bias, hit[1])
+
+    def _film(self, i: int, x: torch.Tensor, value: torch.Tensor) -> torch.Tensor:
+        """Stage ``i``'s FiLM, as the JAX ``_film``: (gamma, beta) from the
+        value in float32 (an elementwise product, so TF32 cannot touch it),
+        cast to x's dtype, then x·(1 + gamma) + beta in that dtype."""
+        if self.film is None:
+            return x
+        layer = self.film[i]
+        gb = value.float()[:, None] * layer.weight[:, 0] + layer.bias
+        gamma, beta = gb.to(x.dtype)[..., None, None].chunk(2, dim=1)
+        return x * (1 + gamma) + beta
+
+    def forward(self, z: torch.Tensor, value: torch.Tensor, apply_tanh: bool = True,
+                fused: bool = True) -> torch.Tensor:
         """z (B, latent), value (B,) -> (B, 3, 64, 64), pre-tanh unless
-        ``apply_tanh``."""
-        zin = torch.cat([z, value.reshape(-1, 1).to(z.dtype)], dim=1)
+        ``apply_tanh``. ``fused``: the phase-split upsample+conv (the JAX
+        default), else the literal repeat-then-conv graph."""
+        value = value.reshape(-1)
+        zin = torch.cat([z, value[:, None].to(z.dtype)], dim=1)
         x = linear(self.input, zin).view(z.shape[0], *self.start_shape)
-        for layer in self.convs[:-1]:
-            x = F.relu(conv(layer, x))
-            x = F.interpolate(x, scale_factor=2, mode="nearest")
-        x = conv(self.convs[-1], x)
+        if fused:
+            x = F.relu(self._film(0, conv(self.convs[0], x), value))
+            for i in (1, 2, 3):
+                x = self._upconv(i, x)
+                x = F.relu(self._film(i, x, value))
+            x = self._upconv(len(self.convs) - 1, x)
+        else:
+            for i, layer in enumerate(self.convs[:-1]):
+                x = F.relu(self._film(i, conv(layer, x), value))
+                x = F.interpolate(x, scale_factor=2, mode="nearest")
+            x = conv(self.convs[-1], x)
         return torch.tanh(x) if apply_tanh else x
 
 
 class VAE(nn.Module):
     def __init__(self, dims=ENCODER_DIMS, channels: int = 3,
-                 latent_dim: int = LATENT_DIM, bottleneck: int = BOTTLENECK):
+                 latent_dim: int = LATENT_DIM, bottleneck: int = BOTTLENECK,
+                 film: bool = False):
         super().__init__()
         self.encoder = Encoder(dims, channels, latent_dim, bottleneck)
-        self.decoder = Decoder(dims, channels, latent_dim, bottleneck)
+        self.decoder = Decoder(dims, channels, latent_dim, bottleneck, film=film)
 
     def encode(self, x: torch.Tensor, **options):
         """(mu, logvar); ``options`` are :meth:`Encoder.forward`'s."""
         return self.encoder(x, **options)
 
-    def decode(self, z: torch.Tensor, value: torch.Tensor,
-               apply_tanh: bool = True) -> torch.Tensor:
-        return self.decoder(z, value, apply_tanh)
+    def decode(self, z: torch.Tensor, value: torch.Tensor, apply_tanh: bool = True,
+               fused: bool = True) -> torch.Tensor:
+        return self.decoder(z, value, apply_tanh, fused)

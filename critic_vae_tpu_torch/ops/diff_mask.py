@@ -7,11 +7,10 @@ Rec.601 grey projection and the per-frame max. The CUDA kernel is
 ``csrc/diff_mask.cu``; :func:`diff_mask_reference` is its plain version.
 
 The input is one NCHW decode, (2B, 3, H, W), f32 or bf16: ``pre[:B]`` is
-the decode at the critic value, ``pre[B:]`` the one at 0. By default tanh
-follows the JAX package's default tail (``use_pallas=False``): tanh of the
-input dtype, so for bf16 the float32 tanh rounded to bf16, then widened.
-``f32_tanh=True`` is the arithmetic of its opt-in Pallas kernel: widen
-first, tanh in float32. For float32 inputs the two are the same.
+the decode at the critic value, ``pre[B:]`` the one at 0. tanh is taken in
+float32 on the widened input: the arithmetic of both JAX tails as compiled,
+its Pallas kernel and its XLA tail (XLA drops the rounding of a tanh whose
+only use is a cast to float32).
 """
 
 from __future__ import annotations
@@ -25,17 +24,10 @@ from critic_vae_tpu_torch.kernels import build as kb
 REC601 = (0.2989, 0.5870, 0.1140)
 
 
-def _recon(pre: torch.Tensor, f32_tanh: bool) -> torch.Tensor:
-    """tanh of ``pre`` as float32: rounded to ``pre``'s dtype unless
-    ``f32_tanh``."""
-    t = torch.tanh(pre.float())
-    return t if f32_tanh else t.to(pre.dtype).float()
-
-
-def diff_mask_reference(pre: torch.Tensor, *, f32_tanh: bool = False):
+def diff_mask_reference(pre: torch.Tensor):
     """Plain PyTorch version: (grey (B, H, W) f32, max (B,) f32)."""
     b = pre.shape[0] // 2
-    d = torch.abs(_recon(pre[b:], f32_tanh) - _recon(pre[:b], f32_tanh))
+    d = torch.abs(torch.tanh(pre[b:].float()) - torch.tanh(pre[:b].float()))
     grey = d[:, 0] * REC601[0] + d[:, 1] * REC601[1] + d[:, 2] * REC601[2]
     return grey, torch.amax(grey, dim=(1, 2))
 
@@ -47,14 +39,14 @@ def _check(pre: torch.Tensor) -> None:
         raise TypeError(f"diff_mask: want float32 or bfloat16, got {pre.dtype}")
 
 
-def diff_mask(pre: torch.Tensor, *, f32_tanh: bool = False):
+def diff_mask(pre: torch.Tensor):
     """(grey (B, H, W) f32, max (B,) f32) of the (2B, 3, H, W) decode ``pre``.
 
     CUDA tensors launch the kernel (or raise); CPU tensors take the plain
     version."""
     _check(pre)
     if pre.device.type == "cpu":
-        return diff_mask_reference(pre, f32_tanh=f32_tanh)
+        return diff_mask_reference(pre)
     if pre.device.type != "cuda":
         raise ValueError(f"diff_mask: unsupported device {pre.device}")
     if not pre.is_contiguous():
@@ -70,7 +62,7 @@ def diff_mask(pre: torch.Tensor, *, f32_tanh: bool = False):
           else torch.cuda.device(index))
     with on:
         status = lib.cvt_diff_mask(
-            pre.data_ptr(), int(pre.dtype == torch.bfloat16), int(f32_tanh), b2 // 2, h * w,
+            pre.data_ptr(), int(pre.dtype == torch.bfloat16), b2 // 2, h * w,
             grey.data_ptr(), maxv.data_ptr(), torch._C._cuda_getCurrentRawStream(index),
         )
     kb.check(status, "diff_mask")

@@ -2,9 +2,14 @@
 
 Per frame: critic score; encode; decode the same latent twice, at the
 critic value and at 0, as one 2B batch; |tanh diff| -> Rec.601 grey ->
-per-frame max (kernel B1 on CUDA; tanh in the decode's dtype, as the JAX
-default). Then the global mean-max normalisation to
+per-frame max (kernel B1 on CUDA; tanh of the widened decode in float32, as
+the JAX package's compiled tails). Then the global mean-max normalisation to
 uint8 and the threshold compare.
+
+The bfloat16 arithmetic is the JAX package's as XLA compiles it: each op
+rounds to bf16, except a sum or a tanh whose only use is a cast to float32
+(XLA drops that rounding), which is the encoder's conv bias before its
+BatchNorm (models/vae.py::batchnorm_eval) and tanh before the difference.
 
 The front end (the critic's and the encoder's first convs over the
 3-channel frames) is ``merged`` by default, as in the JAX package: one
@@ -38,31 +43,37 @@ DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 FRONT_ENDS = ("split", "merged")
 
 
-def diff_images(vae: VAE, x: torch.Tensor, values: torch.Tensor, *,
-                use_pallas: bool | None = None, fused_pool=False,
+def _decode_pair(vae: VAE, x: torch.Tensor, values: torch.Tensor, **encode_options):
+    """The encode of ``x`` and the (2B, 3, H, W) pre-tanh double decode of
+    its mu, at ``values`` and at 0."""
+    mu, _ = vae.encode(x, **encode_options)
+    b = mu.shape[0]
+    return vae.decode(
+        torch.cat([mu, mu]),
+        torch.cat([values.reshape(b), torch.zeros(b, dtype=values.dtype, device=values.device)]),
+        apply_tanh=False,
+    )
+
+
+def diff_images(vae: VAE, x: torch.Tensor, values: torch.Tensor, *, fused_pool=False,
                 fold_bn: bool = False, pool_impl: str = "reduce_window",
                 block0_f32: bool = False, downstream_dtype: torch.dtype | None = None,
                 start_block: int = 0):
     """Batched double-decode diff of NCHW frames ``x`` (B, 3, H, W), or of
     block ``start_block-1``'s activation; the options are the encoder's.
 
-    ``use_pallas`` picks the JAX package's tail arithmetic: ``None`` or
-    ``False`` its default, tanh in the decode's dtype (bf16-rounded for a
-    bf16 decode), ``True`` its Pallas kernel's, tanh of the widened decode in
-    float32. Both run kernel B1 on CUDA.
+    Both tails of the JAX ``diff_images`` (its XLA default and its Pallas
+    kernel) compute tanh of the widened decode in float32 once compiled:
+    the XLA tail casts tanh's bf16 result to float32 for the difference, and
+    XLA drops the rounding between the two (its excess-precision rule). Here
+    kernel B1 computes that.
 
     Returns (diff (B, H, W) f32, max_value (B,) f32). The reconstructions
     are never formed: only their pre-tanh activations reach kernel B1."""
-    mu, _ = vae.encode(x, fused_pool=fused_pool, fold_bn=fold_bn, pool_impl=pool_impl,
-                       block0_f32=block0_f32, start_block=start_block,
-                       downstream_dtype=downstream_dtype)
-    b = mu.shape[0]
-    pre = vae.decode(
-        torch.cat([mu, mu]),
-        torch.cat([values.reshape(b), torch.zeros(b, dtype=values.dtype, device=values.device)]),
-        apply_tanh=False,
-    )
-    return diff_mask(pre, f32_tanh=bool(use_pallas))
+    pre = _decode_pair(vae, x, values, fused_pool=fused_pool, fold_bn=fold_bn,
+                       pool_impl=pool_impl, block0_f32=block0_f32,
+                       downstream_dtype=downstream_dtype, start_block=start_block)
+    return diff_mask(pre)
 
 
 def normalize_diffs(diffs: torch.Tensor, max_values: torch.Tensor):
@@ -133,16 +144,21 @@ def merged_front_end(vae: VAE, critic: Critic, x: torch.Tensor, cdt: torch.dtype
 
     The critic's 3×3 first conv, zero-padded to the encoder's 5×5, and the
     encoder's first conv share one conv over NCHW ``x``, in x's dtype; each
-    branch adds its bias in that dtype before the cast to ``cdt``, then runs
-    its own order: encoder BN → pool → ReLU, critic ReLU → pool. Returns
+    branch adds its bias in that dtype before the cast to ``cdt`` (the
+    encoder's sum unrounded into BN when the dtypes agree, as XLA compiles
+    it), then runs its own order: encoder BN → pool → ReLU, critic ReLU →
+    pool. Returns
     (h_enc, h_critic), the post-pool activations that the nets resume from
     at ``start_block=1``."""
     enc0, bn0, cr0 = vae.encoder.convs[0], vae.encoder.bns[0], critic.convs[0]
     conv_dt = x.dtype
     ne = enc0.out_channels
     y = F.conv2d(x, merged_conv0_weight(vae, critic).to(conv_dt), padding=enc0.padding)
-    ye = (y[:, :ne] + enc0.bias.to(conv_dt)[:, None, None]).to(cdt)
-    h_enc = F.relu(F.max_pool2d(batchnorm_eval(bn0, ye), 2))
+    if conv_dt == cdt:  # the bias sum feeds BN unrounded (models/vae.py::batchnorm_eval)
+        ye = batchnorm_eval(bn0, y[:, :ne], enc0.bias)
+    else:
+        ye = batchnorm_eval(bn0, (y[:, :ne] + enc0.bias.to(conv_dt)[:, None, None]).to(cdt))
+    h_enc = F.relu(F.max_pool2d(ye, 2))
     yc = F.relu((y[:, ne:] + cr0.bias.to(conv_dt)[:, None, None]).to(cdt))
     return h_enc, F.max_pool2d(yc, 2)
 
@@ -151,9 +167,10 @@ def merged_front_end(vae: VAE, critic: Critic, x: torch.Tensor, cdt: torch.dtype
 def episode_forward(vae: VAE, critic: Critic, frames: torch.Tensor, *,
                     compute_dtype: str = "float32", fused_pool=False, fold_bn: bool = False,
                     pool_impl: str = "reduce_window", block0_f32: bool = False,
-                    front_end: str = "auto"):
+                    front_end: str = "auto", with_recons: bool = False,
+                    recons_u8: bool = False):
     """Per-frame stage of the video pipeline over one batch (the JAX
-    ``episode_forward`` for ``mask_source="diff"``, mask only).
+    ``episode_forward`` for ``mask_source="diff"``).
 
     ``frames`` (B, H, W, 3), uint8 (normalised on the device as f32/255) or
     float in [0, 1]. ``front_end``: ``auto`` (default), ``split`` or
@@ -162,7 +179,13 @@ def episode_forward(vae: VAE, critic: Critic, frames: torch.Tensor, *,
     encoder its FUSED_POOL_SERVING, a 4-tuple goes to the encoder alone;
     ``fold_bn`` and ``pool_impl`` are the encoder's; ``block0_f32`` runs both
     first convs in float32 on the float32 frames. Returns dict(preds (B,),
-    diff (B, H, W), max_value (B,)), all float32 on ``frames``' device."""
+    diff (B, H, W), max_value (B,)), all float32 on ``frames``' device.
+
+    ``with_recons`` adds ``recon_one`` and ``recon_zero`` (B, H, W, 3): tanh
+    of the two decodes, in float32 (the decode widened first: XLA drops the
+    bf16 rounding of the JAX package's tanh before its cast to float32), as
+    uint8 by :func:`quantize_recons` with ``recons_u8``. Without it nothing
+    more is computed than for the masks."""
     front_end = resolve_front_end(front_end, fused_pool=fused_pool, fold_bn=fold_bn,
                                   block0_f32=block0_f32)
     if frames.dtype == torch.uint8:
@@ -173,12 +196,19 @@ def episode_forward(vae: VAE, critic: Critic, frames: torch.Tensor, *,
     if front_end == "merged":
         h_enc, h_cr = merged_front_end(vae, critic, x, cdt)
         preds = critic(h_cr, start_block=1)[:, 0]
-        diff, max_value = diff_images(vae, h_enc, preds.to(cdt), start_block=1)
+        pre = _decode_pair(vae, h_enc, preds.to(cdt), start_block=1)
     else:
         ddt = cdt if block0_f32 else None
         preds = critic(x, fused_pool="s2d" if fused_pool is True else fused_pool,
                        block0_f32=block0_f32, downstream_dtype=ddt)[:, 0]
-        diff, max_value = diff_images(vae, x, preds.to(cdt), fused_pool=fused_pool,
-                                      fold_bn=fold_bn, pool_impl=pool_impl,
-                                      block0_f32=block0_f32, downstream_dtype=ddt)
-    return {"preds": preds.float(), "diff": diff, "max_value": max_value}
+        pre = _decode_pair(vae, x, preds.to(cdt), fused_pool=fused_pool, fold_bn=fold_bn,
+                           pool_impl=pool_impl, block0_f32=block0_f32, downstream_dtype=ddt)
+    diff, max_value = diff_mask(pre)
+    out = {"preds": preds.float(), "diff": diff, "max_value": max_value}
+    if with_recons:
+        recon = torch.tanh(pre.float()).permute(0, 2, 3, 1)
+        if recons_u8:
+            recon = quantize_recons(recon)
+        b = preds.shape[0]
+        out["recon_one"], out["recon_zero"] = recon[:b], recon[b:]
+    return out

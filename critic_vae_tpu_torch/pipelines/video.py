@@ -1,18 +1,24 @@
 """Video / mask-evaluation pipeline (counterpart of
-critic_vae_tpu/pipelines/video.py ``episode_device_stage``, ``eval_episode``
-and ``threshold_sweep``, device-CRF path, no reconstructions).
+critic_vae_tpu/pipelines/video.py for the diff mask source).
 
 Per frame: critic score, encode, double decode, diff/grey/max (kernel B1),
-then the global mean-max normalisation to uint8, the threshold, the exact
-device CRF (kernel B2 plus the mean-field, or the ``int8``/``vmem`` builds)
-and whole-stack IoU. ``eval_episode`` keeps everything up to the masks on
-the device and scores on the host; ``threshold_sweep`` runs the device
-stage once and scores every threshold on the device.
+then the global mean-max normalisation to uint8, the threshold, the dense
+CRF and whole-stack IoU. The CRF is the exact device mean field (kernel B2,
+or the ``xla``/``int8``/``vmem`` builds) or the host C++ lattice, as
+crf/policy.py resolves it. ``eval_episode`` keeps everything up to the masks
+on the device and scores on the host; with the host CRF a worker thread
+refines each chunk's masks as they reach the host. ``threshold_sweep`` runs
+the device stage once and scores every threshold on the device (the host
+CRF refines per threshold). ``bin_diagnostics``/``write_bin_info`` write the
+reference's bin_info file, ``compose_frames`` the annotated strips of the
+GIF (Pillow, imported only there).
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import dataclasses
+from collections import defaultdict
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -21,7 +27,7 @@ import torch
 from critic_vae_tpu_torch.crf import REFERENCE_CRF_PARAMS
 from critic_vae_tpu_torch.models.critic import Critic
 from critic_vae_tpu_torch.models.vae import VAE
-from critic_vae_tpu_torch.ops.iou import iou
+from critic_vae_tpu_torch.ops.iou import iou, iou_batch
 from critic_vae_tpu_torch.ops.mask import (
     episode_forward,
     normalize_diffs_given_mean,
@@ -49,9 +55,26 @@ def _sweep_chunk_stats(masks: torch.Tensor, gt: torch.Tensor):
             torch.sum(~g & m, dim=(1, 2, 3)))
 
 
+def _refine(frames_u8, thr_masks, crf_params, backend: str, num_threads: int = 0):
+    """CRF refinement on ``backend``: ``device`` (the exact mean field of
+    crf/device.py, on the masks' device) or ``host`` (the C++ lattice on
+    numpy arrays)."""
+    if backend == "device":
+        from critic_vae_tpu_torch.crf.device import refine_masks_device
+
+        return refine_masks_device(frames_u8, thr_masks, crf_params, fetch=False)
+    if backend != "host":
+        raise ValueError(f"unknown crf backend {backend!r} (host|device)")
+    from critic_vae_tpu_torch.crf.host import refine_masks
+
+    return refine_masks(frames_u8, thr_masks, crf_params, num_threads)
+
+
 @dataclasses.dataclass
 class EpisodeResult:
     preds: np.ndarray                 # (N,)
+    recon_one: Optional[np.ndarray]   # (N, H, W, 3) float32 or uint8; None without recons
+    recon_zero: Optional[np.ndarray]
     diff_u8: np.ndarray               # (N, H, W) uint8 normalized diff maps
     thr_masks: np.ndarray             # (N, H, W) bool
     crf_masks: Optional[np.ndarray]   # (N, H, W) bool, or None without CRF
@@ -60,53 +83,72 @@ class EpisodeResult:
 
 
 def episode_device_stage(vae: VAE, critic: Critic, frames_u8: torch.Tensor,
-                         batch_size: int = 512, *, compute_dtype: str = "float32"):
+                         batch_size: int = 512, *, compute_dtype: str = "float32",
+                         with_recons: bool = False, recons_u8: bool = False):
     """Run :func:`episode_forward` over device-resident uint8 frames (N, H,
     W, 3) in chunks of ``batch_size``, the last padded by repeating its last
     frame, so every chunk has one shape.
 
-    Returns (preds (N,), max_value (N,), diff_chunks, valids): the trimmed
-    per-frame outputs, the per-chunk diff maps as they came (still padded)
-    and each chunk's count of valid frames — all on the device."""
+    Returns (preds (N,), max_value (N,), diff_chunks, valids, recons): the
+    trimmed per-frame outputs, the per-chunk diff maps as they came (still
+    padded), each chunk's count of valid frames, all on the device, and with
+    ``with_recons`` the trimmed (recon_one, recon_zero) on the host (else
+    None)."""
     n = frames_u8.shape[0]
     preds, maxes, diff_chunks, valids = [], [], [], []
+    recons = ([], []) if with_recons else None
     for i in range(0, n, batch_size):
         chunk = frames_u8[i : i + batch_size]
         valid = chunk.shape[0]
         if valid < batch_size:
             pad = chunk[-1:].expand(batch_size - valid, -1, -1, -1)
             chunk = torch.cat([chunk, pad])
-        out = episode_forward(vae, critic, chunk, compute_dtype=compute_dtype)
+        out = episode_forward(vae, critic, chunk, compute_dtype=compute_dtype,
+                              with_recons=with_recons, recons_u8=recons_u8)
         preds.append(out["preds"][:valid])
         maxes.append(out["max_value"][:valid])
         diff_chunks.append(out["diff"])
         valids.append(valid)
-    return torch.cat(preds), torch.cat(maxes), diff_chunks, valids
+        if with_recons:
+            for part, key in zip(recons, ("recon_one", "recon_zero")):
+                part.append(out[key][:valid].cpu().numpy())
+    if with_recons:
+        recons = tuple(np.concatenate(part) for part in recons)
+    return torch.cat(preds), torch.cat(maxes), diff_chunks, valids, recons
 
 
 def eval_episode(vae: VAE, critic: Critic, frames_u8: np.ndarray,
                  gt: Optional[np.ndarray], *, device: torch.device,
                  threshold: int = 50, crf_params: Tuple = REFERENCE_CRF_PARAMS,
-                 run_crf: bool = True, batch_size: int = 512,
-                 compute_dtype: str = "float32", crf_backend: str = "auto") -> EpisodeResult:
+                 run_crf: bool = True, batch_size: int = 512, num_threads: int = 0,
+                 compute_dtype: str = "float32", crf_backend: str = "auto",
+                 recons_u8: bool = False, with_recons: bool = False) -> EpisodeResult:
     """The mask pipeline over an episode (reference: eval_textured_frames).
 
     Args:
       frames_u8: (N, H, W, 3) uint8 raw frames; they go to ``device`` once
         and feed both the nets (normalised there) and the CRF (raw).
       gt: (N, H, W) bool ground truth, or None to skip IoU scoring.
-      crf_backend: "auto" or "device" (crf/policy.py). The device CRF's
-        build is ``auto`` unless ``CRITIC_VAE_TPU_CRF_BUILD`` names another
-        (crf/device.py::_resolve_build), as in the JAX package.
+      crf_backend: "auto", "device" or "host" (crf/policy.py). The device
+        CRF's build is ``auto`` unless ``CRITIC_VAE_TPU_CRF_BUILD`` names
+        another (crf/device.py::_resolve_build), as in the JAX package. The
+        host CRF refines each chunk on one worker thread as its masks reach
+        the host, ``num_threads`` OpenMP threads (0: OpenMP's default).
+      with_recons: also return the reconstructions (the panels' input), as
+        uint8 with ``recons_u8``. Off by default, so the mask path computes
+        nothing more (the JAX package's default is on; its ``video`` and
+        this port's pass it explicitly, on exactly when a GIF is drawn).
     """
+    backend = None
     if run_crf:
         from critic_vae_tpu_torch.crf.policy import resolve_crf_backend
 
-        resolve_crf_backend(crf_backend, frames_u8.shape[1], frames_u8.shape[2],
-                            device=device)
+        backend = resolve_crf_backend(crf_backend, frames_u8.shape[1], frames_u8.shape[2],
+                                      device=device)
     frames = torch.from_numpy(np.ascontiguousarray(frames_u8, dtype=np.uint8)).to(device)
-    preds, max_value, diff_chunks, valids = episode_device_stage(
+    preds, max_value, diff_chunks, valids, recons = episode_device_stage(
         vae, critic, frames, batch_size, compute_dtype=compute_dtype,
+        with_recons=with_recons, recons_u8=recons_u8,
     )
     # global two-pass normalisation: the mean of the trimmed per-frame maxima
     mean_max = torch.mean(max_value)
@@ -116,20 +158,30 @@ def eval_episode(vae: VAE, critic: Critic, frames_u8: np.ndarray,
         u8 = normalize_diffs_given_mean(diff, mean_max)[:valid]
         u8_parts.append(u8)
         thr_parts.append(threshold_masks(u8, t)[0])
-    diff_u8 = torch.cat(u8_parts)
-    thr = torch.cat(thr_parts)
 
     crf = None
-    if run_crf:
-        from critic_vae_tpu_torch.crf.device import refine_masks_device
-
-        crf = refine_masks_device(frames, thr, crf_params, fetch=False)
-
-    thr_masks = thr.cpu().numpy()
-    crf_masks = crf.cpu().numpy() if crf is not None else None
+    if backend == "device":
+        crf = _refine(frames, torch.cat(thr_parts), crf_params, "device")
+    diff_u8 = torch.cat(u8_parts).cpu().numpy()
+    if backend == "host":
+        # each chunk's masks to the host, refined there while the next come
+        with concurrent.futures.ThreadPoolExecutor(max_workers=1) as pool:
+            futures, host_thr, off = [], [], 0
+            for thr_c in thr_parts:
+                host_thr.append(thr_c.cpu().numpy())
+                futures.append(pool.submit(_refine, frames_u8[off : off + len(host_thr[-1])],
+                                           host_thr[-1], crf_params, "host", num_threads))
+                off += len(host_thr[-1])
+            thr_masks = np.concatenate(host_thr)
+            crf_masks = np.concatenate([f.result() for f in futures])
+    else:
+        thr_masks = torch.cat(thr_parts).cpu().numpy()
+        crf_masks = crf.cpu().numpy() if crf is not None else None
     return EpisodeResult(
         preds=preds.cpu().numpy(),
-        diff_u8=diff_u8.cpu().numpy(),
+        recon_one=recons[0] if recons else None,
+        recon_zero=recons[1] if recons else None,
+        diff_u8=diff_u8,
         thr_masks=thr_masks,
         crf_masks=crf_masks,
         thr_iou=iou(gt, thr_masks) if gt is not None else None,
@@ -140,27 +192,28 @@ def eval_episode(vae: VAE, critic: Critic, frames_u8: np.ndarray,
 def threshold_sweep(vae: VAE, critic: Critic, frames_u8: np.ndarray, gt: np.ndarray,
                     thresholds: Sequence[int] = DEFAULT_SWEEP, *, device: torch.device,
                     crf_params: Tuple = REFERENCE_CRF_PARAMS, run_crf: bool = True,
-                    batch_size: int = 512, compute_dtype: str = "float32",
-                    crf_backend: str = "auto") -> List[Dict]:
+                    batch_size: int = 512, num_threads: int = 0,
+                    compute_dtype: str = "float32", crf_backend: str = "auto") -> List[Dict]:
     """Threshold sweep with the device stage run once (reference: -video
     -thresh, which re-runs the whole pipeline per threshold).
 
     All T threshold masks and their whole-stack IoUs come from one
     vectorised pass on the device; the device CRF refines the T mask sets
     together (crf/device.py::refine_masks_multi_device) and its IoUs are
-    counted on the device too. Returns one dict per threshold:
-    ``threshold``, ``thr_iou`` (3 digits) and ``crf_iou`` (3 digits, None
-    without ``run_crf``). Arguments as in :func:`eval_episode`; ``gt`` is
-    required.
+    counted on the device too, while the host CRF refines them one
+    threshold at a time. Returns one dict per threshold: ``threshold``,
+    ``thr_iou`` (3 digits) and ``crf_iou`` (3 digits, None without
+    ``run_crf``). Arguments as in :func:`eval_episode`; ``gt`` is required.
     """
+    backend = None
     if run_crf:
         from critic_vae_tpu_torch.crf.policy import resolve_crf_backend
 
-        resolve_crf_backend(crf_backend, frames_u8.shape[1], frames_u8.shape[2],
-                            device=device)
+        backend = resolve_crf_backend(crf_backend, frames_u8.shape[1], frames_u8.shape[2],
+                                      device=device)
     frames = torch.from_numpy(np.ascontiguousarray(frames_u8, dtype=np.uint8)).to(device)
     gt_dev = torch.from_numpy(np.ascontiguousarray(gt, dtype=bool)).to(device)
-    _, max_value, diff_chunks, valids = episode_device_stage(
+    _, max_value, diff_chunks, valids, _ = episode_device_stage(
         vae, critic, frames, batch_size, compute_dtype=compute_dtype,
     )
     mean_max = torch.mean(max_value)
@@ -177,12 +230,16 @@ def threshold_sweep(vae: VAE, critic: Critic, frames_u8: np.ndarray, gt: np.ndar
     thr_ious = _ious(counts)
 
     crf_ious = [None] * len(t)
-    if run_crf:
+    if backend == "device":
         from critic_vae_tpu_torch.crf.device import refine_masks_multi_device
 
         refined = refine_masks_multi_device(frames, torch.cat(mask_parts, dim=1), crf_params,
                                             fetch=False)
         crf_ious = [round(v, 3) for v in _ious(torch.stack(_sweep_chunk_stats(refined, gt_dev)))]
+    elif backend == "host":
+        masks = torch.cat(mask_parts, dim=1).cpu().numpy()
+        crf_ious = [iou(gt, _refine(frames_u8, m, crf_params, "host", num_threads))
+                    for m in masks]
     return [{"threshold": int(th), "thr_iou": round(thr_ious[i], 3), "crf_iou": crf_ious[i]}
             for i, th in enumerate(thresholds)]
 
@@ -192,3 +249,57 @@ def _ious(counts: torch.Tensor) -> List[float]:
     Python-int counts, float64 division, 0/0 -> 1."""
     tp, fn, fp = counts.cpu().tolist()
     return [1.0 if a + b + c == 0 else a / (a + b + c) for a, b, c in zip(tp, fn, fp)]
+
+
+def bin_diagnostics(preds: np.ndarray, gt: np.ndarray, thr_masks: np.ndarray) -> Dict:
+    """Per-critic-bin IoU, frame and ground-truth-pixel diagnostics
+    (reference: save_bin_info, vae_utility.py:112-145). Bins are round(pred,
+    1) in first-seen order, as the reference's defaultdicts."""
+    per_frame_iou = iou_batch(thr_masks, gt)  # the reference's argument order: (mask, gt)
+    bin_ious: Dict[float, List[float]] = defaultdict(list)
+    bin_frames: Dict[float, int] = defaultdict(int)
+    bin_gts: Dict[float, int] = defaultdict(int)
+    for i, pred in enumerate(preds):
+        b = round(float(pred), 1)
+        bin_ious[b].append(round(float(per_frame_iou[i]), 3))
+        bin_frames[b] += 1
+        bin_gts[b] += int(np.sum(gt[i]))
+    return {"ious": dict(bin_ious), "frames": dict(bin_frames), "gts": dict(bin_gts)}
+
+
+def write_bin_info(diag: Dict, out_path: str, total_frames: int) -> None:
+    """Write the bin_info text file in the reference's format, with the JAX
+    package's two fixes: frame shares divide by the real frame count (the
+    reference divides by 1200), and a bin of one frame reports std 0.0."""
+    import statistics
+
+    total_gt = sum(diag["gts"].values())
+    with open(out_path, "w") as f:
+        f.write("ground truth pixels sorted by bin:\n")
+        for b, count in diag["gts"].items():
+            pct = round(count / total_gt, 2) * 100 if total_gt else 0.0
+            f.write(f"bin: {b}, pixels = {count} = {pct}%\n")
+        f.write("\nframes separated by bin:\n")
+        for b, count in diag["frames"].items():
+            f.write(f"bin: {b}, frames = {count} = {round(count / total_frames, 2) * 100}%\n")
+        f.write("\niou-mean and std:\n")
+        for b, ious in diag["ious"].items():
+            mean = round(statistics.mean(ious), 2)
+            std = round(statistics.stdev(ious), 2) if len(ious) > 1 else 0.0
+            f.write(f"bin: {b}, iou_mean={mean}, iou_std={std}\n")
+
+
+def compose_frames(frames_u8: np.ndarray, result: EpisodeResult, gt: Optional[np.ndarray],
+                   threshold: int) -> List:
+    """The annotated strips (Pillow, on the host): 7 panels with ground
+    truth, 6 without; ``result`` must hold the reconstructions."""
+    from critic_vae_tpu_torch.viz.panels import final_frame
+
+    crf = result.crf_masks if result.crf_masks is not None else np.zeros_like(result.thr_masks)
+    return [
+        final_frame(frames_u8[i], result.recon_one[i], result.recon_zero[i], result.diff_u8[i],
+                    result.preds[i], gt=gt[i] if gt is not None else None,
+                    thr_mask=result.thr_masks[i], crf_mask=crf[i], thr_iou=result.thr_iou,
+                    crf_iou=result.crf_iou, threshold=threshold)
+        for i in range(len(frames_u8))
+    ]

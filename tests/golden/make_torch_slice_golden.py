@@ -18,8 +18,15 @@ of the T = 13 mask sets refined together by ``refine_masks_multi_device``
 ``int8`` and ``vmem`` builds (Pallas kernels in interpret mode) refining the
 threshold-50 masks of the first 4 frames.
 
+The bf16 file holds the same episode, and a second one (frames and VAE of
+seed 1), through the JAX ``eval_episode`` in bfloat16
+(``compute_dtype="bfloat16"``, the device CRF at its CPU default, the
+float32 ``xla`` build): per seed, preds, uint8 maps, threshold and CRF
+masks and both IoUs, which chip_smoke.py holds the card's bf16 runs
+against.
+
 Run from the repo root:
-  JAX_PLATFORMS=cpu python tests/golden/make_torch_slice_golden.py [slice|sweep|all]
+  JAX_PLATFORMS=cpu python tests/golden/make_torch_slice_golden.py [slice|sweep|bf16|all]
 """
 
 from __future__ import annotations
@@ -45,6 +52,7 @@ from critic_vae_tpu.crf.device import (  # noqa: E402
 from critic_vae_tpu.data.synthetic import generate_frames  # noqa: E402
 from critic_vae_tpu.models.critic import load_critic  # noqa: E402
 from critic_vae_tpu.ops.iou import iou  # noqa: E402
+from critic_vae_tpu.pipelines.video import eval_episode  # noqa: E402
 from critic_vae_tpu.ops.mask import (  # noqa: E402
     episode_forward,
     normalize_diffs_given_mean,
@@ -57,7 +65,9 @@ SEED = 0
 THRESHOLD = 50
 OUT = os.path.join(ROOT, "tests", "golden", "torch_slice_golden.npz")
 SWEEP_OUT = os.path.join(ROOT, "tests", "golden", "torch_sweep_golden.npz")
+BF16_OUT = os.path.join(ROOT, "tests", "golden", "torch_slice_golden_bf16.npz")
 SWEEP = tuple(range(0, 130, 10))
+BF16_SEEDS = (0, 1)  # each the seed of the frames and of numpy_vae_params
 BUILD_FRAMES = 4  # frames refined by the int8 and vmem builds
 
 
@@ -102,6 +112,31 @@ def sweep() -> None:
           f"crf_iou={crf_iou}")
 
 
+def bf16() -> None:
+    critic = load_critic(os.path.join(ROOT, "saved-networks", "critic-synthetic.npz"))
+    runs = []
+    for seed in BF16_SEEDS:
+        frames, gt = generate_frames(NUM_FRAMES, seed=seed)
+        vae_params, bn_state = numpy_vae_params(seed)
+        runs.append(eval_episode(vae_params, bn_state, critic, frames, gt, threshold=THRESHOLD,
+                                 crf_backend="device", with_recons=False,
+                                 compute_dtype="bfloat16"))
+    np.savez_compressed(
+        BF16_OUT,
+        preds=np.stack([np.asarray(r.preds, np.float32) for r in runs]),
+        diff_u8=np.stack([np.asarray(r.diff_u8, np.uint8) for r in runs]),
+        thr_bits=np.stack([np.packbits(r.thr_masks, axis=-1) for r in runs]),
+        crf_bits=np.stack([np.packbits(r.crf_masks, axis=-1) for r in runs]),
+        thr_iou=np.asarray([r.thr_iou for r in runs], np.float64),
+        crf_iou=np.asarray([r.crf_iou for r in runs], np.float64),
+        num_frames=np.int64(NUM_FRAMES),
+        seeds=np.asarray(BF16_SEEDS, np.int64),
+        threshold=np.int64(THRESHOLD),
+    )
+    print(f"wrote {BF16_OUT} ({os.path.getsize(BF16_OUT)} bytes): seeds {BF16_SEEDS} thr_iou="
+          f"{[r.thr_iou for r in runs]} crf_iou={[r.crf_iou for r in runs]}")
+
+
 def main() -> None:
     frames, gt, preds, max_value, mean_max, diff_u8 = device_stage()
     thr = np.asarray(threshold_masks(diff_u8, jnp.asarray([THRESHOLD]))[0])
@@ -127,9 +162,11 @@ def main() -> None:
 
 if __name__ == "__main__":
     what = sys.argv[1] if len(sys.argv) > 1 else "all"
-    if what not in ("slice", "sweep", "all"):
-        raise SystemExit(f"usage: {sys.argv[0]} [slice|sweep|all]")
+    if what not in ("slice", "sweep", "bf16", "all"):
+        raise SystemExit(f"usage: {sys.argv[0]} [slice|sweep|bf16|all]")
     if what in ("slice", "all"):
         main()
     if what in ("sweep", "all"):
         sweep()
+    if what in ("bf16", "all"):
+        bf16()

@@ -16,10 +16,7 @@ from critic_vae_tpu_torch.crf import device as crf_device
 from critic_vae_tpu_torch.crf.device import (
     BUILD_ENV,
     MEM_ENV,
-    _mask_probs,
-    _mean_field_iterate_multi,
     _resolve_build,
-    _spatial_taps,
     refine_masks_device,
 )
 from critic_vae_tpu_torch.crf.fused_build import build_bilateral, build_bilateral_reference
@@ -122,17 +119,16 @@ def test_refine_validates_inputs(episode):
 
 @pytest.mark.parametrize("build", ["xla", "int8", "vmem", "pallas"])
 def test_unported_builds_raise(build, monkeypatch):
-    """Only the Gram-form ``xla`` build is unported; ``pallas`` is B2's
-    explicit name, the same as ``auto``."""
+    """Every build of the JAX package is ported, the Gram-form ``xla`` too:
+    each named build resolves to itself, ``auto`` to B2 on CUDA and to
+    ``xla`` on the CPU, and only an unknown name raises."""
     monkeypatch.delenv(BUILD_ENV, raising=False)
-    if build == "xla":
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            _resolve_build(build, 64, 64)
-    else:
-        assert _resolve_build(build, 64, 64) == build
-    assert _resolve_build("auto", 64, 64) == "pallas"
+    cpu, cuda = torch.device("cpu"), torch.device("cuda")
+    assert _resolve_build(build, 64, 64, cpu) == _resolve_build(build, 64, 64, cuda) == build
+    assert _resolve_build("auto", 64, 64, cuda) == "pallas"
+    assert _resolve_build("auto", 64, 64, cpu) == "xla" == jax_resolve_build("auto", 64, 64)
     with pytest.raises(ValueError):
-        _resolve_build("lattice", 64, 64)
+        _resolve_build("lattice", 64, 64, cpu)
 
 
 def test_mem_env_caps_the_chunk_without_changing_masks(monkeypatch):
@@ -159,29 +155,25 @@ def test_mem_env_caps_the_chunk_without_changing_masks(monkeypatch):
 
 
 def test_ragged_sizes_take_b2_where_jax_does_not(monkeypatch):
-    """ROADMAP C.3, pinned until the ``xla`` build is ported (A.7): at H*W %
-    128 != 0 the JAX package raises for ``pallas`` and runs ``xla`` for
-    ``auto``; the port accepts ``pallas``, and ``auto`` runs B2 (its plain
-    version on the CPU) with the mean field."""
+    """ROADMAP C.3, repaired: at H*W % 128 != 0 the port resolves as the JAX
+    package does. ``pallas`` raises in both, and ``auto`` runs the float32
+    ``xla`` build, on the CPU and on CUDA alike; its masks are the explicit
+    ``xla`` build's and agree with the JAX package's ``auto``."""
     monkeypatch.delenv(BUILD_ENV, raising=False)
     side = 20
-    with pytest.raises(ValueError, match="divisible by 128"):
-        jax_resolve_build("pallas", side, side)
-    assert jax_resolve_build("auto", side, side) == "xla"
-    assert _resolve_build("pallas", side, side) == _resolve_build("auto", side, side) == "pallas"
+    for resolve in (jax_resolve_build, lambda b, h, w: _resolve_build(b, h, w, "cuda")):
+        with pytest.raises(ValueError, match="divisible by 128"):
+            resolve("pallas", side, side)
+        assert resolve("auto", side, side) == "xla"
+    assert _resolve_build("auto", side, side, "cpu") == "xla"
     frames, gt = generate_frames(2, size=side, seed=3)
     noisy = gt ^ (np.random.default_rng(1).random(gt.shape) < 0.08)
     got = refine_masks_device(frames, noisy, build="auto", device="cpu")
     np.testing.assert_array_equal(
-        refine_masks_device(frames, noisy, build="pallas", device="cpu"), got)
-    w1, alpha, beta, w2, gamma, iters = REFERENCE_CRF_PARAMS
-    n = side * side
-    mb = build_bilateral_reference(torch.from_numpy(frames.reshape(2, n, 3)), w1, alpha, beta,
-                                   h=side, w=side, out_dtype="float32")
-    probs = _mask_probs(torch.from_numpy(noisy.reshape(2, n, 1).astype(np.uint8)))
-    taps = torch.from_numpy(_spatial_taps(gamma, side, side))
-    want = _mean_field_iterate_multi(mb, probs, taps, w2, side, side, iters)[:, 0]
-    np.testing.assert_array_equal(got.reshape(2, n), want.bool().numpy())
+        refine_masks_device(frames, noisy, build="xla", compute_dtype="float32",
+                            device="cpu"), got)
+    want = jax_refine(frames, noisy, REFERENCE_CRF_PARAMS)
+    assert np.mean(got == want) >= 0.999
 
 
 def test_crf_backend_policy():
@@ -189,12 +181,9 @@ def test_crf_backend_policy():
     assert resolve_crf_backend("auto", 64, 64, device=cuda) == "device"
     assert resolve_crf_backend("device", 64, 64, device=cpu) == "device"
     assert resolve_crf_backend("device", 256, 256, device=cuda) == "device"
-    with pytest.raises(NotImplementedError):
-        resolve_crf_backend("auto", 64, 64, device=cpu)
-    with pytest.raises(NotImplementedError):
-        resolve_crf_backend("auto", 256, 256, device=cuda)
-    with pytest.raises(NotImplementedError):
-        resolve_crf_backend("host", 64, 64, device=cuda)
+    assert resolve_crf_backend("auto", 64, 64, device=cpu) == "host"
+    assert resolve_crf_backend("auto", 256, 256, device=cuda) == "host"
+    assert resolve_crf_backend("host", 64, 64, device=cuda) == "host"
     with pytest.raises(ValueError):
         resolve_crf_backend("device", 512, 512, device=cuda)
     with pytest.raises(ValueError):

@@ -199,30 +199,32 @@ def test_refine_multi_device_result_chunks_and_shapes(episode):
 ])
 def test_build_validation(build, h, w, match):
     with pytest.raises(ValueError, match=match):
-        _resolve_build(build, h, w)
+        _resolve_build(build, h, w, "cuda")
 
 
 def test_build_limits_are_the_jax_packages():
     assert MAX_RESIDENT_N == 4096
-    assert _resolve_build("vmem", 64, 64) == "vmem"
-    assert _resolve_build("int8", 128, 128) == "int8"
-    assert _resolve_build("pallas", 10, 10) == "pallas"  # B2 takes any N
+    assert _resolve_build("vmem", 64, 64, "cuda") == "vmem"
+    assert _resolve_build("int8", 128, 128, "cuda") == "int8"
+    with pytest.raises(ValueError, match="divisible by 128"):  # as the JAX package's
+        _resolve_build("pallas", 10, 10, "cuda")
 
 
 def test_build_env_override(episode, monkeypatch):
     frames, _, noisy = episode
     explicit = refine_masks_device(frames[:2], noisy[:2], build="int8", device="cpu")
     monkeypatch.setenv(BUILD_ENV, "int8")
-    assert _resolve_build("auto", H, W) == "int8"
+    assert _resolve_build("auto", H, W, "cpu") == "int8"
     kb.reset_launches()
     via_env = refine_masks_device(frames[:2], noisy[:2], device="cpu")
     np.testing.assert_array_equal(via_env, explicit)
     assert all(kb.LAUNCHES[k] == 0 for k in NEW_KERNELS)
     monkeypatch.setenv(BUILD_ENV, "vmem")
-    assert _resolve_build("pallas", H, W) == "vmem"
+    assert _resolve_build("pallas", H, W, "cuda") == "vmem"
     monkeypatch.setenv(BUILD_ENV, "xla")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        refine_masks_device(frames[:2], noisy[:2], device="cpu")
+    np.testing.assert_array_equal(
+        refine_masks_device(frames[:2], noisy[:2], device="cpu", build="pallas"),
+        refine_masks_device(frames[:2], noisy[:2], device="cpu", build="xla"))
 
 
 def test_new_kernels_never_launch_on_cpu(episode):

@@ -1,6 +1,7 @@
 """The port's mask stage (critic_vae_tpu_torch.ops) against the JAX package:
 kernel B1's plain version, the uint8 semantics and ``episode_forward``."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -55,7 +56,6 @@ def test_diff_mask_wrapper_checks_and_counts_nothing_on_cpu():
     kb.reset_launches()
     diff_mask(pre)
     diff_mask(pre.bfloat16())
-    diff_mask(pre.bfloat16(), f32_tanh=True)
     assert kb.LAUNCHES == {"diff_mask": 0, "bilateral_build": 0, "kernel_i8_build": 0,
                            "matvec_i8": 0, "mean_field_resident": 0, "caps_probe": 0,
                            "front_end_probe": 0}
@@ -67,28 +67,38 @@ def test_diff_mask_wrapper_checks_and_counts_nothing_on_cpu():
         diff_mask(pre.double())
     with pytest.raises(ValueError):
         diff_mask(pre.to("meta"))  # neither CPU nor CUDA: no plain fallback
-    # bf16: tanh rounded to bf16 by default, the widened tanh with f32_tanh
+    # bf16: tanh of the widened decode in float32, never rounded back to bf16
     pre16 = pre.bfloat16()
     g1, m1 = diff_mask(pre16)
-    r = torch.tanh(pre16.float()).bfloat16().float()
+    r = torch.tanh(pre16.float())
     d = (r[2:] - r[:2]).abs()
     g2 = d[:, 0] * 0.2989 + d[:, 1] * 0.5870 + d[:, 2] * 0.1140
     assert torch.equal(g1, g2) and torch.equal(m1, g2.amax(dim=(1, 2)))
-    g3, m3 = diff_mask(pre16, f32_tanh=True)
-    g4, m4 = diff_mask_reference(pre16.float())
-    assert torch.equal(g3, g4) and torch.equal(m3, m4)
-    assert not torch.equal(g1, g3)
+    g3, m3 = diff_mask_reference(pre16.float())
+    assert torch.equal(g1, g3) and torch.equal(m1, m3)
+
+
+def _f32_ulps(x, y):
+    """Distance in float32 ulps between finite float32 arrays of one sign."""
+    return np.abs(x.view(np.int32).astype(np.int64) - y.view(np.int32).astype(np.int64))
 
 
 def test_bf16_tanh_rounding_matches_jax_on_every_bf16():
-    """The plain version's bf16 tanh, torch's float32 tanh rounded to bf16,
-    is XLA's bf16 tanh on all 65,536 bf16 bit patterns (NaN where it is)."""
+    """B1's tanh of a bf16 decode, torch's float32 tanh of the widened value,
+    is the JAX tail as XLA compiles it on all 65,536 bf16 bit patterns: XLA
+    drops the bf16 rounding of a tanh whose only use is a cast to float32
+    (bitwise its float32 tanh of the widened value), and the two float32
+    tanh implementations, torch's and XLA:CPU's, agree within 4 ulps, NaN
+    where NaN."""
     x = torch.arange(-2**15, 2**15, dtype=torch.int32).to(torch.int16).view(torch.bfloat16)
-    got = torch.tanh(x.float()).bfloat16().float().numpy()
-    want = np.asarray(jnp.tanh(jnp.asarray(x.float().numpy()).astype(jnp.bfloat16))
-                      .astype(jnp.float32))
+    got = torch.tanh(x.float()).numpy()
+    xb = jnp.asarray(x.float().numpy()).astype(jnp.bfloat16)
+    want = np.asarray(jax.jit(lambda v: jnp.tanh(v).astype(jnp.float32))(xb))
+    widened = np.asarray(jax.jit(jnp.tanh)(xb.astype(jnp.float32)))
+    assert np.array_equal(want, widened, equal_nan=True)
     assert np.array_equal(np.isnan(got), np.isnan(want))
-    assert np.array_equal(got[~np.isnan(got)], want[~np.isnan(want)])
+    ok = ~np.isnan(got)
+    assert _f32_ulps(got[ok], want[ok]).max() <= 4
 
 
 def _u8_and_thr50(grey, maxv):
@@ -97,27 +107,30 @@ def _u8_and_thr50(grey, maxv):
     return u8.astype(int), u8 > 50
 
 
+def _jit_xla_tail(one, zero):
+    """The JAX default tail as XLA compiles it: jnp.tanh of the bf16 decodes,
+    cast to float32, then ``_xla_tail``."""
+    return jax.jit(lambda a, b: _xla_tail(jnp.tanh(a).astype(jnp.float32),
+                                          jnp.tanh(b).astype(jnp.float32)))(one, zero)
+
+
 @pytest.mark.parametrize("use_pallas", [False, True], ids=["default_tail", "pallas_tail"])
 @pytest.mark.parametrize("s", [0.02, 0.1, 0.5])
 def test_bf16_tail_matches_jax(s, use_pallas):
-    """The port's bf16 tail against the JAX package's on the same bf16
-    pre-activations, pre_zero = pre_one + s·N(0, 1): the default tail against
-    jnp.tanh of the bf16 arrays, widened, then the XLA tail; ``use_pallas``
-    against fused_diff_mask (interpret mode)."""
+    """The port's bf16 tail against each of the JAX package's on the same
+    bf16 pre-activations, pre_zero = pre_one + s·N(0, 1): the default tail
+    jitted (XLA drops its tanh's bf16 rounding), and fused_diff_mask
+    (``use_pallas``, interpret mode)."""
     rng = np.random.default_rng(int(s * 100))
     one = rng.normal(size=(8, 64, 64, 3)).astype(np.float32)
     zero = (one + s * rng.normal(size=one.shape)).astype(np.float32)
     j1, j0 = (jnp.asarray(x).astype(jnp.bfloat16) for x in (one, zero))
-    if use_pallas:
-        want_g, want_m = fused_diff_mask(j1, j0)
-    else:
-        want_g, want_m = _xla_tail(jnp.tanh(j1).astype(jnp.float32),
-                                   jnp.tanh(j0).astype(jnp.float32))
+    want_g, want_m = fused_diff_mask(j1, j0) if use_pallas else _jit_xla_tail(j1, j0)
     want_g, want_m = np.asarray(want_g), np.asarray(want_m)
     pre = _decode(one, zero).bfloat16()
     assert np.array_equal(pre[:8].float().numpy(),
                           np.asarray(j1.astype(jnp.float32)).transpose(0, 3, 1, 2))
-    grey, maxv = diff_mask(pre, f32_tanh=use_pallas)
+    grey, maxv = diff_mask(pre)
     grey, maxv = grey.numpy(), maxv.numpy()
     assert np.abs(grey - want_g).max() <= 1e-6
     assert np.abs(maxv - want_m).max() <= 1e-6
@@ -126,21 +139,33 @@ def test_bf16_tail_matches_jax(s, use_pallas):
     assert np.mean(thr_t == thr_j) >= 0.998
 
 
-def test_diff_images_use_pallas_picks_the_tail():
-    """``use_pallas`` None and False take the default tail, True the Pallas
-    one, on the port's own bf16 decode, as the JAX ``diff_images`` does."""
+def test_diff_images_use_pallas_picks_the_tail(monkeypatch):
+    """``diff_images`` runs B1 once on the port's own bf16 decode, in its one
+    arithmetic (tanh of the widened decode), which both JAX tails compute
+    once jitted; so it takes no ``use_pallas``
+    (tests/test_torch_bf16_parity.py holds the maps against JAX's)."""
     params, state = weights.numpy_vae_params(3, dims=(4, 8, 8, 16), bottleneck=256)
     vae = weights.vae_from_params(params, state)
     x = torch.from_numpy(np.random.default_rng(0).random((2, 3, 64, 64))).bfloat16()
     values = torch.tensor([0.9, 0.1], dtype=torch.bfloat16)
+    calls = []
+
+    def spy(pre):
+        calls.append(pre)
+        return diff_mask_reference(pre)
+
+    monkeypatch.setattr(tmask, "diff_mask", spy)
     with torch.inference_mode():
+        grey, maxv = tmask.diff_images(vae, x, values)
+        with pytest.raises(TypeError):
+            tmask.diff_images(vae, x, values, use_pallas=True)
         mu, _ = vae.encode(x)
         pre = vae.decode(torch.cat([mu, mu]), torch.cat([values, torch.zeros(2).bfloat16()]),
                          apply_tanh=False)
-        for use_pallas in (None, False, True):
-            got = tmask.diff_images(vae, x, values, use_pallas=use_pallas)
-            want = diff_mask_reference(pre, f32_tanh=bool(use_pallas))
-            assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert len(calls) == 1 and calls[0].shape == (4, 3, 64, 64)
+    assert calls[0].dtype == torch.bfloat16 and torch.equal(calls[0], pre)
+    want_g, want_m = diff_mask_reference(pre)
+    assert torch.equal(grey, want_g) and torch.equal(maxv, want_m)
 
 
 @pytest.mark.parametrize("mean_max", [0.0, 0.37, 1e-30, 2.5])

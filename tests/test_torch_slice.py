@@ -13,6 +13,7 @@ import pytest
 import torch
 
 from critic_vae_tpu.pipelines.video import eval_episode as jax_eval_episode
+from critic_vae_tpu_torch.crf.device import BUILD_ENV
 from critic_vae_tpu_torch.data.synthetic import generate_episode, generate_frames
 from critic_vae_tpu_torch.device import resolve_device
 from critic_vae_tpu_torch.io import weights
@@ -45,9 +46,11 @@ def test_eval_episode_matches_jax():
     assert abs(got.crf_iou - want.crf_iou) <= 1e-3
 
 
-def test_eval_episode_matches_golden_full_width():
+def test_eval_episode_matches_golden_full_width(monkeypatch):
     """Full-width critic and VAE, 16 frames, f32: the port on the CPU
-    against the JAX package's numbers (Pallas CRF build, interpret mode)."""
+    against the JAX package's numbers (Pallas CRF build, interpret mode),
+    the port's CRF on B2 too (its plain version)."""
+    monkeypatch.setenv(BUILD_ENV, "pallas")
     gold = np.load(GOLDEN)
     frames, gt = generate_frames(int(gold["num_frames"]), seed=int(gold["seed"]))
     vae = weights.vae_from_params(*weights.numpy_vae_params(int(gold["seed"])))
@@ -70,8 +73,8 @@ def test_eval_episode_without_crf_or_gt():
     res = eval_episode(vae, _critic(), frames, None, device=CPU, run_crf=False)
     assert res.crf_masks is None and res.thr_iou is None and res.crf_iou is None
     assert res.thr_masks.shape == (3, 64, 64) and res.diff_u8.dtype == np.uint8
-    with pytest.raises(NotImplementedError):  # auto on the CPU is the unported host CRF
-        eval_episode(vae, _critic(), frames, gt, device=CPU)
+    res = eval_episode(vae, _critic(), frames, gt, device=CPU)  # auto on the CPU: host CRF
+    assert res.crf_masks.shape == (3, 64, 64) and res.crf_masks.dtype == bool
 
 
 def _run(args, cwd, **kw):
@@ -95,7 +98,8 @@ def test_cli_video_on_cpu(tmp_path):
 
 
 def test_port_runs_without_jax(tmp_path):
-    """Importing the port and running its CPU slice loads no jax."""
+    """Importing the port (every module) and running its CPU slice loads no
+    jax and nothing of the JAX package."""
     code = (
         "import sys\n"
         "import torch\n"
@@ -103,6 +107,10 @@ def test_port_runs_without_jax(tmp_path):
         "from critic_vae_tpu_torch.cli import main\n"
         "from critic_vae_tpu_torch.data.synthetic import generate_episode\n"
         "from critic_vae_tpu_torch.io.weights import numpy_vae_params, save_vae_npz\n"
+        "import critic_vae_tpu_torch.crf.host, critic_vae_tpu_torch.crf.policy\n"
+        "import critic_vae_tpu_torch.ops.upconv, critic_vae_tpu_torch.utils.image\n"
+        "import critic_vae_tpu_torch.viz.panels, critic_vae_tpu_torch.viz.gif\n"
+        "import critic_vae_tpu_torch.pipelines.video\n"
         f"generate_episode({str(tmp_path / 'ep')!r}, num_frames=2, seed=0)\n"
         f"save_vae_npz({str(tmp_path / 'v.npz')!r}, *numpy_vae_params(0, dims=(4, 8, 8, 16),"
         " bottleneck=256))\n"

@@ -103,10 +103,9 @@ def test_threshold_sweep_without_crf_and_policy():
     assert [r["crf_iou"] for r in without] == [None] * 3
     assert [r["thr_iou"] for r in without] == [r["thr_iou"] for r in with_crf]
     assert without[2]["thr_iou"] == 0.0  # t > 255: no pixel passes, gt is not empty
-    with pytest.raises(NotImplementedError):  # auto on the CPU is the unported host CRF
-        threshold_sweep(vae, critic, frames, gt, device=CPU)
-    with pytest.raises(NotImplementedError):
-        threshold_sweep(vae, critic, frames, gt, device=CPU, crf_backend="host")
+    auto = threshold_sweep(vae, critic, frames, gt, (0, 50), device=CPU)  # the CPU: host
+    assert auto == threshold_sweep(vae, critic, frames, gt, (0, 50), device=CPU,
+                                   crf_backend="host")
 
 
 @pytest.mark.parametrize("spec,want", [("0:120", list(range(0, 130, 10))),
@@ -132,7 +131,8 @@ def _run_video(tmp_path, capsys, *extra, with_gt=True):
     vae_path = tmp_path / "vae.npz"
     weights.save_vae_npz(str(vae_path), *weights.numpy_vae_params(1, **SMALL))
     rc = main(["video", "--episode", str(ep), "--no-slice", "--vae", str(vae_path),
-               "--device", "cpu", "--crf-backend", "device", "--batch-size", "2", *extra])
+               "--device", "cpu", "--crf-backend", "device", "--batch-size", "2",
+               "--root", str(tmp_path), *extra])
     out = capsys.readouterr()
     return rc, out.out, out.err
 
@@ -160,10 +160,15 @@ def test_cli_video_sweep_needs_ground_truth(tmp_path, capsys):
 
 
 def test_cli_video_backend_error_is_reported(tmp_path, capsys):
-    """``--crf-backend auto`` on the CPU resolves to the host CRF, which is
-    not ported: ``error: ...`` on stderr and exit code 1, as the JAX
-    package's ``video`` reports a backend it cannot run, not a traceback."""
-    rc, out, err = _run_video(tmp_path, capsys, "--crf-backend", "auto")
+    """An explicit ``--crf-backend device`` past DEVICE_HARD_MAX_PIXELS
+    (a 300x300 episode): ``error: ...`` on stderr and exit code 1, as the
+    JAX package's ``video`` reports a backend it cannot run, not a
+    traceback, before anything runs."""
+    ep = tmp_path / "big"
+    generate_episode(str(ep), num_frames=2, size=300, seed=0)
+    rc = main(["video", "--episode", str(ep), "--no-slice", "--device", "cpu",
+               "--crf-backend", "device"])
+    out, err = capsys.readouterr()
     assert rc == 1
     assert err.startswith("error: ") and "host" in err and "Traceback" not in err
     assert "processing" not in out  # resolved before anything ran
@@ -191,6 +196,6 @@ def test_cli_video_build_override(tmp_path, capsys, monkeypatch, build):
     assert rc == 0, err
     assert any(ln.startswith("crf_iou=") for ln in out.splitlines())
     assert kb.LAUNCHES == dict.fromkeys(kb.LAUNCHES, 0)
-    monkeypatch.setenv(BUILD_ENV, "xla")  # and the override reaches the CRF
-    with pytest.raises(NotImplementedError, match="xla"):
-        _run_video(tmp_path / "xla", capsys)
+    monkeypatch.setenv(BUILD_ENV, "lattice")  # and the override reaches the CRF
+    with pytest.raises(ValueError, match="unknown build"):
+        _run_video(tmp_path / "again", capsys)
