@@ -7,8 +7,11 @@ keeps its counterpart's name, and public functions keep its layouts (frames
 can be held against each other on the same inputs. Inside, models run NCHW
 as ``nn.Module``s and every function takes an explicit ``device``.
 
-The TPU kernels on the mask-video path, its threshold sweep and the
-``int8``/``vmem`` CRF builds, and the probes of the fused front-end kernel
+Besides the diff mask source it carries the critic's saliency masks
+(``ops/saliency.py``, the ``--quality`` chain) and the device CRF's
+``densecrf_device`` and parameter search. The TPU kernels on the mask-video
+path, its threshold sweep and the ``int8``/``vmem`` CRF builds, and the
+probes of the fused front-end kernel
 (``probes/``), are hand-written CUDA C++ under ``csrc/`` (built by
 ``kernels/build.py`` at first use); each wrapper takes its plain PyTorch
 version only for CPU tensors. This package imports torch

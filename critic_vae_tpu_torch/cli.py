@@ -1,8 +1,9 @@
 """Command line of the port: ``python -m critic_vae_tpu_torch video ...``.
 
 The ``video`` subcommand is the JAX package's ``video`` mode
-(critic_vae_tpu/cli.py ``cmd_video``) for the faithful diff mask source:
-critic, VAE double decode, diff maps, normalisation, threshold, dense CRF,
+(critic_vae_tpu/cli.py ``cmd_video``): critic, VAE double decode, diff
+maps (or with ``--mask-source saliency`` and the ``--saliency-*`` flags the
+critic's saliency maps), normalisation, threshold, dense CRF,
 the whole-stack IoUs printed as ``thr_iou=`` / ``crf_iou=``,
 ``bin_info_vae1.txt`` under ``--root`` when the episode has Y.npy, and the
 annotated GIF ``videos/video-threshold=T.gif`` under ``--root`` unless
@@ -21,6 +22,15 @@ the JAX package: ``--crf-backend auto`` prints ``crf backend: device
 CRF tuple. The device CRF's build is chosen, as in the JAX package, by
 ``CRITIC_VAE_TPU_CRF_BUILD`` (auto|xla|pallas|int8|vmem), and its per-chunk
 memory budget by ``CRITIC_VAE_TPU_CRF_MEM`` (bytes, default 6 GiB).
+
+``--quality`` expands into the JAX package's measured-best chain (LayerCAM,
+{id, mirror} x {0, +-2 px} TTA, the CAM-tuned CRF, threshold 64), a flag set
+to another value than its default winning over the preset.
+``--crf-search [GRID]`` searches the CRF parameters on the device CRF
+(crf/device.py::crf_param_search), prints one ``  iou=...  (w1=..., ...)``
+line a combination in descending IoU, and refines with the best; it cannot
+go with ``--sweep`` or ``--crf-params`` (``error: ...``, exit 1). Every flag
+is parsed and checked before any weights load.
 """
 
 from __future__ import annotations
@@ -55,7 +65,13 @@ def build_parser() -> argparse.ArgumentParser:
                      help="random VAE weights from this seed (numpy_vae_params)")
     v.add_argument("--decoder", default=None,
                    help="decoder artifact of the JAX package's train (with --encoder)")
-    v.add_argument("--threshold", type=int, default=50)
+    v.add_argument("--threshold", type=int, default=50,
+                   help="mask threshold on the normalized uint8 maps (default %(default)s)")
+    v.add_argument("--quality", action="store_true",
+                   help="the JAX package's measured-best mask chain in one flag: "
+                   "--mask-source saliency --saliency-method layercam --saliency-tta-flip "
+                   "--saliency-tta-shift 2 --crf-params 132,32,3.1,8,1.8,10 --threshold 64; "
+                   "a flag of the chain set to another value than its default wins")
     v.add_argument("--sweep", action="store_true", help="threshold sweep 0..120 (reference: -thresh)")
     v.add_argument("--sweep-range", default=None, metavar="LO:HI[:STEP]",
                    help="the sweep's thresholds, HI inclusive (default 0:120:10); implies --sweep")
@@ -67,6 +83,37 @@ def build_parser() -> argparse.ArgumentParser:
     v.add_argument("--crf-params", default=None, metavar="W1,ALPHA,BETA,W2,GAMMA,ITERS",
                    help="explicit CRF parameter 6-tuple (default: the reference's "
                    "22,12,3.1,8,1.8,10)")
+    v.add_argument("--crf-search", nargs="?", const="", default=None, metavar="GRID",
+                   help="search the CRF parameters on the device CRF and refine with the "
+                   "best combination; GRID like 'w1=11,22,44;beta=1.55,3.1;w2=4,8' (a "
+                   "missing key takes the reference's value; default w1 x beta x w2, 3x3x3)")
+    v.add_argument("--mask-source", default="diff", choices=["diff", "saliency"],
+                   help="'diff': the reference's VAE reconstruction difference; "
+                   "'saliency': the critic's saliency maps (ops/saliency.py)")
+    v.add_argument("--saliency-method", default="gradient", choices=["gradient", "layercam"],
+                   help="saliency: |d score / d x| at the pixels, or LayerCAM over a block's "
+                   "post-pool activation, upsampled")
+    v.add_argument("--saliency-cam-block", type=int, default=1, metavar="K",
+                   help="layercam: the post-pool critic block to tap (0-3)")
+    v.add_argument("--saliency-cam-upsample", default="lanczos3",
+                   choices=["bilinear", "bicubic", "lanczos3", "nearest"],
+                   help="layercam: the interpolation kernel up to the frame")
+    v.add_argument("--saliency-logits", action="store_true",
+                   help="saliency: differentiate the critic's pre-sigmoid logit")
+    v.add_argument("--saliency-samples", type=int, default=1, metavar="N",
+                   help="saliency: SmoothGrad sample count")
+    v.add_argument("--saliency-noise", type=float, default=0.0, metavar="STD",
+                   help="saliency: SmoothGrad input-noise std in [0, 1] pixel units")
+    v.add_argument("--saliency-seed", type=int, default=0,
+                   help="saliency: base seed of the SmoothGrad noise generators")
+    v.add_argument("--saliency-sigma", type=float, default=None, metavar="SIGMA",
+                   help="saliency: Gaussian smoothing sigma in pixels, 0 for none (default "
+                   "1.5 for gradient, 0 for layercam)")
+    v.add_argument("--saliency-tta-flip", action="store_true",
+                   help="saliency: min-combine with the map of the mirrored frames")
+    v.add_argument("--saliency-tta-shift", type=int, default=0, metavar="D",
+                   help="saliency: min-combine with the maps of the +-D px horizontally "
+                   "shifted views (with --saliency-tta-flip the {id,mirror}x{0,+-D} product)")
     v.add_argument("--no-crf", action="store_true")
     v.add_argument("--no-gif", action="store_true")
     v.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
@@ -109,6 +156,55 @@ def _parse_crf_params(spec: str) -> tuple:
         )
 
 
+def _parse_crf_grid(spec: str) -> dict:
+    """'w1=11,22;beta=1.55,3.1' -> a crf_param_search grid; an empty spec is
+    the default 3x3x3 grid over (w1, beta, w2) (as the JAX package's
+    cli._parse_crf_grid)."""
+    if not spec:
+        return {"w1": [11.0, 22.0, 44.0], "beta": [1.55, 3.1, 6.2], "w2": [4.0, 8.0, 16.0]}
+    valid = {"w1", "alpha", "beta", "w2", "gamma", "iters"}
+    grid = {}
+    for part in spec.split(";"):
+        key, _, vals = part.partition("=")
+        key = key.strip()
+        if key not in valid or not vals:
+            raise SystemExit(
+                f"bad --crf-search component {part!r}; expected key=v1,v2,... "
+                f"with key in {sorted(valid)}"
+            )
+        cast = int if key == "iters" else float
+        try:
+            grid[key] = [cast(v) for v in vals.split(",")]
+        except ValueError:
+            raise SystemExit(
+                f"bad --crf-search component {part!r}; values must be "
+                f"{'integers' if key == 'iters' else 'numbers'}"
+            )
+    return grid
+
+
+# the measured-best chain: argparse dest -> (parser default, preset value)
+_QUALITY_PRESET = {
+    "mask_source": ("diff", "saliency"),
+    "saliency_method": ("gradient", "layercam"),
+    "saliency_tta_flip": (False, True),
+    "saliency_tta_shift": (0, 2),
+    "crf_params": (None, "132,32,3.1,8,1.8,10"),
+    "threshold": (50, 64),
+}
+
+
+def _apply_quality_preset(args) -> None:
+    """Expand ``--quality`` into the chain's flags, as the JAX package does:
+    a flag whose parsed value differs from its default wins over the preset,
+    and with ``--crf-search`` the CRF parameters are left to the search."""
+    for dest, (default, preset) in _QUALITY_PRESET.items():
+        if dest == "crf_params" and args.crf_search is not None:
+            continue
+        if getattr(args, dest) == default:
+            setattr(args, dest, preset)
+
+
 def _load_vae(args, weights):
     """(params, bn_state) from --encoder/--decoder, --vae or --vae-seed."""
     if args.encoder is not None:
@@ -128,22 +224,44 @@ def cmd_video(args) -> int:
     if (args.encoder is None) != (args.decoder is None):
         print("error: --encoder and --decoder go together", file=sys.stderr)
         return 1
+    if args.quality:
+        _apply_quality_preset(args)
     thresholds = vid.DEFAULT_SWEEP
     if args.sweep_range is not None:
         args.sweep = True
         thresholds = _parse_sweep_range(args.sweep_range)
+    searching = args.crf_search is not None
+    if args.sweep and searching:
+        print("error: --sweep and --crf-search are mutually exclusive "
+              "(the sweep varies the threshold, the search varies CRF "
+              "parameters at one threshold)", file=sys.stderr)
+        return 1
+    if args.crf_params is not None and searching:
+        print("error: --crf-params and --crf-search are mutually exclusive "
+              "(the search finds parameters; pass its winner back via "
+              "--crf-params)", file=sys.stderr)
+        return 1
+    search_grid = _parse_crf_grid(args.crf_search) if searching else None
     crf_params = (_parse_crf_params(args.crf_params) if args.crf_params is not None
                   else REFERENCE_CRF_PARAMS)
+    saliency_opts = {
+        "logits": args.saliency_logits, "samples": args.saliency_samples,
+        "noise": args.saliency_noise, "seed": args.saliency_seed,
+        "sigma": args.saliency_sigma, "method": args.saliency_method,
+        "cam_block": args.saliency_cam_block, "cam_upsample": args.saliency_cam_upsample,
+        "tta_flip": args.saliency_tta_flip, "tta_shift": args.saliency_tta_shift,
+    }
     device = resolve_device(args.device)
     frames, gt = load_episode(args.episode, None if args.no_slice else DEFAULT_SLICE)
     if len(frames) == 0:
         print("error: the episode slice selects 0 frames; try --no-slice", file=sys.stderr)
         return 1
-    if args.sweep and gt is None:
-        print("error: --sweep needs IoU scoring, and the episode has no Y.npy",
+    if gt is None and (args.sweep or searching):
+        flag = "--sweep" if args.sweep else "--crf-search"
+        print(f"error: {flag} needs IoU scoring, and the episode has no Y.npy",
               file=sys.stderr)
         return 1
-    if not args.no_crf:
+    if not args.no_crf or searching:
         # resolve 'auto' (and check an explicit 'device') against the
         # episode's resolution and the device once, before any weights load
         from critic_vae_tpu_torch.crf.policy import resolve_crf_backend
@@ -162,12 +280,13 @@ def cmd_video(args) -> int:
     print(f"processing {len(frames)} frames on {device}...")
     if gt is None:
         print("no Y.npy ground truth: IoU scoring and bin_info are skipped")
+    source = dict(mask_source=args.mask_source, saliency_opts=saliency_opts)
     if args.sweep:
         print("testing thresholds (thr):")
         results = vid.threshold_sweep(
             vae, critic, frames, gt, thresholds, device=device, crf_params=crf_params,
             run_crf=not args.no_crf, batch_size=args.batch_size, compute_dtype=args.dtype,
-            crf_backend=args.crf_backend,
+            crf_backend=args.crf_backend, **source,
         )
         for r in results:
             print(f"thr={r['threshold']}, thr_iou={r['thr_iou']}, crf_iou={r['crf_iou']}")
@@ -180,10 +299,24 @@ def cmd_video(args) -> int:
         gif = False
     result = vid.eval_episode(
         vae, critic, frames, gt, device=device, threshold=args.threshold,
-        crf_params=crf_params, run_crf=not args.no_crf, batch_size=args.batch_size,
-        compute_dtype=args.dtype, crf_backend=args.crf_backend,
-        recons_u8=True, with_recons=gif,  # the recons feed the panels only
+        crf_params=crf_params, run_crf=not args.no_crf and not searching,
+        batch_size=args.batch_size, compute_dtype=args.dtype, crf_backend=args.crf_backend,
+        recons_u8=True, with_recons=gif, **source,  # the recons feed the panels only
     )
+    if searching:
+        import dataclasses
+
+        from critic_vae_tpu_torch.crf.device import crf_param_search
+        from critic_vae_tpu_torch.ops.iou import iou
+
+        print(f"searching CRF parameters "
+              f"({'default grid' if not args.crf_search else args.crf_search})...")
+        best_masks, search = crf_param_search(frames, result.thr_masks, gt, search_grid,
+                                              device=device)
+        for score, p in search:
+            print(f"  iou={score:.3f}  (w1={p[0]}, alpha={p[1]}, beta={p[2]}, "
+                  f"w2={p[3]}, gamma={p[4]}, iters={p[5]})")
+        result = dataclasses.replace(result, crf_masks=best_masks, crf_iou=iou(gt, best_masks))
     root = Path(args.root)
     if gt is not None:
         print(f"thr_iou={result.thr_iou}")

@@ -1,5 +1,5 @@
 """Exact dense-CRF mean-field on the device (counterpart of
-critic_vae_tpu/crf/device.py, mask-refinement paths).
+critic_vae_tpu/crf/device.py).
 
 Per frame of N = H*W pixels the bilateral term is the full N x N matrix M
 built by kernel B2 (crf/fused_build.py) or by the Gram form (``xla``); the
@@ -22,7 +22,10 @@ whole mean field, spatial term folded into one bf16 matrix, in kernel B5
 divides by 128, else ``xla``, as the JAX package resolves it with the TPU
 in the card's place. ``refine_masks_multi_device`` refines T mask sets
 of the same frames against one matrix, packed as T*L lanes of Q (the
-threshold sweep).
+threshold sweep). ``densecrf_device`` refines any (n, H, W, L)
+probabilities, returning labels or with ``soft`` the marginals, through
+every build; ``crf_param_search`` refines the same masks once for each
+combination of a parameter grid and scores each by IoU counted on the card.
 
 The M @ Q message accumulates in float32 whatever M's storage dtype, as the
 JAX package's ``preferred_element_type=f32`` does. For a bf16 M on CUDA that
@@ -181,11 +184,11 @@ def _message(mb: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
     return torch.bmm(mb.float(), qm.float())
 
 
-def _mean_field_iterate_multi(mb: torch.Tensor, probs: torch.Tensor, taps: torch.Tensor,
-                              w2, h: int, w: int, iters: int) -> torch.Tensor:
+def _mean_field_q(mb: torch.Tensor, probs: torch.Tensor, taps: torch.Tensor, w2, h: int,
+                  w: int, iters: int) -> torch.Tensor:
     """T independent mean fields over the chunk's bilateral matrices ``mb``
     (C, N, N), packed into the lanes of Q: (C, N, T, L) probabilities ->
-    (C, T, N) uint8 argmax labels. M is read once an iteration for all T."""
+    (C, N, T, L) float32 marginals. M is read once an iteration for all T."""
     c, n, t, L = probs.shape
     ns = _spatial_norm(taps, h, w)
     unary = -torch.log(torch.clamp_min(probs, _EPS_PROB))
@@ -194,11 +197,17 @@ def _mean_field_iterate_multi(mb: torch.Tensor, probs: torch.Tensor, taps: torch
         qf = q.reshape(c, n, t * L)
         msg = _message(mb, qf) + w2 * _spatial_message(qf, ns, taps, h, w)
         q = torch.softmax(msg.view(c, n, t, L) - unary, dim=-1)
-    return torch.argmax(q, dim=-1).to(torch.uint8).transpose(1, 2)
+    return q
+
+
+def _labels(q: torch.Tensor) -> torch.Tensor:
+    """Argmax labels of marginals along the last axis, uint8."""
+    return torch.argmax(q, dim=-1).to(torch.uint8)
 
 
 def _chunk_mean_field_i8(imgs_u8: torch.Tensor, probs: torch.Tensor, taps: torch.Tensor,
-                         w1, w2, alpha, beta, h: int, w: int, iters: int) -> torch.Tensor:
+                         w1, w2, alpha, beta, h: int, w: int, iters: int,
+                         soft: bool = False) -> torch.Tensor:
     """The int8 chunk body: kernel B3 stores the unnormalized kernel as
     int8 (scale 127) with the row sums of the stored values, and each
     iteration's bilateral message is kernel B4's int8 matvec with the
@@ -206,8 +215,8 @@ def _chunk_mean_field_i8(imgs_u8: torch.Tensor, probs: torch.Tensor, taps: torch
 
         M @ q = g * (K_i8 @ (g * q)),  g = sqrt(w1/127) rsqrt(rowsum/127 + eps)
 
-    the exactly normalized 8-bit model. (C, N, L) probabilities -> (C, N)
-    uint8 labels."""
+    the exactly normalized 8-bit model. (C, N, L) probabilities, any L ->
+    (C, N) uint8 labels, or the (C, N, L) marginals with ``soft``."""
     from critic_vae_tpu_torch.crf.fused_build import QUANT_SCALE, build_kernel_i8, matvec_i8
 
     c, n, L = probs.shape
@@ -222,7 +231,34 @@ def _chunk_mean_field_i8(imgs_u8: torch.Tensor, probs: torch.Tensor, taps: torch
         msg = g * matvec_i8(k8, (g * q).view(c * n, L), n=n).view(c, n, L)
         msg = msg + w2 * _spatial_message(q, ns, taps, h, w)
         q = torch.softmax(msg - unary, dim=-1)
-    return torch.argmax(q, dim=-1).to(torch.uint8)
+    return q if soft else _labels(q)
+
+
+def _chunk_mean_field(imgs_u8: torch.Tensor, probs: torch.Tensor, taps: torch.Tensor, w1,
+                      w2, alpha, beta, gamma, *, h: int, w: int, iters: int,
+                      compute_dtype: str, soft: bool, fused: str) -> torch.Tensor:
+    """The chunk body of one set of probabilities, as the JAX package's
+    ``_chunk_mean_field``: (C, N, 3) uint8 frames and (C, N, L) float32
+    probabilities -> (C, N) uint8 labels, or the (C, N, L) float32 marginals
+    with ``soft``, through the resolved build ``fused``: ``vmem`` (B5) at L
+    = 2 and ``pallas`` otherwise, ``int8`` (B3 + B4, any L), ``pallas`` (B2
+    in ``compute_dtype``) or ``xla``."""
+    if fused == "vmem" and probs.shape[-1] == 2:
+        from critic_vae_tpu_torch.crf.fused_resident import mean_field_resident
+
+        q = mean_field_resident(imgs_u8, probs, taps, w1, w2, alpha, beta, gamma, h=h, w=w,
+                                iters=iters)
+        return q if soft else (q[..., 1] > q[..., 0]).to(torch.uint8)
+    if fused == "int8":
+        return _chunk_mean_field_i8(imgs_u8, probs, taps, w1, w2, alpha, beta, h, w, iters,
+                                    soft)
+    from critic_vae_tpu_torch.crf.fused_build import build_bilateral
+
+    # pallas, and vmem at L != 2 (B5's pair softmax does not apply): B2
+    build = build_bilateral_xla if fused == "xla" else build_bilateral
+    mb = build(imgs_u8, w1, alpha, beta, h=h, w=w, out_dtype=compute_dtype)
+    q = _mean_field_q(mb, probs[:, :, None], taps, w2, h, w, iters)[:, :, 0]
+    return q if soft else _labels(q)
 
 
 def _mask_probs(masks_u8: torch.Tensor) -> torch.Tensor:
@@ -235,18 +271,16 @@ def _crf_chunk_from_masks(imgs_u8: torch.Tensor, masks_u8: torch.Tensor,
                           taps: torch.Tensor, w1, w2, alpha, beta, gamma, *, h: int,
                           w: int, iters: int, compute_dtype: str,
                           fused: str) -> torch.Tensor:
-    """One chunk through the resolved build ``fused``: (C, N, 3) uint8 frames
-    and (C, N, T) 0/1 mask sets -> (C, T, N) uint8 labels, all T against one
-    bilateral build. A (C, N) single mask gives (C, N) labels; with ``int8``
-    it runs B3 and B4, while many masks take B2 in bf16, as the JAX package
-    does: the lane-packed product wants a plain M operand."""
+    """One chunk of masks through the resolved build ``fused``: (C, N, 3)
+    uint8 frames and (C, N) 0/1 masks -> (C, N) uint8 labels by
+    :func:`_chunk_mean_field` on the (1 - mask, mask) probabilities; or
+    (C, N, T) mask sets -> (C, T, N) labels, all T against one bilateral
+    build, where ``int8`` takes B2 in bf16, as the JAX package does: the
+    lane-packed product wants a plain M operand."""
     if masks_u8.dim() == 2:
-        if fused == "int8":
-            return _chunk_mean_field_i8(imgs_u8, _mask_probs(masks_u8), taps, w1, w2,
-                                        alpha, beta, h, w, iters)
-        return _crf_chunk_from_masks(imgs_u8, masks_u8[..., None], taps, w1, w2, alpha,
-                                     beta, gamma, h=h, w=w, iters=iters,
-                                     compute_dtype=compute_dtype, fused=fused)[:, 0]
+        return _chunk_mean_field(imgs_u8, _mask_probs(masks_u8), taps, w1, w2, alpha, beta,
+                                 gamma, h=h, w=w, iters=iters, compute_dtype=compute_dtype,
+                                 soft=False, fused=fused)
     probs = _mask_probs(masks_u8)  # (C, N, T, 2)
     c, n, t, _ = probs.shape
     if fused == "vmem":
@@ -260,7 +294,7 @@ def _crf_chunk_from_masks(imgs_u8: torch.Tensor, masks_u8: torch.Tensor,
     dt = "bfloat16" if fused == "int8" else compute_dtype
     build = build_bilateral_xla if fused == "xla" else build_bilateral
     mb = build(imgs_u8, w1, alpha, beta, h=h, w=w, out_dtype=dt)
-    return _mean_field_iterate_multi(mb, probs, taps, w2, h, w, iters)
+    return _labels(_mean_field_q(mb, probs, taps, w2, h, w, iters)).transpose(1, 2)
 
 
 def _resolve_build(build: str, h: int, w: int, device) -> str:
@@ -329,53 +363,170 @@ def _chunk_frames(frame_chunk: int, fused: str, multi: bool, compute_dtype: str,
     return max(1, min(frame_chunk, budget // frame_bytes))
 
 
-def _run_chunked(flat_imgs: torch.Tensor, flat_masks: torch.Tensor, params, h: int,
+def _run_chunked(flat_imgs: torch.Tensor, flat_second: torch.Tensor, params, h: int,
                  w: int, frame_chunk: int, compute_dtype: str, *, build: str = "auto",
-                 fetch: bool = True):
-    """Refine (n, N, 3) frames with (n, N) masks, or (n, N, T) mask sets, in
-    fixed-size chunks padded by repeating the last frame. Returns (n, N) or
-    (n, T, N) uint8 labels, as numpy with ``fetch`` or as a device tensor
-    without."""
+                 fetch: bool = True, soft: bool = False):
+    """Refine (n, N, 3) frames with (n, N) 0/1 masks, (n, N, T) mask sets or
+    (n, N, L) float probabilities, in fixed-size chunks padded by repeating
+    the last frame. Returns (n, N) or (n, T, N) uint8 labels, or for
+    probabilities with ``soft`` the (n, N, L) float32 marginals; as numpy
+    with ``fetch`` or as a device tensor without."""
     w1, alpha, beta, w2, gamma, iters = params
     fused = _resolve_build(build, h, w, flat_imgs.device)
-    multi = flat_masks.dim() == 3
+    probs = flat_second.is_floating_point()
+    multi = not probs and flat_second.dim() == 3
+    if probs and fused == "vmem" and flat_second.shape[2] != 2:
+        fused = "pallas"  # as the chunk body falls back: B5's pair softmax wants L = 2
     if compute_dtype == "auto":
         compute_dtype = _auto_dtype(fused, multi)
     n, npix = flat_imgs.shape[0], h * w
     if n == 0:
-        shape = (0, flat_masks.shape[2], npix) if multi else (0, npix)
-        out = torch.empty(shape, dtype=torch.uint8, device=flat_imgs.device)
+        if probs and soft:
+            out = torch.empty((0, npix, flat_second.shape[2]), dtype=torch.float32,
+                              device=flat_imgs.device)
+        else:
+            shape = (0, flat_second.shape[2], npix) if multi else (0, npix)
+            out = torch.empty(shape, dtype=torch.uint8, device=flat_imgs.device)
         return out.cpu().numpy() if fetch else out
     taps = torch.from_numpy(_spatial_taps(float(gamma), h, w)).to(flat_imgs.device)
-    lanes = 2 * (flat_masks.shape[2] if multi else 1)
+    if probs:
+        lanes = flat_second.shape[2]
+    else:
+        lanes = 2 * (flat_second.shape[2] if multi else 1)
     frame_chunk = _chunk_frames(min(frame_chunk, n), fused, multi, compute_dtype, npix, lanes)
+    kw = dict(h=h, w=w, iters=int(iters), compute_dtype=compute_dtype, fused=fused)
     segs = []
     for i in range(0, n, frame_chunk):
         imgs = flat_imgs[i : i + frame_chunk]
-        masks = flat_masks[i : i + frame_chunk]
+        second = flat_second[i : i + frame_chunk]
         valid = imgs.shape[0]
         if valid < frame_chunk:
             pad = frame_chunk - valid
             imgs = torch.cat([imgs, imgs[-1:].expand(pad, *imgs.shape[1:])])
-            masks = torch.cat([masks, masks[-1:].expand(pad, *masks.shape[1:])])
-        seg = _crf_chunk_from_masks(imgs.contiguous(), masks, taps, w1, w2, alpha, beta,
-                                    gamma, h=h, w=w, iters=int(iters),
-                                    compute_dtype=compute_dtype, fused=fused)
+            second = torch.cat([second, second[-1:].expand(pad, *second.shape[1:])])
+        args = (imgs.contiguous(), second, taps, w1, w2, alpha, beta, gamma)
+        if probs:
+            seg = _chunk_mean_field(*args, soft=soft, **kw)
+        else:
+            seg = _crf_chunk_from_masks(*args, **kw)
         segs.append(seg[:valid])
     out = torch.cat(segs) if len(segs) > 1 else segs[0]
     return out.cpu().numpy() if fetch else out
 
 
 def _frames_on(frames_u8, device, name: str):
+    """``frames_u8`` as a uint8 tensor on ``device``: a tensor where it lies
+    when ``device`` is None, numpy on the card (CUDA) when it is None."""
     if device is None:
-        if not isinstance(frames_u8, torch.Tensor):
-            raise ValueError(f"{name}: numpy inputs need an explicit device")
-        device = frames_u8.device
+        if isinstance(frames_u8, torch.Tensor):
+            device = frames_u8.device
+        else:
+            from critic_vae_tpu_torch.device import resolve_device
+
+            device = resolve_device("cuda")
     device = torch.device(device)
     frames = torch.as_tensor(frames_u8, device=device)
     if frames.dtype != torch.uint8:
         raise TypeError(f"{name}: frames must be uint8, got {frames.dtype}")
     return frames, device
+
+
+@torch.inference_mode()
+def densecrf_device(imgs, probs, params: Tuple, *, frame_chunk: int = 64,
+                    compute_dtype: str = "float32", soft: bool = False, build: str = "xla",
+                    device=None) -> np.ndarray:
+    """Batched exact dense CRF on the card, the call shape of
+    :func:`critic_vae_tpu_torch.crf.host.densecrf_batch` (the JAX package's
+    ``densecrf_device``, its defaults included: the ``xla`` build in
+    float32).
+
+    Args:
+      imgs: (n, H, W, 3) uint8 frames, or one (H, W, 3) frame.
+      probs: (n, H, W, L) per-class probabilities (L >= 1), or (H, W, L).
+      params: the 6-tuple (w1, alpha, beta, w2, gamma, iters).
+      compute_dtype: the bilateral matrix's dtype, "float32" or "bfloat16"
+        (``pallas`` and ``xla``; the unary and softmax are float32).
+      soft: return the mean-field marginals Q instead of argmax labels.
+      build: "xla", "pallas" (B2), "int8" (B3 + B4, any L), "vmem" (B5 at
+        L = 2, ``pallas`` otherwise) or "auto" (:func:`_resolve_build`).
+      device: where numpy inputs go (default the card); tensors are used
+        where they lie.
+
+    Returns (n, H, W) uint8 labels, or the (n, H, W, L) float32 marginals
+    with ``soft``, as numpy; the leading axis is dropped for one frame."""
+    single = probs.ndim == 3
+    if single:
+        imgs, probs = imgs[None], probs[None]
+    if not isinstance(imgs, torch.Tensor):
+        imgs = np.ascontiguousarray(imgs, dtype=np.uint8)
+    frames, device = _frames_on(imgs, device, "densecrf_device")
+    p = torch.as_tensor(probs, device=device).float()
+    n, h, w_, L = p.shape
+    if tuple(frames.shape) != (n, h, w_, 3):
+        raise ValueError(f"imgs shape {tuple(frames.shape)} does not match probs {tuple(p.shape)}")
+    out = _run_chunked(frames.reshape(n, h * w_, 3).contiguous(),
+                       p.reshape(n, h * w_, L).contiguous(), params, h, w_, frame_chunk,
+                       compute_dtype, build=build, soft=soft)
+    out = out.reshape((n, h, w_, L) if soft else (n, h, w_))
+    return out[0] if single else out
+
+
+def _iou_counts(pred: torch.Tensor, gt: torch.Tensor) -> torch.Tensor:
+    """Whole-stack (tp, fn, fp) int64 counts on the masks' device; the
+    caller applies ops/iou.py's semantics (0/0 -> 1) to the three ints."""
+    p, g = pred.bool(), gt.bool()
+    return torch.stack([torch.sum(p & g), torch.sum(~p & g), torch.sum(p & ~g)])
+
+
+@torch.inference_mode()
+def crf_param_search(frames_u8, thr_masks, gt, param_grid: dict | None = None, *,
+                     frame_chunk: int = 64, compute_dtype: str = "auto",
+                     build: str = "auto", device=None):
+    """A CRF hyperparameter search on the card (the JAX package's
+    ``crf_param_search``): every combination of ``param_grid`` (dict of
+    lists over w1/alpha/beta/w2/gamma/iters; a missing key takes the
+    reference's value) refines the ORIGINAL (n, H, W) threshold masks of the
+    (n, H, W, 3) uint8 frames by :func:`refine_masks_device`, and is scored
+    by its whole-stack IoU against ``gt``, counted on the card. The frames,
+    masks and ``gt`` go to the card once (numpy inputs to ``device``,
+    default the card; tensors stay where they lie).
+
+    Returns (best_masks, results): ``results`` the (iou, params6) of every
+    combination in descending IoU (ties in grid order), ``best_masks`` the
+    (n, H, W) bool numpy refinement of the first combination with the
+    highest IoU."""
+    import itertools
+
+    from critic_vae_tpu_torch.crf import DEFAULT_PARAM_GRID
+
+    keys = ("w1", "alpha", "beta", "w2", "gamma", "iters")
+    if param_grid:
+        bad = set(param_grid) - set(keys)
+        if bad:
+            raise ValueError(f"unknown CRF grid key(s) {sorted(bad)}; valid: {list(keys)}")
+        empty = [k for k, v in param_grid.items() if not v]
+        if empty:
+            raise ValueError(f"CRF grid key(s) {empty} have no values")
+    grid = {**DEFAULT_PARAM_GRID, **(param_grid or {})}
+    combos = [dict(zip(grid.keys(), v)) for v in itertools.product(*grid.values())]
+    if not isinstance(frames_u8, torch.Tensor):
+        frames_u8 = np.ascontiguousarray(frames_u8, dtype=np.uint8)
+    frames, device = _frames_on(frames_u8, device, "crf_param_search")
+    masks = torch.as_tensor(thr_masks, device=device).to(torch.uint8)
+    gt_dev = torch.as_tensor(gt, device=device).bool()
+    results, best = [], None
+    for c in combos:
+        params = tuple(c[k] for k in keys)
+        refined = refine_masks_device(frames, masks, params, frame_chunk=frame_chunk,
+                                      compute_dtype=compute_dtype, build=build, fetch=False)
+        tp, fn, fp = _iou_counts(refined, gt_dev).tolist()
+        union = tp + fn + fp
+        score = 1.0 if union == 0 else tp / union
+        results.append((score, params))
+        if best is None or score > best[0]:
+            best = (score, refined)
+    results.sort(key=lambda r: r[0], reverse=True)
+    return best[1].cpu().numpy(), results
 
 
 @torch.inference_mode()
@@ -386,7 +537,8 @@ def refine_masks_device(frames_u8, thr_masks, params: Tuple = REFERENCE_CRF_PARA
     exact dense CRF; returns (n, H, W) bool, as numpy with ``fetch`` or as a
     tensor on the device without.
 
-    Tensors are used where they lie; numpy inputs need ``device``. The
+    Tensors are used where they lie; numpy inputs go to ``device``, by
+    default the card. The
     build resolves as in the JAX package (:func:`_resolve_build`): B2 on
     CUDA at H*W % 128 == 0, the ``xla`` build elsewhere (the CPU, ragged
     sizes). ``compute_dtype="auto"`` stores B2's M in bf16 (the kernel's fast

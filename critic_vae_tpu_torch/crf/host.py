@@ -23,7 +23,7 @@ from typing import Optional
 
 import numpy as np
 
-from critic_vae_tpu_torch.crf import REFERENCE_CRF_PARAMS
+from critic_vae_tpu_torch.crf import DEFAULT_PARAM_GRID, REFERENCE_CRF_PARAMS
 
 SRC = Path(__file__).parent / "densecrf.cpp"
 BUILD_DIR = Path(__file__).parent / "_build"
@@ -149,3 +149,37 @@ def refine_masks(frames_u8: np.ndarray, thr_masks: np.ndarray,
     m = np.asarray(thr_masks).astype(np.float32)
     probs = np.stack([1.0 - m, m], axis=-1)
     return densecrf_batch(frames_u8, probs, params, num_threads).astype(bool)
+
+
+def crf_reference_scaffold(imgs: np.ndarray, mask: np.ndarray, gt: np.ndarray, skip: int = 1,
+                           param_grid: Optional[dict] = None, num_threads: int = 0):
+    """The reference ``crf()`` wrapper's grid-search scaffold
+    (vae_utility.py:22-54), as the JAX package's ``crf_reference_scaffold``,
+    on this host CRF, with the reference's quirks: only every ``skip``-th
+    frame is refined, in place through the ``mask[::skip]`` view of a copy
+    of ``mask``; each combination of ``param_grid`` (default: the reference's
+    one-combination grid) re-refines the previous one's output, in
+    sequence; each combination's whole-stack IoU is taken against
+    ``gt[::skip]``.
+
+    ``mask`` is (N, 1, H, W) float 0/1, the reference's layout. Returns
+    (refined, results): the (N, 1, H, W) bool masks, refined at the
+    ``::skip`` frames, and the ascending-IoU list of (iou, params)."""
+    import itertools
+
+    from critic_vae_tpu_torch.ops.iou import iou
+
+    grid = param_grid or DEFAULT_PARAM_GRID
+    combos = [dict(zip(grid.keys(), vals)) for vals in itertools.product(*grid.values())]
+    mask = mask.copy()  # like the reference's `mask = mask.copy()`
+    view = mask[::skip]  # a view: the refinements land in `mask`
+    imgs_s = imgs[::skip]
+    gt_s = gt[::skip]
+    results = []
+    for c in combos:
+        params = (c["w1"], c["alpha"], c["beta"], c["w2"], c["gamma"], c["iters"])
+        refined = refine_masks(imgs_s, view[:, 0], params, num_threads)
+        view[:, 0] = refined  # in place: the next combination re-refines this
+        results.append((iou(gt_s, refined, round_digits=None), params))
+    results.sort(key=lambda r: r[0])
+    return mask >= 1, results

@@ -4,6 +4,7 @@ than a silent fall back to the CPU."""
 
 from __future__ import annotations
 
+import contextlib
 import statistics
 
 import torch
@@ -18,6 +19,24 @@ def resolve_device(name: str) -> torch.device:
     if name == "cpu":
         return torch.device("cpu")
     raise ValueError(f"unknown device {name!r} (cuda|cpu)")
+
+
+@contextlib.contextmanager
+def no_tf32():
+    """float32 as the JAX package's ``Precision.HIGHEST``: no TF32 in cuDNN
+    convs (their default) or matmuls, and no reduced-precision bf16
+    reductions, for the body of the ``with``; the global flags are restored
+    after it. No effect on the CPU."""
+    flags = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    try:
+        yield
+    finally:
+        (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction) = flags
 
 
 def device_ms(fn, kernel: str, iters: int = 50, warmup: int = 2) -> float:

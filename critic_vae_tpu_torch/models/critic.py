@@ -47,7 +47,11 @@ def sigmoid(x: torch.Tensor) -> torch.Tensor:
     """1 / (1 + exp(-x)), each op in x's dtype: XLA expands the JAX
     package's ``jax.nn.sigmoid`` so, and in bfloat16 it rounds after every
     op (``torch.sigmoid`` rounds once, and differs by a bf16 ulp in ~1.7% of
-    the bf16 values, 0.5 + 2^-8 against 0.5 for small logits among them)."""
+    the bf16 values, 0.5 + 2^-8 against 0.5 for small logits among them).
+    Not for a graph that autograd differentiates: once exp(-x) overflows
+    (x below about -88 in float32) its backward is NaN, where
+    ``jax.nn.sigmoid``'s is y(1 - y); ops/saliency.py differentiates
+    ``torch.sigmoid`` of the logits instead."""
     return 1 / (1 + torch.exp(-x))
 
 
@@ -64,16 +68,26 @@ class Critic(nn.Module):
 
     def forward(self, x: torch.Tensor, *, fused_pool: bool | str = False,
                 block0_f32: bool = False, downstream_dtype: torch.dtype | None = None,
-                start_block: int = 0) -> torch.Tensor:
-        """x (B, 3, 64, 64) in [0, 1] -> (B, 1) probabilities.
+                start_block: int = 0, return_logits: bool = False, tap: int | None = None):
+        """x (B, 3, 64, 64) in [0, 1] -> (B, 1) probabilities, or the
+        pre-sigmoid logits with ``return_logits``.
 
         ``fused_pool``: ``True`` runs every block as the phase-packed
         stride-2 conv; ``"s2d"`` runs the first block as the space-to-depth
         3×3 phase conv. ``block0_f32``: the first conv in float32, its output
         cast to ``downstream_dtype``. ``downstream_dtype``: the dtype of
         everything after block 0 (default x's). ``start_block``: resume at
-        this block with x the previous block's post-pool activation."""
+        this block with x the previous block's post-pool activation.
+        ``tap=k`` (0-3) also returns block k's post-pool activation, as
+        ``critic_apply(tap_offset=(k, zeros))`` does: ``(out, activation)``,
+        so that ``torch.autograd.grad`` of the output w.r.t. it is LayerCAM's
+        d out / d A (ops/saliency.py)."""
+        if tap is not None and not start_block <= tap < len(self.convs):
+            raise ValueError(
+                f"tap block must be in {start_block}..{len(self.convs) - 1} (post-pool "
+                f"activations), got {tap}")
         dtype = x.dtype if downstream_dtype is None else downstream_dtype
+        tapped = None
         for i in range(start_block, len(self.convs)):
             layer = self.convs[i]
             if fused_pool == "s2d" and i == 0:
@@ -87,6 +101,10 @@ class Critic(nn.Module):
                 else:
                     x = conv(layer, x, dtype)
                 x = F.max_pool2d(F.relu(x), 2)
+            if i == tap:
+                tapped = x
         h = F.relu(conv(self.conv4, x, dtype)).flatten(1)
         h = F.relu(linear(self.fc0, h, dtype))
-        return sigmoid(linear(self.fc1, h, dtype))
+        logit = linear(self.fc1, h, dtype)
+        out = logit if return_logits else sigmoid(logit)
+        return out if tap is None else (out, tapped)

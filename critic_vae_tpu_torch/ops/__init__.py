@@ -1,1 +1,2 @@
-"""Mask-stage ops: the diff-mask kernel, normalisation, thresholds, IoU."""
+"""Mask-stage ops: the diff-mask kernel, the critic's saliency maps and
+their upsample, normalisation, thresholds, IoU."""

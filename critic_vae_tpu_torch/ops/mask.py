@@ -1,4 +1,6 @@
-"""Recon-difference mask stage (counterpart of critic_vae_tpu/ops/mask.py).
+"""Recon-difference mask stage (counterpart of critic_vae_tpu/ops/mask.py),
+and beside it the saliency mask source (``mask_source="saliency"``: the
+critic's saliency maps of ops/saliency.py in the diff maps' place).
 
 Per frame: critic score; encode; decode the same latent twice, at the
 critic value and at 0, as one 2B batch; |tanh diff| -> Rec.601 grey ->
@@ -119,12 +121,14 @@ def iou_stacked(gt: torch.Tensor, masks: torch.Tensor) -> torch.Tensor:
 
 
 def resolve_front_end(front_end: str, *, fused_pool=False, fold_bn: bool = False,
-                      block0_f32: bool = False) -> str:
+                      block0_f32: bool = False, mask_source: str = "diff") -> str:
     """``auto`` → ``merged`` unless ``block0_f32``, ``fused_pool`` or
-    ``fold_bn`` asks for the split first convs; ``split`` and ``merged`` pass
-    through; any other name raises."""
+    ``fold_bn`` asks for the split first convs, or the mask source is
+    ``saliency``; ``split`` and ``merged`` pass through; any other name
+    raises."""
     if front_end == "auto":
-        front_end = "split" if (block0_f32 or fused_pool or fold_bn) else "merged"
+        split = block0_f32 or fused_pool or fold_bn or mask_source != "diff"
+        front_end = "split" if split else "merged"
     if front_end not in FRONT_ENDS:
         raise ValueError(f"unknown front_end {front_end!r} (split|merged)")
     return front_end
@@ -163,14 +167,21 @@ def merged_front_end(vae: VAE, critic: Critic, x: torch.Tensor, cdt: torch.dtype
     return h_enc, F.max_pool2d(yc, 2)
 
 
-@torch.inference_mode()
+MASK_SOURCES = ("diff", "saliency")
+
+
 def episode_forward(vae: VAE, critic: Critic, frames: torch.Tensor, *,
                     compute_dtype: str = "float32", fused_pool=False, fold_bn: bool = False,
                     pool_impl: str = "reduce_window", block0_f32: bool = False,
                     front_end: str = "auto", with_recons: bool = False,
-                    recons_u8: bool = False):
+                    recons_u8: bool = False, mask_source: str = "diff",
+                    saliency_logits: bool = False, saliency_samples: int = 1,
+                    saliency_noise: float = 0.0, saliency_sigma: float | None = None,
+                    saliency_seed: int | None = None, saliency_method: str = "gradient",
+                    saliency_cam_block: int = 1, saliency_cam_upsample: str = "lanczos3",
+                    saliency_tta_flip: bool = False, saliency_tta_shift: int = 0):
     """Per-frame stage of the video pipeline over one batch (the JAX
-    ``episode_forward`` for ``mask_source="diff"``).
+    ``episode_forward``).
 
     ``frames`` (B, H, W, 3), uint8 (normalised on the device as f32/255) or
     float in [0, 1]. ``front_end``: ``auto`` (default), ``split`` or
@@ -181,16 +192,84 @@ def episode_forward(vae: VAE, critic: Critic, frames: torch.Tensor, *,
     first convs in float32 on the float32 frames. Returns dict(preds (B,),
     diff (B, H, W), max_value (B,)), all float32 on ``frames``' device.
 
+    ``mask_source="saliency"`` takes the critic's saliency maps
+    (ops/saliency.py::critic_saliency, with the ``saliency_*`` options) as
+    ``diff`` and their per-frame max as ``max_value``; the stage runs in
+    float32 with TF32 off whatever ``compute_dtype``, and ``preds`` are
+    probabilities. SmoothGrad (``saliency_noise > 0``) draws its noise from a
+    generator seeded ``saliency_seed`` on the frames' device (required then).
+    ``auto`` resolves to ``split`` for it; ``merged`` and ``block0_f32``
+    raise, with the JAX package's messages. The diff source runs under
+    ``torch.inference_mode``, the saliency stage with autograd.
+
     ``with_recons`` adds ``recon_one`` and ``recon_zero`` (B, H, W, 3): tanh
     of the two decodes, in float32 (the decode widened first: XLA drops the
     bf16 rounding of the JAX package's tanh before its cast to float32), as
-    uint8 by :func:`quantize_recons` with ``recons_u8``. Without it nothing
-    more is computed than for the masks."""
+    uint8 by :func:`quantize_recons` with ``recons_u8``; with the saliency
+    source the split encoder's decodes at ``preds`` in ``compute_dtype``.
+    Without it nothing more is computed than for the masks."""
+    if mask_source not in MASK_SOURCES:
+        raise ValueError(f"unknown mask_source {mask_source!r} (diff|saliency)")
     front_end = resolve_front_end(front_end, fused_pool=fused_pool, fold_bn=fold_bn,
-                                  block0_f32=block0_f32)
+                                  block0_f32=block0_f32, mask_source=mask_source)
+    if front_end == "merged" and mask_source != "diff":
+        raise ValueError(
+            "front_end='merged' fuses the critic/encoder first convs on the "
+            "diff mask path; the saliency source differentiates through the "
+            "whole critic and has no split first conv to merge"
+        )
+    if block0_f32 and mask_source != "diff":
+        raise ValueError(
+            "block0_f32 applies to the diff path's first conv blocks; the "
+            "saliency stage already runs in float32 end-to-end "
+            "(ops/saliency.py) — combining them would only silently run "
+            "the with_recons VAE decode in f32 instead of compute_dtype"
+        )
     if frames.dtype == torch.uint8:
         frames = frames.float() / 255.0
     cdt = DTYPES[compute_dtype]
+    if mask_source == "diff":
+        return _diff_forward(vae, critic, frames, cdt, front_end=front_end,
+                             fused_pool=fused_pool, fold_bn=fold_bn, pool_impl=pool_impl,
+                             block0_f32=block0_f32, with_recons=with_recons,
+                             recons_u8=recons_u8)
+    from critic_vae_tpu_torch.ops.saliency import critic_saliency
+
+    generator = None
+    if saliency_noise > 0.0:
+        if saliency_seed is None:
+            raise ValueError("episode_forward: saliency SmoothGrad sampling needs saliency_seed")
+        generator = torch.Generator(device=frames.device).manual_seed(int(saliency_seed))
+    sigma_kw = {} if saliency_sigma is None else {"smooth_sigma": saliency_sigma}
+    preds, sal = critic_saliency(
+        critic, frames.float().permute(0, 3, 1, 2), logits=saliency_logits,
+        samples=saliency_samples, noise=saliency_noise, generator=generator,
+        method=saliency_method, cam_block=saliency_cam_block,
+        cam_upsample=saliency_cam_upsample, tta_flip=saliency_tta_flip,
+        tta_shift=saliency_tta_shift, **sigma_kw)
+    out = {"preds": preds, "diff": sal, "max_value": sal.amax(dim=(1, 2))}
+    if with_recons:
+        with torch.inference_mode():
+            x = frames.to(cdt).permute(0, 3, 1, 2).contiguous()
+            out.update(_recons(_decode_pair(vae, x, preds.to(cdt)), recons_u8))
+    return out
+
+
+def _recons(pre: torch.Tensor, recons_u8: bool) -> dict:
+    """recon_one and recon_zero (B, H, W, 3) of the (2B, 3, H, W) pre-tanh
+    double decode: tanh of the widened decode, uint8 with ``recons_u8``."""
+    recon = torch.tanh(pre.float()).permute(0, 2, 3, 1)
+    if recons_u8:
+        recon = quantize_recons(recon)
+    b = pre.shape[0] // 2
+    return {"recon_one": recon[:b], "recon_zero": recon[b:]}
+
+
+@torch.inference_mode()
+def _diff_forward(vae: VAE, critic: Critic, frames: torch.Tensor, cdt: torch.dtype, *,
+                  front_end: str, fused_pool, fold_bn: bool, pool_impl: str,
+                  block0_f32: bool, with_recons: bool, recons_u8: bool):
+    """The diff source of :func:`episode_forward` on float frames."""
     # block0_f32: the first convs read the float32 frames, no compute-dtype copy
     x = (frames.float() if block0_f32 else frames.to(cdt)).permute(0, 3, 1, 2).contiguous()
     if front_end == "merged":
@@ -206,9 +285,5 @@ def episode_forward(vae: VAE, critic: Critic, frames: torch.Tensor, *,
     diff, max_value = diff_mask(pre)
     out = {"preds": preds.float(), "diff": diff, "max_value": max_value}
     if with_recons:
-        recon = torch.tanh(pre.float()).permute(0, 2, 3, 1)
-        if recons_u8:
-            recon = quantize_recons(recon)
-        b = preds.shape[0]
-        out["recon_one"], out["recon_zero"] = recon[:b], recon[b:]
+        out.update(_recons(pre, recons_u8))
     return out

@@ -1,7 +1,8 @@
 """Video / mask-evaluation pipeline (counterpart of
-critic_vae_tpu/pipelines/video.py for the diff mask source).
+critic_vae_tpu/pipelines/video.py).
 
 Per frame: critic score, encode, double decode, diff/grey/max (kernel B1),
+or with ``mask_source="saliency"`` the critic's saliency maps instead,
 then the global mean-max normalisation to uint8, the threshold, the dense
 CRF and whole-stack IoU. The CRF is the exact device mean field (kernel B2,
 or the ``xla``/``int8``/``vmem`` builds) or the host C++ lattice, as
@@ -82,18 +83,40 @@ class EpisodeResult:
     crf_iou: Optional[float]
 
 
+# the JAX package's saliency_opts keys and defaults (its pipelines/video.py)
+SALIENCY_DEFAULTS = dict(logits=False, samples=1, noise=0.0, seed=0, sigma=None,
+                         method="gradient", cam_block=1, cam_upsample="lanczos3",
+                         tta_flip=False, tta_shift=0)
+
+
 def episode_device_stage(vae: VAE, critic: Critic, frames_u8: torch.Tensor,
                          batch_size: int = 512, *, compute_dtype: str = "float32",
-                         with_recons: bool = False, recons_u8: bool = False):
+                         with_recons: bool = False, recons_u8: bool = False,
+                         mask_source: str = "diff", saliency_opts: Optional[Dict] = None):
     """Run :func:`episode_forward` over device-resident uint8 frames (N, H,
     W, 3) in chunks of ``batch_size``, the last padded by repeating its last
     frame, so every chunk has one shape.
+
+    ``saliency_opts`` (read for ``mask_source="saliency"``) holds any of the
+    JAX package's keys ``logits``, ``samples``, ``noise``, ``seed``,
+    ``sigma``, ``method``, ``cam_block``, ``cam_upsample``, ``tta_flip``,
+    ``tta_shift`` (ops/saliency.py::critic_saliency's options); another key
+    raises. With SmoothGrad on (``noise > 0``) chunk k draws its noise from
+    its own generator, seeded ``seed + k``.
 
     Returns (preds (N,), max_value (N,), diff_chunks, valids, recons): the
     trimmed per-frame outputs, the per-chunk diff maps as they came (still
     padded), each chunk's count of valid frames, all on the device, and with
     ``with_recons`` the trimmed (recon_one, recon_zero) on the host (else
     None)."""
+    sal = dict(SALIENCY_DEFAULTS)
+    if saliency_opts:
+        unknown = set(saliency_opts) - set(sal)
+        if unknown:
+            raise ValueError(f"unknown saliency_opts keys: {sorted(unknown)}")
+        sal.update(saliency_opts)
+    # noise == 0 is the deterministic path whatever the sample count
+    sampling = mask_source == "saliency" and sal["noise"] > 0.0
     n = frames_u8.shape[0]
     preds, maxes, diff_chunks, valids = [], [], [], []
     recons = ([], []) if with_recons else None
@@ -103,8 +126,14 @@ def episode_device_stage(vae: VAE, critic: Critic, frames_u8: torch.Tensor,
         if valid < batch_size:
             pad = chunk[-1:].expand(batch_size - valid, -1, -1, -1)
             chunk = torch.cat([chunk, pad])
-        out = episode_forward(vae, critic, chunk, compute_dtype=compute_dtype,
-                              with_recons=with_recons, recons_u8=recons_u8)
+        out = episode_forward(
+            vae, critic, chunk, compute_dtype=compute_dtype, with_recons=with_recons,
+            recons_u8=recons_u8, mask_source=mask_source, saliency_logits=sal["logits"],
+            saliency_samples=sal["samples"], saliency_noise=sal["noise"],
+            saliency_sigma=sal["sigma"], saliency_method=sal["method"],
+            saliency_cam_block=sal["cam_block"], saliency_cam_upsample=sal["cam_upsample"],
+            saliency_tta_flip=sal["tta_flip"], saliency_tta_shift=sal["tta_shift"],
+            saliency_seed=sal["seed"] + i // batch_size if sampling else None)
         preds.append(out["preds"][:valid])
         maxes.append(out["max_value"][:valid])
         diff_chunks.append(out["diff"])
@@ -122,7 +151,9 @@ def eval_episode(vae: VAE, critic: Critic, frames_u8: np.ndarray,
                  threshold: int = 50, crf_params: Tuple = REFERENCE_CRF_PARAMS,
                  run_crf: bool = True, batch_size: int = 512, num_threads: int = 0,
                  compute_dtype: str = "float32", crf_backend: str = "auto",
-                 recons_u8: bool = False, with_recons: bool = False) -> EpisodeResult:
+                 recons_u8: bool = False, with_recons: bool = False,
+                 mask_source: str = "diff",
+                 saliency_opts: Optional[Dict] = None) -> EpisodeResult:
     """The mask pipeline over an episode (reference: eval_textured_frames).
 
     Args:
@@ -138,6 +169,10 @@ def eval_episode(vae: VAE, critic: Critic, frames_u8: np.ndarray,
         uint8 with ``recons_u8``. Off by default, so the mask path computes
         nothing more (the JAX package's default is on; its ``video`` and
         this port's pass it explicitly, on exactly when a GIF is drawn).
+      mask_source: "diff" (the reference's) or "saliency" (the critic's
+        saliency maps through the same normalisation, threshold and CRF;
+        ``diff_u8`` then holds the normalised saliency maps), with
+        ``saliency_opts`` as in :func:`episode_device_stage`.
     """
     backend = None
     if run_crf:
@@ -148,7 +183,8 @@ def eval_episode(vae: VAE, critic: Critic, frames_u8: np.ndarray,
     frames = torch.from_numpy(np.ascontiguousarray(frames_u8, dtype=np.uint8)).to(device)
     preds, max_value, diff_chunks, valids, recons = episode_device_stage(
         vae, critic, frames, batch_size, compute_dtype=compute_dtype,
-        with_recons=with_recons, recons_u8=recons_u8,
+        with_recons=with_recons, recons_u8=recons_u8, mask_source=mask_source,
+        saliency_opts=saliency_opts,
     )
     # global two-pass normalisation: the mean of the trimmed per-frame maxima
     mean_max = torch.mean(max_value)
@@ -193,7 +229,9 @@ def threshold_sweep(vae: VAE, critic: Critic, frames_u8: np.ndarray, gt: np.ndar
                     thresholds: Sequence[int] = DEFAULT_SWEEP, *, device: torch.device,
                     crf_params: Tuple = REFERENCE_CRF_PARAMS, run_crf: bool = True,
                     batch_size: int = 512, num_threads: int = 0,
-                    compute_dtype: str = "float32", crf_backend: str = "auto") -> List[Dict]:
+                    compute_dtype: str = "float32", crf_backend: str = "auto",
+                    mask_source: str = "diff",
+                    saliency_opts: Optional[Dict] = None) -> List[Dict]:
     """Threshold sweep with the device stage run once (reference: -video
     -thresh, which re-runs the whole pipeline per threshold).
 
@@ -203,7 +241,8 @@ def threshold_sweep(vae: VAE, critic: Critic, frames_u8: np.ndarray, gt: np.ndar
     counted on the device too, while the host CRF refines them one
     threshold at a time. Returns one dict per threshold: ``threshold``,
     ``thr_iou`` (3 digits) and ``crf_iou`` (3 digits, None without
-    ``run_crf``). Arguments as in :func:`eval_episode`; ``gt`` is required.
+    ``run_crf``). Arguments as in :func:`eval_episode` (``mask_source`` and
+    ``saliency_opts`` too); ``gt`` is required.
     """
     backend = None
     if run_crf:
@@ -215,6 +254,7 @@ def threshold_sweep(vae: VAE, critic: Critic, frames_u8: np.ndarray, gt: np.ndar
     gt_dev = torch.from_numpy(np.ascontiguousarray(gt, dtype=bool)).to(device)
     _, max_value, diff_chunks, valids, _ = episode_device_stage(
         vae, critic, frames, batch_size, compute_dtype=compute_dtype,
+        mask_source=mask_source, saliency_opts=saliency_opts,
     )
     mean_max = torch.mean(max_value)
     t = torch.tensor(list(thresholds), dtype=torch.int32, device=device)

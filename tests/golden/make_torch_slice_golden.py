@@ -1,5 +1,7 @@
-"""Write tests/golden/torch_slice_golden.npz and torch_sweep_golden.npz: the
-JAX package's mask-video slice and threshold sweep on the CPU, the
+"""Write tests/golden/torch_slice_golden.npz, torch_sweep_golden.npz,
+torch_slice_golden_bf16.npz and torch_saliency_golden.npz: the JAX
+package's mask-video slice, threshold sweep, bf16 runs and ``--quality``
+chain with its CRF search on the CPU, the
 references the PyTorch port is held against (by tests/test_torch_slice.py
 and tests/test_torch_sweep.py on the CPU and by chip_smoke.py on the card).
 
@@ -25,8 +27,18 @@ float32 ``xla`` build): per seed, preds, uint8 maps, threshold and CRF
 masks and both IoUs, which chip_smoke.py holds the card's bf16 runs
 against.
 
+The saliency file holds the ``--quality`` chain (LayerCAM at block 1,
+lanczos3, {id, mirror} x {0, +-2 px} TTA, threshold 64, the CAM-tuned CRF
+132,32,3.1,8,1.8,10) on 64 synthetic frames (``generate_frames(64,
+seed=21)``) through the JAX ``eval_episode`` in float32: preds, uint8 maps,
+threshold masks, the CRF masks of the Pallas build in float32 (interpret
+mode), both IoUs; and ``crf_param_search`` on a 2x2 grid (w1 in {22, 132},
+alpha in {12, 32}) over those threshold masks: the scores and parameters in
+its order and each combination's masks (its CPU build, ``xla`` in float32).
+chip_smoke.py holds the card's ``--quality`` chain and search against it.
+
 Run from the repo root:
-  JAX_PLATFORMS=cpu python tests/golden/make_torch_slice_golden.py [slice|sweep|bf16|all]
+  JAX_PLATFORMS=cpu python tests/golden/make_torch_slice_golden.py [slice|sweep|bf16|saliency|all]
 """
 
 from __future__ import annotations
@@ -46,6 +58,7 @@ sys.path.insert(0, ROOT)
 
 from critic_vae_tpu.crf import REFERENCE_CRF_PARAMS  # noqa: E402
 from critic_vae_tpu.crf.device import (  # noqa: E402
+    crf_param_search,
     refine_masks_device,
     refine_masks_multi_device,
 )
@@ -69,6 +82,14 @@ BF16_OUT = os.path.join(ROOT, "tests", "golden", "torch_slice_golden_bf16.npz")
 SWEEP = tuple(range(0, 130, 10))
 BF16_SEEDS = (0, 1)  # each the seed of the frames and of numpy_vae_params
 BUILD_FRAMES = 4  # frames refined by the int8 and vmem builds
+SALIENCY_OUT = os.path.join(ROOT, "tests", "golden", "torch_saliency_golden.npz")
+SALIENCY_FRAMES = 64
+SALIENCY_SEED = 21
+# the --quality preset of the JAX package's cli.py
+QUALITY_OPTS = {"method": "layercam", "tta_flip": True, "tta_shift": 2}
+QUALITY_CRF = (132.0, 32.0, 3.1, 8.0, 1.8, 10)
+QUALITY_THRESHOLD = 64
+SEARCH_GRID = {"w1": [22.0, 132.0], "alpha": [12.0, 32.0]}
 
 
 def device_stage():
@@ -137,6 +158,38 @@ def bf16() -> None:
           f"{[r.thr_iou for r in runs]} crf_iou={[r.crf_iou for r in runs]}")
 
 
+def saliency() -> None:
+    frames, gt = generate_frames(SALIENCY_FRAMES, seed=SALIENCY_SEED)
+    critic = load_critic(os.path.join(ROOT, "saved-networks", "critic-synthetic.npz"))
+    vae_params, bn_state = numpy_vae_params(0)
+    res = eval_episode(vae_params, bn_state, critic, frames, gt, threshold=QUALITY_THRESHOLD,
+                       run_crf=False, with_recons=False, batch_size=SALIENCY_FRAMES,
+                       mask_source="saliency", saliency_opts=QUALITY_OPTS)
+    crf = refine_masks_device(frames, res.thr_masks, QUALITY_CRF, build="pallas",
+                              compute_dtype="float32", frame_chunk=4)
+    _, results = crf_param_search(frames, res.thr_masks, gt, SEARCH_GRID, frame_chunk=4)
+    search_bits = [np.packbits(refine_masks_device(frames, res.thr_masks, p, frame_chunk=4),
+                               axis=-1) for _, p in results]
+    np.savez_compressed(
+        SALIENCY_OUT,
+        preds=np.asarray(res.preds, np.float32),
+        diff_u8=np.asarray(res.diff_u8, np.uint8),
+        thr_bits=np.packbits(res.thr_masks, axis=-1),
+        crf_bits=np.packbits(crf, axis=-1),
+        thr_iou=np.float64(res.thr_iou),
+        crf_iou=np.float64(iou(gt, crf)),
+        search_scores=np.asarray([r[0] for r in results], np.float64),
+        search_params=np.asarray([r[1] for r in results], np.float64),
+        search_bits=np.stack(search_bits),
+        num_frames=np.int64(SALIENCY_FRAMES),
+        seed=np.int64(SALIENCY_SEED),
+        threshold=np.int64(QUALITY_THRESHOLD),
+        crf_params=np.asarray(QUALITY_CRF, np.float64),
+    )
+    print(f"wrote {SALIENCY_OUT} ({os.path.getsize(SALIENCY_OUT)} bytes): thr_iou="
+          f"{res.thr_iou} crf_iou={iou(gt, crf)} search={results}")
+
+
 def main() -> None:
     frames, gt, preds, max_value, mean_max, diff_u8 = device_stage()
     thr = np.asarray(threshold_masks(diff_u8, jnp.asarray([THRESHOLD]))[0])
@@ -162,11 +215,13 @@ def main() -> None:
 
 if __name__ == "__main__":
     what = sys.argv[1] if len(sys.argv) > 1 else "all"
-    if what not in ("slice", "sweep", "bf16", "all"):
-        raise SystemExit(f"usage: {sys.argv[0]} [slice|sweep|bf16|all]")
+    if what not in ("slice", "sweep", "bf16", "saliency", "all"):
+        raise SystemExit(f"usage: {sys.argv[0]} [slice|sweep|bf16|saliency|all]")
     if what in ("slice", "all"):
         main()
     if what in ("sweep", "all"):
         sweep()
     if what in ("bf16", "all"):
         bf16()
+    if what in ("saliency", "all"):
+        saliency()

@@ -109,8 +109,9 @@ def test_refine_chunking_padding_and_device_result(episode):
 
 def test_refine_validates_inputs(episode):
     frames, _, noisy = episode
-    with pytest.raises(ValueError):
-        refine_masks_device(frames, noisy)  # numpy without a device
+    if not torch.cuda.is_available():  # numpy without a device goes to the card
+        with pytest.raises(RuntimeError, match="device 'cuda' requested"):
+            refine_masks_device(frames, noisy)
     with pytest.raises(ValueError):
         refine_masks_device(frames, noisy[:, :8], device="cpu")
     with pytest.raises(ValueError):
