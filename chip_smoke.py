@@ -162,15 +162,46 @@ exits non-zero:
    largest marginal gap printed, labels and the argmax of the marginals
    >= 99.9% equal; then B4's 3-lane instance (first launched by
    ``int8`` at L = 3) against ``matvec_i8_reference`` at C = 4 and 64 —
-   bar: relative error <= 1e-5, as phase 6.
+   bar: relative error <= 1e-5, as phase 6;
+23. the train golden: 3 float32 train steps (TF32 off) at full width from
+   ``numpy_vae_params(0)`` on the 16 frames and with the reparametrize draws
+   of tests/golden/torch_train_golden.npz (``make_torch_slice_golden.py
+   train``: the JAX package's train step on the CPU) — per-step total and
+   recon losses within 1e-5 relative, kld within 1e-4, BN running variances
+   within 1e-4 relative and means within 1.5 lr, parameter changes at 64
+   seeded positions a leaf within 0.25 lr (the encoder's conv biases, moved
+   by Adam on float noise, within 2 lr a step); then a step on a batch with
+   a NaN frame: parameters, Adam's state and BN stats bitwise unchanged,
+   the guard's counters and the step advanced;
+24. training throughput: the multi-step loop at full width, batch 128,
+   on a device-resident uint8 dataset of 2048 frames, 200 steps in chunks
+   of 50 after a warm-up, in float32 (TF32 off) and bfloat16: frames/s,
+   peak memory, the loss falling (the mean of the last 20 steps under the
+   first 20's), the share of the operations bound (the step's FLOPs from
+   the shapes over 67 TFLOP/s f32 or 989 TFLOP/s bf16), and a
+   torch.profiler kernel list of 10 more steps with the device's idle share
+   and the launches a step;
+25. the commands, in this process through the port's ``main``: ``train
+   --source synthetic:2:256 --epochs 1 --batch-size 128`` (exit 0, a
+   checkpoint, the artifacts), the same again (it resumes and takes no
+   step); ``eval``, ``inject --values 0,0.5,1`` and ``evalsecond`` on PNGs
+   of the 16 frames of tests/golden/torch_slice_golden.npz with
+   ``numpy_vae_params(0)`` artifacts under ``--root`` — eval's and
+   evalsecond's maps (the strips' 4th panel) >= 99.9% within one level of
+   the golden's (without Pillow these three are not run, and say so); then
+   ``evaluate_images`` over 1024 + 16 frames as a main path (launch counts
+   set to 0 just before and read just after: B1 once a 512-frame chunk),
+   the 16 frames' maps >= 99.9% within one level and preds within 1e-4 of
+   the golden's, and B1 against its plain version on eval's float32 decodes
+   (2 x 512 and 2 x 16 frames) — bar: max abs error <= 1e-6.
 
 ``python3 chip_smoke.py --bf16-golden-only [--port DIR]`` runs phases 1, 2
 and 17 alone, driving the critic_vae_tpu_torch package in DIR (for example
 an older checkout) against this checkout's goldens.
 
 The second-to-last line is a JSON object with, for each of the seven kernels
-(B1-B5, P1, P2), its launches on the paths that run it (phases 9, 11, 12
-and 20-22), its error against
+(B1-B5, P1, P2), its launches on the paths that run it (phases 9, 11, 12,
+20-22 and 25), its error against
 its plain version, its times, its bound (the larger of its bytes over the
 HBM rate and its operations over the peak rate of their type, from this
 run's shapes) and the time of one PyTorch call computing the same function
@@ -183,7 +214,7 @@ Python wrapper (P1's rows sum the three questions, with ``empty_ms`` the
 empty kernel's device time); the other kernels' ``ms`` are CUDA-event times
 of calls, which their device time dominates. The last line is {"ok": true,
 "device": {...}}. Without CUDA the script fails and prints no result. About
-two and a half minutes on an H100, the build (~10 s) included.
+three minutes on an H100, the build (~10 s) included.
 """
 
 from __future__ import annotations
@@ -1685,6 +1716,407 @@ def phase_densecrf(dev):
     return launches, row
 
 
+# ---------------------------------------------------------------- training
+
+TRAIN_GOLDEN = ROOT / "tests" / "golden" / "torch_train_golden.npz"
+TRAIN_BATCH = 128           # the reference's batch (vae_parameters.py)
+TRAIN_STEPS = 200           # timed steps a dtype
+TRAIN_CHUNK = 50            # steps a dispatch of the multi-step loop, and a timed window
+TRAIN_FRAMES = 2048         # the device-resident uint8 dataset of phase 24
+TRAIN_GOLDEN_RUNS = 3       # phase 23 repeats its 3 steps from fresh states
+EVAL_FRAMES = 1024          # phase 25's in-process eval: two chunks of 512
+# phase 23's bars (tests/test_torch_train.py states why): per-step total and
+# recon losses within 1e-5 relative; parameter changes within 0.25 lr, the
+# encoder's conv biases (zero gradient in exact arithmetic, so Adam moves them
+# on float noise) within 2 lr a step; step 1's BN stats (the same parameters)
+# within 1e-6, means absolute and variances relative. The kld and, after 3
+# steps, the BN variances follow the parameters' drift: cuDNN's float32
+# backward sums in other orders than the CPU's (and differs run to run), and
+# Adam's first steps turn that noise into moves of up to lr. Their bars are
+# about 2x the worst of 12 runs (NVIDIA H100 80GB HBM3, 700 W): kld 1.25e-05
+# to 2.35e-05 relative (step 1 alone 4.75e-07), variances 2.04e-05 to
+# 2.10e-05; BN means within 1.5 lr after 3 steps
+TRAIN_LOSS_REL = {"total_loss": 1e-5, "recon_loss": 1e-5, "kld": 5e-5}
+TRAIN_BN_VAR_REL = 5e-5
+TRAIN_BN1 = 1e-6            # step 1's BN stats: means absolute, variances relative
+ENC_CONV_BIASES = {f"encoder/conv{i}/b" for i in range(4)}
+
+
+def _leaf(tree, name):
+    for k in name.split("/"):
+        tree = tree[k]
+    return tree
+
+
+def _bn_errors(bns, gold, suffix=""):
+    """(worst absolute error of the running means, worst relative error of
+    the running variances) against the golden's ``bn<i>_mean|var<suffix>``."""
+    import numpy as np
+
+    mean = max(float(np.abs(bn.running_mean.cpu().numpy() - gold[f"bn{i}_mean{suffix}"]).max())
+               for i, bn in enumerate(bns))
+    var = max(float(np.abs(bn.running_var.cpu().numpy() / gold[f"bn{i}_var{suffix}"] - 1).max())
+              for i, bn in enumerate(bns))
+    return mean, var
+
+
+def _kl_split(vae, x, gold) -> dict:
+    """Step 1's kld against JAX's, split: the train-mode encoder's mu and
+    logvar against the golden's (same parameters, same frames), the KL's own
+    float32 rounding on the card's mu and logvar (against float64 on the
+    same tensors), and the card's float64 KL against JAX's float64 KL of its
+    own mu and logvar."""
+    import numpy as np
+    import torch
+
+    from critic_vae_tpu_torch.ops.losses import KLD_WEIGHT, kld_loss
+
+    with no_tf32(), torch.no_grad():
+        mu, logvar, _ = vae.encode(x, train=True)
+    jmu, jlv = (torch.from_numpy(gold[k]).double() for k in ("mu1", "logvar1"))
+    card64 = KLD_WEIGHT * kld_loss(mu.double().cpu(), logvar.double().cpu()).item()
+    jax64 = KLD_WEIGHT * kld_loss(jmu, jlv).item()
+    return {"mu_abs": (mu.double().cpu() - jmu).abs().max().item(),
+            "logvar_abs": (logvar.double().cpu() - jlv).abs().max().item(),
+            "kl_f32_vs_f64": abs(KLD_WEIGHT * kld_loss(mu, logvar).item() / card64 - 1),
+            "kl64_card_vs_jax": abs(card64 / jax64 - 1),
+            "kl_jax_f32_vs_f64": abs(float(gold["kld"][0]) / jax64 - 1)}
+
+
+def _golden_run(state, step, batch, gold, params) -> dict:
+    """The golden's 3 steps on a fresh ``state``: each measure's worst error."""
+    import numpy as np
+    import torch
+
+    from critic_vae_tpu_torch.io import weights
+
+    lr, rows = float(gold["lr"]), []
+    with no_tf32():
+        for t, e in enumerate(gold["eps"]):
+            rows.append(step(state, batch, torch.from_numpy(e).to(batch.device)))
+            if t == 0:
+                bn1 = _bn_errors(state.vae.encoder.bns, gold, "_1")
+    losses = {k: np.asarray([r[k].item() for r in rows]) for k in rows[0]}
+    got_p, _ = weights.vae_to_params(state.vae)
+    worst, worst_bias = 0.0, 0.0
+    for key in gold.files:
+        if key.startswith("delta/"):
+            name = key[len("delta/"):]
+            delta = (_leaf(got_p, name) - _leaf(params, name)).ravel()[gold[f"index/{name}"]]
+            err = float(np.abs(delta - gold[key]).max()) / lr
+            if name in ENC_CONV_BIASES:
+                worst_bias = max(worst_bias, err)
+            else:
+                worst = max(worst, err)
+    mean_err, var_rel = _bn_errors(state.vae.encoder.bns, gold)
+    return {"total_loss": losses["total_loss"],
+            "kld_steps": [float(v) for v in np.abs(losses["kld"] / gold["kld"] - 1)],
+            "loss_rel": {k: float(np.max(np.abs(losses[k] / gold[k] - 1))) for k in losses},
+            "bn1_mean": bn1[0], "bn1_var": bn1[1], "params": worst, "biases": worst_bias,
+            "bn_mean": mean_err, "bn_var": var_rel}
+
+
+def phase_train_golden(dev, critic):
+    """23: 3 float32 train steps at full width (TF32 off) from
+    numpy_vae_params(0) on the golden's 16 frames with its draws, against
+    tests/golden/torch_train_golden.npz, repeated from fresh states, with
+    step 1's kld error split into the encoder's and the KL's own; then a step
+    on a batch with a NaN frame: parameters, Adam's state and BN stats
+    unchanged, counters moved."""
+    import numpy as np
+    import torch
+
+    from critic_vae_tpu_torch.data.synthetic import generate_frames
+    from critic_vae_tpu_torch.io import weights
+    from critic_vae_tpu_torch.train.step import init_train_state, make_train_step
+
+    gold = np.load(TRAIN_GOLDEN)
+    lr, steps = float(gold["lr"]), int(gold["steps"])
+    params, bn_state = weights.numpy_vae_params(int(gold["seed"]))
+    frames = generate_frames(int(gold["batch"]), seed=int(gold["seed"]))[0]
+    batch = torch.from_numpy(frames).to(dev)
+    step = make_train_step(critic, learning_rate=lr)
+    state = init_train_state(params, bn_state, device=dev)
+    kl = _kl_split(state.vae, batch.float().div(255.0).permute(0, 3, 1, 2).contiguous(), gold)
+    log(f"[23 train golden] step 1's kld split: the train-mode encoder's mu within "
+        f"{kl['mu_abs']:.3e}, logvar within {kl['logvar_abs']:.3e} of JAX's; the KL in float64 "
+        f"of the card's mu/logvar {kl['kl64_card_vs_jax']:.3e} relative of JAX's float64; the "
+        f"KL's own float32 rounding {kl['kl_f32_vs_f64']:.3e} on the card, "
+        f"{kl['kl_jax_f32_vs_f64']:.3e} in JAX")
+    runs = []
+    for r in range(TRAIN_GOLDEN_RUNS):
+        if r:
+            state = init_train_state(params, bn_state, device=dev)
+        runs.append(_golden_run(state, step, batch, gold, params))
+        g = runs[-1]
+        log(f"[23 train golden] run {r + 1}/{TRAIN_GOLDEN_RUNS}: {steps} f32 steps, batch "
+            f"{int(gold['batch'])}, full width, TF32 off: losses "
+            f"{[round(float(v), 7) for v in g['total_loss']]} vs JAX "
+            f"{[round(float(v), 7) for v in gold['total_loss']]}; worst relative errors "
+            + ", ".join(f"{k} {v:.3e} (bar {TRAIN_LOSS_REL[k]:g})" for k, v in g["loss_rel"].items())
+            + f" (kld by step {', '.join(f'{v:.2e}' for v in g['kld_steps'])})"
+            + f"; step 1's BN means within {g['bn1_mean']:.3e}, variances {g['bn1_var']:.3e} "
+            f"relative (bar {TRAIN_BN1:g}); parameter changes within {g['params']:.4f} lr "
+            f"(bar 0.25), encoder conv biases {g['biases']:.3f} lr (bar {2 * steps}); BN means "
+            f"within {g['bn_mean']:.3e} (bar {1.5 * lr:.1e}), variances {g['bn_var']:.3e} "
+            f"relative (bar {TRAIN_BN_VAR_REL:g})")
+    for g in runs:
+        require(all(v <= TRAIN_LOSS_REL[k] for k, v in g["loss_rel"].items()),
+                f"train golden: loss relative errors {g['loss_rel']}")
+        require(g["params"] <= 0.25 and g["biases"] <= 2 * steps,
+                "train golden: parameters differ")
+        require(g["bn1_mean"] <= TRAIN_BN1 and g["bn1_var"] <= TRAIN_BN1,
+                "train golden: step 1's BN stats differ")
+        require(g["bn_mean"] <= 1.5 * lr and g["bn_var"] <= TRAIN_BN_VAR_REL,
+                "train golden: BN stats differ")
+    # a NaN frame: the guard skips the update on the card, with no host sync
+    bad = batch.float() / 255.0
+    bad[3, 10, 10, 1] = float("nan")
+    tensors = (state.params + state.mu + state.nu + state.counts
+               + [b for bn in state.vae.encoder.bns for b in (bn.running_mean, bn.running_var)])
+    before = [t.detach().clone() for t in tensors]
+    with no_tf32():
+        loss = step(state, bad)["total_loss"].item()
+    unchanged = all(torch.equal(a, b) for a, b in zip(before, tensors))
+    counters = (int(state.notfinite_count), bool(state.last_finite),
+                int(state.total_notfinite), int(state.step))
+    log(f"[23 train golden] a batch with a NaN frame: loss {loss}; parameters, Adam state and "
+        f"BN stats unchanged {unchanged}; (notfinite_count, last_finite, total_notfinite, "
+        f"step) {counters}")
+    require(unchanged and counters == (1, False, 1, steps + 1), "the non-finite guard failed")
+
+
+def train_step_flops(batch: int) -> dict:
+    """Operations of one train step at full width, counted from the shapes:
+    the forward's convs and matmuls (the encoder's 5x5 convs, the decoder's
+    linear, first conv and 4 phase-split upsample convs of 9 taps an output,
+    the critic), 3 times that for forward and backward of the VAE, and the
+    MS-SSIM windows (2 separable 11-tap passes of 5 maps a scale) 3 times."""
+    dims, c = (32, 64, 128, 256), 3
+    enc = sum(2 * (64 >> i) ** 2 * cin * cout * 25
+              for i, (cin, cout) in enumerate(zip((c,) + dims[:-1], dims)))
+    enc += 2 * 2 * 4096 * 32
+    dec = 2 * 33 * 4096 + 2 * 16 * 256 * 128 * 25
+    for side, (cin, cout) in zip((8, 16, 32, 64), ((128, 64), (64, 32), (32, 32), (32, 3))):
+        dec += 2 * side * side * cin * cout * 9
+    critic = (2 * 64 * 64 * 3 * 8 * 9 + 2 * 32 * 32 * 8 * 8 * 9 + 2 * 16 * 16 * 8 * 8 * 9
+              + 2 * 8 * 8 * 8 * 16 * 9 + 2 * 16 * 16 * 32 + 2 * 32 * 32 + 2 * 32)
+    msssim = sum(5 * 2 * 11 * 2 * (64 >> s) ** 2 * c for s in range(5))
+    per_frame = 3 * (enc + dec) + critic + 3 * msssim
+    return {"forward_gflop_per_frame": (enc + dec) / 1e9, "step_flops": per_frame * batch}
+
+
+def phase_train_throughput(dev, critic):
+    """24: the multi-step loop at full width, batch 128, on a device-resident
+    uint8 dataset: frames/s over 200 steps after warm-up in float32 (TF32 off)
+    and bfloat16, timed as 4 windows of 50 steps (median and spread), peak
+    memory, the loss over the run, a torch.profiler kernel list with the
+    device's idle share, and the share of the operations bound."""
+    import numpy as np
+    import torch
+
+    from critic_vae_tpu_torch.data.synthetic import generate_frames
+    from critic_vae_tpu_torch.io import weights
+    from critic_vae_tpu_torch.train.step import init_train_state, make_multi_step
+
+    data = torch.from_numpy(generate_frames(TRAIN_FRAMES, seed=3)[0]).to(dev)
+    rng = np.random.default_rng(0)
+    flops = train_step_flops(TRAIN_BATCH)
+    for dtype, peak in (("float32", F32_FLOPS), ("bfloat16", BF16_FLOPS)):
+        state = init_train_state(*weights.numpy_vae_params(0), device=dev)
+        multi = make_multi_step(critic, compute_dtype=dtype)
+
+        def idx(k):
+            rows = [rng.permutation(TRAIN_FRAMES)[:TRAIN_BATCH] for _ in range(k)]
+            return torch.from_numpy(np.stack(rows).astype(np.int32)).to(dev)
+
+        with no_tf32():
+            multi(state, data, idx(10))  # warm-up: cuDNN's algorithm choices
+            windows = [idx(TRAIN_CHUNK) for _ in range(TRAIN_STEPS // TRAIN_CHUNK)]
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            losses, window_ms = [], []
+            for w in windows:
+                t0 = time.perf_counter()
+                losses.append(multi(state, data, w)["total_loss"])
+                torch.cuda.synchronize()
+                window_ms.append(1e3 * (time.perf_counter() - t0) / TRAIN_CHUNK)
+            peak_mem = torch.cuda.max_memory_allocated(dev)
+            losses = torch.cat(losses).cpu().numpy()
+            prof_idx = idx(10)
+            torch.cuda.synchronize()
+            with torch.profiler.profile(
+                    activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+                w0 = time.perf_counter()
+                multi(state, data, prof_idx)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - w0
+        events = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+        events.sort(key=lambda e: e.self_device_time_total, reverse=True)
+        kernel_ms = sum(e.self_device_time_total for e in events) / 1e3
+        per_step = sum(e.count for e in events) / 10
+        step_ms = float(np.median(window_ms))
+        bound_ms = 1e3 * flops["step_flops"] / peak
+        first, last = float(losses[:20].mean()), float(losses[-20:].mean())
+        rate = 1e3 * TRAIN_BATCH / step_ms
+        idle = max(0.0, 1.0 - kernel_ms / (1e3 * wall))
+        # the profiler slows the host: against the timed steps' wall instead
+        idle_timed = max(0.0, 1.0 - kernel_ms / 10 / step_ms)
+        log(f"[24 train {dtype}] batch {TRAIN_BATCH}, {len(window_ms)} windows of "
+            f"{TRAIN_CHUNK} steps: ms a step {[round(v, 3) for v in window_ms]}, median "
+            f"{step_ms:.3f} (spread {min(window_ms):.3f}-{max(window_ms):.3f}, "
+            f"{max(window_ms) / min(window_ms) - 1:.1%}), {rate:.1f} frames/s at the median; "
+            f"peak memory {peak_mem / 2**30:.3f} GiB; loss {first:.5f} (first 20) -> "
+            f"{last:.5f} (last 20); bound {bound_ms:.3f} ms a step "
+            f"({flops['step_flops'] / 1e9:.1f} GFLOP at {peak / 1e12:g} TFLOP/s; forward "
+            f"{flops['forward_gflop_per_frame']:.3f} GFLOP a frame), {bound_ms / step_ms:.1%} of "
+            f"it reached")
+        log(f"[24 train {dtype}] profile of 10 more steps: {kernel_ms / 10:.3f} ms of kernels a "
+            f"step in {1e2 * wall:.3f} ms of wall a step under the profiler, device idle "
+            f"{idle:.1%} (against the timed median's {step_ms:.3f} ms: {idle_timed:.1%}); "
+            f"{per_step:.0f} kernel launches a step")
+        for e in events[:8]:
+            log(f"[24 train {dtype}]   {e.self_device_time_total / 1e3:9.3f} ms x{e.count:<5d} "
+                f"{e.key[:100]}")
+        require(np.isfinite(losses).all() and last < first,
+                f"train {dtype}: the loss did not fall ({first} -> {last})")
+        require(all(t.dtype == torch.float32 for t in state.params + state.mu + state.nu),
+                f"train {dtype}: the state left float32")
+        del state, multi
+
+
+def _cli(args):
+    """``python -m critic_vae_tpu_torch ARGS`` in this process (the same
+    entry point, without a second process's start): (exit code, stdout lines)."""
+    import io
+
+    from critic_vae_tpu_torch.cli import main as cli_main
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli_main(args)
+    return rc, [ln for ln in buf.getvalue().replace("\r", "\n").splitlines() if ln.strip()]
+
+
+def phase_train_commands(dev, critic, scratch: Path):
+    """25: ``train --source synthetic:2:256 --epochs 1 --batch-size 128``
+    twice (the second resumes and takes no step); with Pillow,
+    :func:`_eval_commands`; then ``evaluate_images`` over 1024 + 16 frames
+    with the launch counts set to 0 just before and read just after, the 16
+    golden frames' maps and preds at the bars against the golden's, and B1
+    against its plain version at the shapes eval gives it."""
+    import numpy as np
+    import torch
+
+    from critic_vae_tpu_torch.data.synthetic import generate_frames
+    from critic_vae_tpu_torch.io import checkpoint as ckpt_io
+    from critic_vae_tpu_torch.io import weights
+    from critic_vae_tpu_torch.ops.diff_mask import diff_mask, diff_mask_reference
+    from critic_vae_tpu_torch.ops.mask import decode_pair
+    from critic_vae_tpu_torch.pipelines.evaluate import evaluate_images
+
+    root = scratch / "root_train"
+    root.mkdir()
+    train_args = ["train", "--source", "synthetic:2:256", "--epochs", "1", "--batch-size",
+                  str(TRAIN_BATCH), "--root", str(root), "--log-dir", str(root / "logs"),
+                  "--device", dev.type]
+    t0 = time.perf_counter()
+    rc, lines = _cli(train_args)
+    secs = time.perf_counter() - t0
+    first = ckpt_io.latest_checkpoint(str(root / "checkpoints"))
+    log(f"[25 commands] train: exit {rc} in {secs:.1f} s; " + " | ".join(lines)
+        + f"; checkpoint {first}")
+    require(rc == 0 and first is not None and first[1] > 0, "train failed")
+    require((root / "saved-networks" / "vae_encoder.ckpt").is_file(), "train saved no encoder")
+    rc, lines = _cli(train_args)
+    again = ckpt_io.latest_checkpoint(str(root / "checkpoints"))
+    log(f"[25 commands] train again: exit {rc}; " + " | ".join(lines))
+    require(rc == 0 and any(ln.startswith("resumed from") for ln in lines)
+            and again[1] == first[1], "the second train did not resume without a step")
+    weights.load_final_weights(str(root / "saved-networks" / "vae_encoder.ckpt"),
+                               str(root / "saved-networks" / "vae_decoder.ckpt"))
+
+    gold = np.load(ROOT / "tests" / "golden" / "torch_slice_golden.npz")
+    n = int(gold["num_frames"])
+    frames = generate_frames(n, seed=int(gold["seed"]))[0]
+    params, state = weights.numpy_vae_params(int(gold["seed"]))
+    try:
+        import PIL  # noqa: F401  (the commands read and write PNGs)
+    except ImportError:
+        log("[25 commands] Pillow is not installed: eval, inject and evalsecond are not run "
+            "(they read PNGs); evaluate_images runs below")
+    else:
+        _eval_commands(dev, scratch, frames, params, state, gold)
+
+    # the main path in-process: B1 launched at the eval batch, held against its plain version
+    vae = weights.vae_from_params(params, state).to(dev)
+    many = generate_frames(EVAL_FRAMES, seed=5)[0].astype(np.float32) / 255.0
+    stills = frames.astype(np.float32) / 255.0
+    evaluate_images(vae, critic, stills, device=dev)  # warm-up
+    res, launches = _drive("eval", lambda: (evaluate_images(vae, critic, many, device=dev),
+                                            evaluate_images(vae, critic, stills, device=dev)),
+                           ("diff_mask",), EVAL_FRAMES + n, phase="25 commands")
+    require(launches["diff_mask"] == EVAL_FRAMES // MAIN_BATCH + 1, f"eval launches {launches}")
+    require(all(r["diff_u8"].shape == (len(x), H, W) and np.isfinite(r["preds"]).all()
+                for r, x in zip(res, (many, stills))), "eval results malformed")
+    within = float(np.mean(np.abs(res[1]["diff_u8"].astype(int) - gold["diff_u8"].astype(int))
+                           <= 1))
+    pred_err = float(np.abs(res[1]["preds"] - gold["preds"]).max())
+    log(f"[25 commands] evaluate_images on the golden's {n} frames: maps within one level of "
+        f"the JAX package's {within:.6f} (bar 0.999), preds max_abs_err {pred_err:.3e} "
+        f"(bar 1e-4)")
+    require(within >= 0.999 and pred_err <= 1e-4, "evaluate_images against the golden")
+    err = 0.0
+    with torch.inference_mode(), no_tf32():
+        for x in (many[:MAIN_BATCH], stills):
+            xt = torch.from_numpy(x).to(dev).permute(0, 3, 1, 2).contiguous()
+            pre = decode_pair(vae, xt, critic(xt)[:, 0])
+            (gk, mk), (gr, mr) = diff_mask(pre), diff_mask_reference(pre)
+            err = max(err, (gk - gr).abs().max().item(), (mk - mr).abs().max().item())
+    log(f"[25 commands] B1 at eval's f32 decodes (2 x {MAIN_BATCH}, 3, 64, 64) and "
+        f"(2 x {n}, 3, 64, 64): max_abs_err {err:.3e} against its plain version (bar 1e-6)")
+    require(err <= 1e-6, f"B1 at eval's shapes: {err}")
+    return launches, err
+
+
+def _eval_commands(dev, scratch: Path, frames, params, state, gold):
+    """``eval``, ``inject --values 0,0.5,1`` and ``evalsecond`` on PNGs of
+    the golden's frames with ``numpy_vae_params`` artifacts: exit 0, a strip
+    a frame, eval's and evalsecond's maps (the strips' 4th panel) >= 99.9%
+    within one level of the golden's."""
+    import numpy as np
+    from PIL import Image
+
+    from critic_vae_tpu_torch.io import checkpoint as ckpt_io
+
+    n = len(frames)
+    eroot = scratch / "root_eval"
+    (eroot / "source-images").mkdir(parents=True)
+    for i, f in enumerate(frames):
+        Image.fromarray(f).save(eroot / "source-images" / f"frame-{i:02d}.png")
+    for enc, dec in (("saved-networks/vae_encoder.ckpt", "saved-networks/vae_decoder.ckpt"),
+                     ("vae2_encoder.ckpt", "vae2_decoder.ckpt")):
+        ckpt_io.save_pytree(str(eroot / enc), {"params": params["encoder"], "bn_state": state})
+        ckpt_io.save_pytree(str(eroot / dec), {"params": params["decoder"]})
+    common = ["--root", str(eroot), "--device", dev.type]
+    for command, extra, out in (("eval", [], "images"), ("inject", ["--values", "0,0.5,1"],
+                                                         "inject"),
+                                ("evalsecond", ["--out", str(eroot / "second")], "second")):
+        rc, lines = _cli([command, *common, *extra])
+        log(f"[25 commands] {command}: exit {rc}; " + " | ".join(lines))
+        require(rc == 0 and len(list((eroot / out).glob("image-*.png"))) == n,
+                f"{command} failed")
+        if command != "inject":
+            maps = np.stack([np.asarray(Image.open(eroot / out / f"image-{i:03d}.png"))
+                             [:, 3 * W:4 * W, 0] for i in range(n)])
+            within = float(np.mean(np.abs(maps.astype(int) - gold["diff_u8"].astype(int)) <= 1))
+            equal = float(np.mean(maps == gold["diff_u8"]))
+            log(f"[25 commands] {command}'s maps against the JAX package's (golden): within one "
+                f"level {within:.6f} (bar 0.999), equal {equal:.6f}")
+            require(within >= 0.999, f"{command}: maps within one level {within}")
+    require(Image.open(eroot / "inject" / "image-000.png").size == (4 * W, H), "inject strips")
+
+
 def b1_bound(itemsize: int) -> dict:
     """B1's bound at the main path's (2 x 512, 3, 64, 64) decode of
     ``itemsize``-byte values: the decode read once, the f32 grey and maxima
@@ -1720,6 +2152,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Smoke test of the PyTorch/CUDA port on one card.")
     ap.add_argument("--bf16-golden-only", action="store_true",
                     help="run only the card's identity, the build and phase 17")
+    ap.add_argument("--train-only", action="store_true",
+                    help="run only the card's identity, the build and phases 23-24")
     ap.add_argument("--port", type=Path, default=ROOT,
                     help="directory holding the critic_vae_tpu_torch package to drive "
                          "(default: this script's; the goldens are always this script's)")
@@ -1747,6 +2181,15 @@ def main(argv=None) -> int:
         phase_identity()
         phase_build()
         phase_bf16_golden(dev, synthetic_models(dev)[0])
+        return 0
+    if args.train_only:
+        from critic_vae_tpu_torch.io.weights import synthetic_models
+
+        phase_identity()
+        phase_build()
+        critic = synthetic_models(dev)[0]
+        phase_train_golden(dev, critic)
+        phase_train_throughput(dev, critic)
         return 0
 
     phase_identity()
@@ -1781,7 +2224,12 @@ def main(argv=None) -> int:
     ls, _ = phase_search(dev, gold_frames, gold_gt, thr_gold, res_q,
                          *generate_frames(MAIN_FRAMES, seed=0))
     ld, b4_l3 = phase_densecrf(dev)
-    launches = {k: launches[k] + lq[k] + ls[k] + ld[k] for k in launches}
+    phase_train_golden(dev, critic)
+    phase_train_throughput(dev, critic)
+    with tempfile.TemporaryDirectory() as scratch:
+        le, b1_eval_err = phase_train_commands(dev, critic, Path(scratch))
+    launches = {k: launches[k] + lq[k] + ls[k] + ld[k] + le[k] for k in launches}
+    b1 = {**b1, "max_abs_err": max(b1["max_abs_err"], b1_eval_err)}
     b4 = {**b4, **b4_l3, "max_abs_err": max(b4["max_abs_err"], b4_l3["max_abs_err_l3"])}
     bounds = dict(zip(("b1", "b2", "b3", "b4", "b5"), crf_bounds()))
 

@@ -8,8 +8,10 @@ can be held against each other on the same inputs. Inside, models run NCHW
 as ``nn.Module``s and every function takes an explicit ``device``.
 
 Besides the diff mask source it carries the critic's saliency masks
-(``ops/saliency.py``, the ``--quality`` chain) and the device CRF's
-``densecrf_device`` and parameter search. The TPU kernels on the mask-video
+(``ops/saliency.py``, the ``--quality`` chain), the device CRF's
+``densecrf_device`` and parameter search, image eval and inject
+(``pipelines/evaluate.py``) and VAE training (``train/step.py``,
+``pipelines/train.py``, the ``train`` command). The TPU kernels on the mask-video
 path, its threshold sweep and the ``int8``/``vmem`` CRF builds, and the
 probes of the fused front-end kernel
 (``probes/``), are hand-written CUDA C++ under ``csrc/`` (built by

@@ -1,4 +1,23 @@
-"""Command line of the port: ``python -m critic_vae_tpu_torch video ...``.
+"""Command line of the port: ``python -m critic_vae_tpu_torch
+{video,train,eval,inject,evalsecond} ...``, the JAX package's modes of the
+same names (critic_vae_tpu/cli.py).
+
+``train`` collects a balanced training set from ``--source``
+(``synthetic[:N[:T]]`` or a directory of ``.npy`` trajectories) with the
+critic, trains the VAE (checkpoints under ``--root``/checkpoints, resumed
+unless ``--no-resume``, TensorBoard events and a JSONL mirror under
+``--log-dir``), and writes the encoder and decoder artifacts in the JAX
+package's layout to ``--root``/saved-networks/vae_{encoder,decoder}.ckpt,
+which ``eval``, ``inject`` and ``video`` read. It starts from
+``numpy_vae_params(--seed)``, not the JAX package's threefry draw.
+``--mask-distill`` is not ported yet (``error: ...``, exit 1);
+``--no-shard-dataset`` has no effect on one card.
+
+``eval`` (``evalsecond``: the second VAE's ``vae2_*.ckpt``) writes a
+4-panel strip a still of ``--images`` (default ``--root``/source-images) to
+``--out`` (default ``--root``/images); ``inject`` writes each still beside
+its reconstructions at ``--values`` (default 0,0.2,…,1) to ``--out``
+(default ``--root``/inject).
 
 The ``video`` subcommand is the JAX package's ``video`` mode
 (critic_vae_tpu/cli.py ``cmd_video``): critic, VAE double decode, diff
@@ -41,9 +60,17 @@ from pathlib import Path
 from typing import Optional
 
 DEFAULT_CRITIC = Path(__file__).resolve().parent.parent / "saved-networks" / "critic-synthetic.npz"
-# the JAX package's output paths under --root (its config.py PathConfig)
+# the JAX package's paths under --root (its config.py PathConfig)
 BIN_INFO_PATH = "bin_info_vae1.txt"
 VIDEO_PATH = "videos"
+ENCODER_PATH = "saved-networks/vae_encoder.ckpt"
+DECODER_PATH = "saved-networks/vae_decoder.ckpt"
+SECOND_ENCODER_PATH = "vae2_encoder.ckpt"
+SECOND_DECODER_PATH = "vae2_decoder.ckpt"
+SOURCE_IMAGES_PATH = "source-images"
+SAVE_PATH = "images"
+INJECT_PATH = "inject"
+CHECKPOINT_PATH = "checkpoints"
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -117,7 +144,64 @@ def build_parser() -> argparse.ArgumentParser:
     v.add_argument("--no-crf", action="store_true")
     v.add_argument("--no-gif", action="store_true")
     v.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    _add_train(sub)
+    for name, help_ in (("eval", "evaluate source images (reference default mode)"),
+                        ("inject", "injection ladder strips (reference: -inject)"),
+                        ("evalsecond", "evaluate with the second VAE's weights "
+                                       "(reference: -evalsecond)")):
+        e = sub.add_parser(name, help=help_)
+        _add_common(e)
+        e.add_argument("--encoder", default=None, help="encoder artifact (.ckpt)")
+        e.add_argument("--decoder", default=None, help="decoder artifact (.ckpt)")
+        e.add_argument("--images", default=None, help="source images directory")
+        e.add_argument("--out", default=None, help="output directory")
+        if name == "inject":
+            e.add_argument("--values", default=None,
+                           help="comma-separated critic values to inject "
+                           "(default: 0,0.2,0.4,0.6,0.8,1 — reference vae_nets.py:31)")
     return p
+
+
+def _add_common(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--root", default=".", help="working directory (paths resolve against it)")
+    p.add_argument("--critic", default=str(DEFAULT_CRITIC),
+                   help="critic: .npz (JAX flat format) or the reference's torch .pt")
+    p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+
+
+def _add_train(sub) -> None:
+    t = sub.add_parser("train", help="train the VAE (reference: -train)")
+    _add_common(t)
+    # the defaults are the JAX package's TrainConfig's (reference: vae_parameters.py)
+    t.add_argument("--seed", type=int, default=0,
+                   help="seed of the initial weights, the noise and the shuffle")
+    t.add_argument("--source", default="synthetic",
+                   help="trajectory source: synthetic[:N[:T]] | minerl:<root> | <npy dir>")
+    t.add_argument("--epochs", type=int, default=7)
+    t.add_argument("--batch-size", type=int, default=128)
+    t.add_argument("--lr", type=float, default=5e-5)
+    t.add_argument("--kld-weight", type=float, default=1e-3)
+    t.add_argument("--total-images", type=int, default=50_000)
+    t.add_argument("--no-resume", action="store_true")
+    t.add_argument("--log-dir", default=None)
+    t.add_argument("--log-images", action="store_true",
+                   help="log an originals-vs-reconstructions probe strip every epoch")
+    t.add_argument("--correct-msssim", action="store_true",
+                   help="train with textbook MS-SSIM instead of the reference's variant")
+    t.add_argument("--dtype", default="float32", choices=["float32", "bfloat16"],
+                   help="conv/matmul compute dtype of the train step (params, Adam "
+                   "state, BN stats and the loss stay float32)")
+    t.add_argument("--value-consistency", type=float, default=0.0, metavar="W",
+                   help="weight of the auxiliary loss that the frozen critic read "
+                   "decode(mu, 0) as 0 and decode(mu, v) as v; 0 = off")
+    t.add_argument("--mask-distill", type=float, default=0.0, metavar="W",
+                   help="self-distillation of the mask path: not ported yet")
+    t.add_argument("--no-shard-dataset", action="store_true",
+                   help="accepted for the JAX package's command line; one card holds "
+                   "the whole dataset")
+    t.add_argument("--film", action="store_true",
+                   help="zero-initialised FiLM (gamma, beta) per decoder stage from the "
+                   "critic value")
 
 
 def _parse_sweep_range(spec: str) -> list:
@@ -332,6 +416,78 @@ def cmd_video(args) -> int:
     return 0
 
 
+def cmd_train(args) -> int:
+    import time
+
+    if args.mask_distill > 0.0:
+        print("error: --mask-distill is not ported yet (pipelines/distill.py)", file=sys.stderr)
+        return 1
+    from critic_vae_tpu_torch.data.sampler import balanced_critic_sampler
+    from critic_vae_tpu_torch.data.sources import open_source
+    from critic_vae_tpu_torch.device import resolve_device
+    from critic_vae_tpu_torch.io import weights
+    from critic_vae_tpu_torch.pipelines.train import save_final_weights, train
+
+    device = resolve_device(args.device)
+    root = Path(args.root)
+    critic = weights.critic_from_params(weights.load_critic(args.critic)).to(device)
+    print(f"collecting balanced training frames from {args.source!r}...")
+    dset = balanced_critic_sampler(open_source(args.source), critic,
+                                   total_images=args.total_images, device=device,
+                                   progress=lambda n: print(f"total images = {n}", end="\r"))
+    print(f"\ncollected {len(dset)} frames")
+    log_dir = args.log_dir or str(root / f"logs/vae{str(time.time())[-5:]}")
+    state = train(critic, dset, epochs=args.epochs, batch_size=args.batch_size,
+                  learning_rate=args.lr, kld_weight=args.kld_weight,
+                  faithful_msssim=not args.correct_msssim, compute_dtype=args.dtype,
+                  seed=args.seed, value_consistency=args.value_consistency, film=args.film,
+                  log_dir=log_dir, checkpoint_dir=str(root / CHECKPOINT_PATH),
+                  resume=not args.no_resume, log_images=args.log_images, device=device)
+    enc, dec = str(root / ENCODER_PATH), str(root / DECODER_PATH)
+    save_final_weights(state, enc, dec)
+    print(f"saved {enc} and {dec}")
+    return 0
+
+
+def _run_eval(args, second: bool, inject: bool) -> int:
+    import numpy as np
+
+    from critic_vae_tpu_torch.device import resolve_device
+    from critic_vae_tpu_torch.io import weights
+    from critic_vae_tpu_torch.pipelines import evaluate as ev
+
+    values = None
+    if inject and args.values:
+        values = np.asarray([float(v) for v in args.values.split(",")], np.float32)
+    device = resolve_device(args.device)
+    root = Path(args.root)
+    critic = weights.critic_from_params(weights.load_critic(args.critic)).to(device)
+    enc = args.encoder or str(root / (SECOND_ENCODER_PATH if second else ENCODER_PATH))
+    dec = args.decoder or str(root / (SECOND_DECODER_PATH if second else DECODER_PATH))
+    vae = weights.vae_from_params(*weights.load_final_weights(enc, dec)).to(device)
+    images, files = ev.load_image_dir(args.images or str(root / SOURCE_IMAGES_PATH))
+    print(f"evaluating {len(files)} source images...")
+    if inject:
+        out_dir = args.out or str(root / INJECT_PATH)
+        res = ev.inject_images(vae, critic, images, values, device=device)
+        paths = ev.save_inject_strips(res, images, out_dir)
+    else:
+        out_dir = args.out or str(root / SAVE_PATH)
+        res = ev.evaluate_images(vae, critic, images, device=device)
+        paths = ev.save_eval_strips(res, images, out_dir)
+    print(f"wrote {len(paths)} strips to {out_dir}")
+    return 0
+
+
+COMMANDS = {
+    "video": cmd_video,
+    "train": cmd_train,
+    "eval": lambda args: _run_eval(args, second=False, inject=False),
+    "inject": lambda args: _run_eval(args, second=False, inject=True),
+    "evalsecond": lambda args: _run_eval(args, second=True, inject=False),
+}
+
+
 def main(argv: Optional[list] = None) -> int:
     args = build_parser().parse_args(argv)
-    return {"video": cmd_video}[args.command](args)
+    return COMMANDS[args.command](args)

@@ -10,8 +10,11 @@ import statistics
 import torch
 
 
-def resolve_device(name: str) -> torch.device:
-    """``"cuda"`` (the card; raises without one) or ``"cpu"`` (tests only)."""
+def resolve_device(name) -> torch.device:
+    """``"cuda"`` (the card; raises without one) or ``"cpu"`` (tests only); a
+    ``torch.device`` passes through."""
+    if isinstance(name, torch.device):
+        return name
     if name == "cuda":
         if not torch.cuda.is_available():
             raise RuntimeError("device 'cuda' requested but torch.cuda.is_available() is False")

@@ -15,7 +15,8 @@ Files:
 * the JAX package's ``train`` artifacts, the encoder's ``{params, bn_state}``
   and the decoder's ``{params}`` written by its ``io/checkpoint.save_pytree``
   (zip files of ``<path>.npy`` entries, '/'-joined pytree paths, named
-  ``*.ckpt``): :func:`load_final_weights`, as strict as its ``load_pytree``;
+  ``*.ckpt``): :func:`load_final_weights`, strict as ``io/checkpoint.py``'s
+  ``load_pytree``;
 * a combined VAE ``.npz`` holds ``params/<encoder|decoder>/<layer>/<leaf>``
   and ``bn_state/bn<i>/<mean|var>``, the same key scheme applied to
   ``{"params": params, "bn_state": state}``.
@@ -32,6 +33,7 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
+from critic_vae_tpu_torch.io.checkpoint import flatten, load_pytree, unflatten
 from critic_vae_tpu_torch.models.critic import Critic
 from critic_vae_tpu_torch.models.vae import BOTTLENECK, ENCODER_DIMS, LATENT_DIM, VAE
 
@@ -133,7 +135,7 @@ def critic_to_params(critic: Critic) -> Dict[str, np.ndarray]:
 
 def numpy_vae_params(
     seed: int, dims: Tuple[int, ...] = ENCODER_DIMS, channels: int = 3,
-    latent_dim: int = LATENT_DIM, bottleneck: int = BOTTLENECK,
+    latent_dim: int = LATENT_DIM, bottleneck: int = BOTTLENECK, film: bool = False,
 ) -> Tuple[Params, Params]:
     """A JAX-layout VAE ``(params, bn_state)`` made with numpy from ``seed``.
 
@@ -141,7 +143,10 @@ def numpy_vae_params(
     (1/sqrt(fan_in)) as ``critic_vae_tpu.models.vae.init_vae_params``, but
     drawn from ``np.random.default_rng(seed)``: the repo holds no trained
     VAE, and a machine without jax can still build these weights, so tests
-    and the card feed the same numpy tree to both packages."""
+    and the card feed the same numpy tree to both packages. ``film=True``
+    adds the zero FiLM params ``film{i}`` of stages 0-3, shaped as
+    ``init_vae_params(film=True)`` shapes them (w (1, 2C), b (2C,)); the
+    other draws are those of ``film=False``."""
     rng = np.random.default_rng(seed)
 
     def uniform(shape, fan_in):
@@ -169,6 +174,10 @@ def numpy_vae_params(
              (dims[0], dims[0]), (dims[0], channels)]
     for i, (ci, co) in enumerate(pairs):
         dec[f"conv{i}"] = conv(ci, co)
+    if film:
+        for i, (_, co) in enumerate(pairs[:4]):
+            dec[f"film{i}"] = {"w": np.zeros((1, 2 * co), np.float32),
+                               "b": np.zeros((2 * co,), np.float32)}
     state = {f"bn{i}": {"mean": np.zeros((c,), np.float32),
                         "var": np.ones((c,), np.float32)}
              for i, c in enumerate(dims)}
@@ -225,51 +234,6 @@ def vae_to_params(vae: VAE) -> Tuple[Params, Params]:
     return {"encoder": enc, "decoder": dec}, state
 
 
-def _flatten(tree, prefix: str, out: Dict[str, np.ndarray]) -> None:
-    for k, v in tree.items():
-        if isinstance(v, dict):
-            _flatten(v, f"{prefix}{k}/", out)
-        else:
-            out[f"{prefix}{k}"] = np.asarray(v)
-
-
-def _unflatten(flat: Dict[str, np.ndarray]) -> Params:
-    tree: Params = {}
-    for key, value in flat.items():
-        node = tree
-        *parents, leaf = key.split("/")
-        for p in parents:
-            node = node.setdefault(p, {})
-        node[leaf] = value
-    return tree
-
-
-def _load_strict(path: str, like: Params) -> Params:
-    """The JAX package's ``load_pytree``: every leaf of ``like`` must be in
-    the file with its shape and dtype, and the file may hold nothing else."""
-    with np.load(path) as data:
-        stored = {k: np.asarray(data[k]) for k in data.files}
-    want: Dict[str, np.ndarray] = {}
-    _flatten(like, "", want)
-    for key, leaf in want.items():
-        if key not in stored:
-            raise KeyError(f"checkpoint {path} is missing leaf {key!r}")
-        arr = stored[key]
-        if arr.shape != leaf.shape:
-            raise ValueError(f"checkpoint leaf {key!r} has shape {arr.shape}, "
-                             f"expected {leaf.shape}")
-        if arr.dtype != leaf.dtype:
-            raise ValueError(f"checkpoint leaf {key!r} has dtype {arr.dtype}, "
-                             f"expected {leaf.dtype}")
-    unused = sorted(set(stored) - set(want))
-    if unused:
-        raise ValueError(
-            f"checkpoint {path} carries {len(unused)} leaves the target structure has no "
-            f"slot for (e.g. {unused[:3]}); the artifact belongs to a structurally "
-            "different model")
-    return _unflatten({k: stored[k] for k in want})
-
-
 def load_final_weights(encoder_path: str, decoder_path: str) -> Tuple[Params, Params]:
     """``(params, bn_state)`` from the JAX package's separate encoder and
     decoder artifacts (its ``pipelines/train.py::load_final_weights``, as
@@ -285,21 +249,19 @@ def load_final_weights(encoder_path: str, decoder_path: str) -> Tuple[Params, Pa
             if k.startswith("params/film"):
                 name, leaf = k[len("params/"):].split("/")
                 like_dec.setdefault(name, {})[leaf] = np.zeros(stored[k].shape, stored[k].dtype)
-    enc = _load_strict(encoder_path, {"params": like_params["encoder"], "bn_state": like_bn})
-    dec = _load_strict(decoder_path, {"params": like_dec})
+    enc = load_pytree(encoder_path, {"params": like_params["encoder"], "bn_state": like_bn})
+    dec = load_pytree(decoder_path, {"params": like_dec})
     return {"encoder": enc["params"], "decoder": dec["params"]}, enc["bn_state"]
 
 
 def save_vae_npz(path: str, params: Params, state: Params) -> None:
-    flat: Dict[str, np.ndarray] = {}
-    _flatten({"params": params, "bn_state": state}, "", flat)
-    np.savez(path, **flat)
+    np.savez(path, **flatten({"params": params, "bn_state": state}))
 
 
 def load_vae_npz(path: str) -> Tuple[Params, Params]:
     """``(params, bn_state)`` numpy trees from a VAE ``.npz`` (see module doc)."""
     with np.load(path) as data:
-        tree = _unflatten({k: np.asarray(data[k]) for k in data.files})
+        tree = unflatten({k: np.asarray(data[k]) for k in data.files})
     if set(tree) != {"params", "bn_state"}:
         raise ValueError(f"{path}: expected top-level params/ and bn_state/ keys, got {sorted(tree)}")
     return tree["params"], tree["bn_state"]

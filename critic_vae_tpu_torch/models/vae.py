@@ -1,5 +1,6 @@
-"""Critic-conditioned VAE, eval forward, NCHW (counterpart of
-critic_vae_tpu/models/vae.py::encode and ``decode``).
+"""Critic-conditioned VAE, NCHW (counterpart of
+critic_vae_tpu/models/vae.py: ``encode``, ``decode``, ``reparametrize``,
+``vae_apply``, ``evaluate``, ``recon_samples`` and ``inject``).
 
 * Encoder: 4x[conv5x5 SAME -> BatchNorm (running stats) -> maxpool2 ->
   ReLU], Tanh after the last block; channel-major flatten to the bottleneck,
@@ -23,6 +24,13 @@ phase-packed or space-to-depth conv+pool per block (``fused_pool``, BN per
 phase before the max), BatchNorm folded into the conv (``fold_bn``), the
 strided-slice pool (``pool_impl="strided"``), the float32 first conv
 (``block0_f32``) and the merged front end's resume point (``start_block``).
+
+``train=True`` runs BatchNorm on the batch's statistics (float32, over N, H
+and W, normalised with the biased variance) and returns the new running
+stats (momentum 0.1, the unbiased variance) beside (mu, logvar) instead of
+writing them into the module: the train step commits them only when every
+gradient is finite, as the JAX step does. The serving options stay
+eval-only there, as in the JAX ``encode``.
 """
 
 from __future__ import annotations
@@ -41,6 +49,8 @@ ENCODER_DIMS = (32, 64, 128, 256)
 LATENT_DIM = 32
 BOTTLENECK = 4096
 BN_EPS = 1e-5
+BN_MOMENTUM = 0.1
+INJECT_VALUES = (0.0, 0.2, 0.4, 0.6, 0.8, 1.0)  # the reference's inject ladder
 POOL_IMPLS = ("reduce_window", "strided")
 
 # ``fused_pool=True`` per block (the JAX package's FUSED_POOL_SERVING):
@@ -66,6 +76,38 @@ def batchnorm_eval(bn: nn.BatchNorm2d, x: torch.Tensor,
     return (y + bn.bias[:, None, None]).to(x.dtype)
 
 
+def batchnorm_train(bn: nn.BatchNorm2d, x: torch.Tensor, bias: torch.Tensor | None = None):
+    """Train-mode BatchNorm of the JAX ``_batchnorm(train=True)`` over NCHW
+    ``x`` (``bias`` as in :func:`batchnorm_eval`): the batch's float32 mean
+    and biased variance over N, H and W normalise x, which is cast back to
+    its dtype. Returns (y, (new_mean, new_var)): the running stats moved by
+    momentum 0.1 toward the batch mean and the unbiased variance (n/(n−1)),
+    detached, and not written into ``bn``."""
+    xf = x.float()
+    if bias is not None:
+        xf = xf + bias.to(x.dtype).float()[:, None, None]
+    mean = xf.mean(dim=(0, 2, 3))
+    var = xf.var(dim=(0, 2, 3), unbiased=False)
+    n = xf.numel() // xf.shape[1]
+    with torch.no_grad():
+        new_mean = (1 - BN_MOMENTUM) * bn.running_mean + BN_MOMENTUM * mean
+        new_var = (1 - BN_MOMENTUM) * bn.running_var + BN_MOMENTUM * var * (n / max(n - 1, 1))
+    inv = torch.rsqrt(var + bn.eps) * bn.weight
+    y = (xf - mean[:, None, None]) * inv[:, None, None] + bn.bias[:, None, None]
+    return y.to(x.dtype), (new_mean, new_var)
+
+
+def reparametrize(mu: torch.Tensor, logvar: torch.Tensor, eps: torch.Tensor | None = None,
+                  generator: torch.Generator | None = None) -> torch.Tensor:
+    """z = mu + eps·exp(0.5·logvar) (reference: vae_nets.py:48-51). ``eps``
+    takes given draws (the JAX package's threefry draws, which torch cannot
+    reproduce); else they are standard normal float32 from ``generator`` on
+    mu's device, cast to mu's dtype."""
+    if eps is None:
+        eps = torch.randn(mu.shape, generator=generator, device=mu.device, dtype=torch.float32)
+    return mu + eps.to(mu.dtype) * torch.exp(0.5 * logvar)
+
+
 def maxpool2_strided(x: torch.Tensor) -> torch.Tensor:
     """2×2 max-pool as three elementwise maxima over strided slices: the
     same candidate set as the window pool."""
@@ -89,8 +131,10 @@ class Encoder(nn.Module):
     def forward(self, x: torch.Tensor, *, fused_pool: bool | tuple = False,
                 fold_bn: bool = False, pool_impl: str = "reduce_window",
                 block0_f32: bool = False, start_block: int = 0,
-                downstream_dtype: torch.dtype | None = None):
-        """x (B, 3, 64, 64) -> (mu, logvar), each (B, latent).
+                downstream_dtype: torch.dtype | None = None, train: bool = False):
+        """x (B, 3, 64, 64) -> (mu, logvar), each (B, latent); with ``train``
+        (mu, logvar, stats), ``stats`` a (new_mean, new_var) per block (a
+        skipped block's running stats as they are).
 
         ``fused_pool``: ``True`` is :data:`FUSED_POOL_SERVING`; a 4-tuple
         picks per block ``False``, ``True`` (phase-packed stride-2 conv) or
@@ -103,12 +147,23 @@ class Encoder(nn.Module):
             fused_pool = FUSED_POOL_SERVING
         elif fused_pool is False:
             fused_pool = (False,) * len(self.convs)
+        if train and (any(fused_pool) or fold_bn):
+            raise ValueError("encode: fused_pool/fold_bn are eval-mode serving paths")
         if pool_impl not in POOL_IMPLS:
             raise ValueError(f"unknown pool_impl {pool_impl!r}")
         pool = maxpool2_strided if pool_impl == "strided" else functools.partial(
             F.max_pool2d, kernel_size=2)
         out_dtype = x.dtype if downstream_dtype is None else downstream_dtype
         last = len(self.convs) - 1
+        stats = [(bn.running_mean, bn.running_var) for bn in self.bns[:start_block]]
+
+        def norm(bn, y, bias=None):
+            if not train:
+                return batchnorm_eval(bn, y, bias)
+            y, new = batchnorm_train(bn, y, bias)
+            stats.append(new)
+            return y
+
         for i in range(start_block, len(self.convs)):
             layer, bn = self.convs[i], self.bns[i]
             if fused_pool[i]:
@@ -123,13 +178,14 @@ class Encoder(nn.Module):
                 y = F.conv2d(x, w.to(x.dtype), padding=layer.padding)
                 x = pool(y + b.to(x.dtype)[:, None, None])
             elif block0_f32 and i == 0:
-                x = pool(batchnorm_eval(bn, conv(layer, x.float()).to(out_dtype)))
+                x = pool(norm(bn, conv(layer, x.float()).to(out_dtype)))
             else:
                 y = F.conv2d(x, layer.weight.to(x.dtype), padding=layer.padding)
-                x = pool(batchnorm_eval(bn, y, layer.bias))
+                x = pool(norm(bn, y, layer.bias))
             x = torch.tanh(x) if i == last else F.relu(x)
         flat = x.flatten(1)
-        return linear(self.fc_mu, flat), linear(self.fc_var, flat)
+        mu, logvar = linear(self.fc_mu, flat), linear(self.fc_var, flat)
+        return (mu, logvar, stats) if train else (mu, logvar)
 
 
 class Decoder(nn.Module):
@@ -158,9 +214,12 @@ class Decoder(nn.Module):
         """Stage ``i``'s nearest ×2 + conv5 by phase split. Its phase weight
         in x's dtype is built once from the frozen weight, and again only when
         that weight's storage, device or in-place version changes (so a load
-        or a move rebuilds it)."""
+        or a move rebuilds it). A weight that autograd follows (training)
+        gets its phase weight built in the graph, every call."""
         layer = self.convs[i]
         w = layer.weight
+        if w.requires_grad and torch.is_grad_enabled():
+            return upsample2_conv5(x, w, layer.bias)
         ident = (w.data_ptr(), w.device, None if w.is_inference() else w._version)
         hit = self._phase_weights.get((i, x.dtype))
         if hit is None or hit[0] != ident:
@@ -217,3 +276,43 @@ class VAE(nn.Module):
     def decode(self, z: torch.Tensor, value: torch.Tensor, apply_tanh: bool = True,
                fused: bool = True) -> torch.Tensor:
         return self.decoder(z, value, apply_tanh, fused)
+
+    def vae_apply(self, x: torch.Tensor, value: torch.Tensor, *,
+                  eps: torch.Tensor | None = None, generator: torch.Generator | None = None):
+        """The stochastic forward of training (reference: vae_nets.py:14-19):
+        (recon, mu, logvar, stats), ``stats`` the new running stats of the
+        train-mode encode; ``eps`` and ``generator`` as :func:`reparametrize`."""
+        mu, logvar, stats = self.encode(x, train=True)
+        z = reparametrize(mu, logvar, eps, generator)
+        return self.decode(z, value), mu, logvar, stats
+
+    def evaluate(self, x: torch.Tensor, value: torch.Tensor) -> torch.Tensor:
+        """The deterministic mu-decode (reference: vae_nets.py:42-46)."""
+        return self.decode(self.encode(x)[0], value)
+
+    def recon_samples(self, x: torch.Tensor, value, n_samples: int = 6, *,
+                      eps: torch.Tensor | None = None,
+                      generator: torch.Generator | None = None) -> torch.Tensor:
+        """``n_samples`` stochastic reconstructions of each frame at one
+        injected value (a scalar or one a frame), as one batched decode of
+        B·n latents: (B, n, 3, H, W). ``eps`` (B·n, latent) as
+        :func:`reparametrize`."""
+        mu, logvar = self.encode(x)
+        b = mu.shape[0]
+        value = torch.as_tensor(value, dtype=torch.float32, device=mu.device).reshape(-1).expand(b)
+        z = reparametrize(mu.repeat_interleave(n_samples, 0),
+                          logvar.repeat_interleave(n_samples, 0), eps, generator)
+        recon = self.decode(z, value.repeat_interleave(n_samples, 0))
+        return recon.view(b, n_samples, *recon.shape[1:])
+
+    def inject(self, x: torch.Tensor, values: torch.Tensor | None = None) -> torch.Tensor:
+        """Each frame's mu decoded at a ladder of injected critic values
+        (default :data:`INJECT_VALUES`), as one batched decode of B·K
+        latents: (B, K, 3, H, W)."""
+        mu = self.encode(x)[0]
+        if values is None:
+            values = INJECT_VALUES
+        values = torch.as_tensor(values, dtype=torch.float32, device=mu.device)
+        b, k = mu.shape[0], values.shape[0]
+        recon = self.decode(mu.repeat_interleave(k, 0), values.repeat(b))
+        return recon.view(b, k, *recon.shape[1:])

@@ -45,7 +45,7 @@ DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 FRONT_ENDS = ("split", "merged")
 
 
-def _decode_pair(vae: VAE, x: torch.Tensor, values: torch.Tensor, **encode_options):
+def decode_pair(vae: VAE, x: torch.Tensor, values: torch.Tensor, **encode_options):
     """The encode of ``x`` and the (2B, 3, H, W) pre-tanh double decode of
     its mu, at ``values`` and at 0."""
     mu, _ = vae.encode(x, **encode_options)
@@ -72,7 +72,7 @@ def diff_images(vae: VAE, x: torch.Tensor, values: torch.Tensor, *, fused_pool=F
 
     Returns (diff (B, H, W) f32, max_value (B,) f32). The reconstructions
     are never formed: only their pre-tanh activations reach kernel B1."""
-    pre = _decode_pair(vae, x, values, fused_pool=fused_pool, fold_bn=fold_bn,
+    pre = decode_pair(vae, x, values, fused_pool=fused_pool, fold_bn=fold_bn,
                        pool_impl=pool_impl, block0_f32=block0_f32,
                        downstream_dtype=downstream_dtype, start_block=start_block)
     return diff_mask(pre)
@@ -251,11 +251,11 @@ def episode_forward(vae: VAE, critic: Critic, frames: torch.Tensor, *,
     if with_recons:
         with torch.inference_mode():
             x = frames.to(cdt).permute(0, 3, 1, 2).contiguous()
-            out.update(_recons(_decode_pair(vae, x, preds.to(cdt)), recons_u8))
+            out.update(recons_from_decode(decode_pair(vae, x, preds.to(cdt)), recons_u8))
     return out
 
 
-def _recons(pre: torch.Tensor, recons_u8: bool) -> dict:
+def recons_from_decode(pre: torch.Tensor, recons_u8: bool) -> dict:
     """recon_one and recon_zero (B, H, W, 3) of the (2B, 3, H, W) pre-tanh
     double decode: tanh of the widened decode, uint8 with ``recons_u8``."""
     recon = torch.tanh(pre.float()).permute(0, 2, 3, 1)
@@ -275,15 +275,15 @@ def _diff_forward(vae: VAE, critic: Critic, frames: torch.Tensor, cdt: torch.dty
     if front_end == "merged":
         h_enc, h_cr = merged_front_end(vae, critic, x, cdt)
         preds = critic(h_cr, start_block=1)[:, 0]
-        pre = _decode_pair(vae, h_enc, preds.to(cdt), start_block=1)
+        pre = decode_pair(vae, h_enc, preds.to(cdt), start_block=1)
     else:
         ddt = cdt if block0_f32 else None
         preds = critic(x, fused_pool="s2d" if fused_pool is True else fused_pool,
                        block0_f32=block0_f32, downstream_dtype=ddt)[:, 0]
-        pre = _decode_pair(vae, x, preds.to(cdt), fused_pool=fused_pool, fold_bn=fold_bn,
+        pre = decode_pair(vae, x, preds.to(cdt), fused_pool=fused_pool, fold_bn=fold_bn,
                            pool_impl=pool_impl, block0_f32=block0_f32, downstream_dtype=ddt)
     diff, max_value = diff_mask(pre)
     out = {"preds": preds.float(), "diff": diff, "max_value": max_value}
     if with_recons:
-        out.update(_recons(pre, recons_u8))
+        out.update(recons_from_decode(pre, recons_u8))
     return out

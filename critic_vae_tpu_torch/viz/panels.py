@@ -4,8 +4,8 @@ get_final_frame, :385-390 prepare_rgb_image).
 
 7 panels for the video pipeline with ground truth (orig / recon@pred /
 recon@0 / diff / thr-mask / crf / ground truth) with titles, the critic
-value and the IoUs burned in; 6 without ground truth; 4 for image eval.
-(``inject_strip`` waits for the inject command, ROADMAP A.8.)
+value and the IoUs burned in; 6 without ground truth; 4 for image eval;
+and the inject strip, the original beside its injected reconstructions.
 Arrays are NHWC. Pillow is imported only inside the functions that draw,
 so the port imports on a machine without it.
 """
@@ -13,7 +13,7 @@ so the port imports on a machine without it.
 from __future__ import annotations
 
 import functools
-from typing import Optional
+from typing import Optional, Sequence
 
 import numpy as np
 
@@ -103,3 +103,15 @@ def final_frame(orig: np.ndarray, recon_one: np.ndarray, recon_zero: np.ndarray,
     draw.text((2, ih + 2), f"{float(pred):.1f}", (255, 255, 255), font=font())
     return canvas
 
+
+def inject_strip(orig: np.ndarray, recons: Sequence[np.ndarray]):
+    """The original beside its K injected reconstructions, HWC each
+    (reference: get_injected_img, vae_utility.py:240-254)."""
+    from PIL import Image
+
+    panels = [_as_pil(orig)] + [_as_pil(r) for r in recons]
+    w, h = panels[0].size
+    strip = Image.new("RGB", (w * len(panels), h))
+    for i, p in enumerate(panels):
+        strip.paste(p, (w * i, 0))
+    return strip

@@ -37,8 +37,21 @@ alpha in {12, 32}) over those threshold masks: the scores and parameters in
 its order and each combination's masks (its CPU build, ``xla`` in float32).
 chip_smoke.py holds the card's ``--quality`` chain and search against it.
 
+The train file holds 3 steps of the JAX package's train step
+(``make_train_step``, float32, at full width) from ``numpy_vae_params(0)``
+on one batch of 16 synthetic uint8 frames (``generate_frames(16,
+seed=0)``), Adam lr 5e-5 behind ``apply_if_finite``, the critic of
+``critic-synthetic.npz``: the reparametrize noise each step drew (replayed
+from the state's key with public ``jax.random`` calls: split, then normal
+(16, 32) float32), each step's total, recon and kld losses, the BatchNorm
+running stats after the first step and after the 3 steps, the first step's
+train-mode ``mu`` and ``logvar`` (``encode`` from the initial parameters),
+and each parameter leaf's change over the 3 steps at 64 seeded positions
+(JAX layout). chip_smoke.py and
+tests/test_torch_train.py hold the port's train step against it.
+
 Run from the repo root:
-  JAX_PLATFORMS=cpu python tests/golden/make_torch_slice_golden.py [slice|sweep|bf16|saliency|all]
+  JAX_PLATFORMS=cpu python tests/golden/make_torch_slice_golden.py [slice|sweep|bf16|saliency|train|all]
 """
 
 from __future__ import annotations
@@ -90,6 +103,11 @@ QUALITY_OPTS = {"method": "layercam", "tta_flip": True, "tta_shift": 2}
 QUALITY_CRF = (132.0, 32.0, 3.1, 8.0, 1.8, 10)
 QUALITY_THRESHOLD = 64
 SEARCH_GRID = {"w1": [22.0, 132.0], "alpha": [12.0, 32.0]}
+TRAIN_OUT = os.path.join(ROOT, "tests", "golden", "torch_train_golden.npz")
+TRAIN_STEPS = 3
+TRAIN_BATCH = 16
+TRAIN_LR = 5e-5
+TRAIN_SAMPLES = 64  # sampled positions of each parameter leaf's change
 
 
 def device_stage():
@@ -190,6 +208,60 @@ def saliency() -> None:
           f"{res.thr_iou} crf_iou={iou(gt, crf)} search={results}")
 
 
+def train() -> None:
+    import optax
+
+    from critic_vae_tpu.models.vae import encode
+    from critic_vae_tpu.train.step import TrainState, make_train_step
+
+    frames, _ = generate_frames(TRAIN_BATCH, seed=SEED)
+    critic = load_critic(os.path.join(ROOT, "saved-networks", "critic-synthetic.npz"))
+    params, bn_state = numpy_vae_params(SEED)
+    tx = optax.apply_if_finite(optax.adam(TRAIN_LR, b1=0.9, b2=0.999, eps=1e-8),
+                               max_consecutive_errors=100)
+    p0 = jax.tree.map(jnp.asarray, params)
+    key = jax.random.key(SEED)
+    state = TrainState(p0, jax.tree.map(jnp.asarray, bn_state), tx.init(p0), key,
+                       jnp.zeros((), jnp.int32))
+    step = make_train_step(critic, tx, compute_dtype=jnp.float32, donate=False)
+    x = jnp.asarray(frames).astype(jnp.float32) / jnp.asarray(255.0, jnp.float32)
+    mu1, logvar1, _ = jax.jit(lambda p, s, xx: encode(p, s, xx, train=True))(
+        p0, state.bn_state, x)
+    out = {"mu1": np.asarray(mu1, np.float32), "logvar1": np.asarray(logvar1, np.float32)}
+    eps, losses = [], {"total_loss": [], "recon_loss": [], "kld": []}
+    for t in range(TRAIN_STEPS):
+        key, sample_key = jax.random.split(key)  # as the step splits state.rng
+        eps.append(np.asarray(jax.random.normal(sample_key, (TRAIN_BATCH, 32), jnp.float32)))
+        state, metrics = step(state, jnp.asarray(frames))
+        for k in losses:
+            losses[k].append(float(metrics[k]))
+        if t == 0:
+            for i in range(4):
+                for k in ("mean", "var"):
+                    out[f"bn{i}_{k}_1"] = np.asarray(state.bn_state[f"bn{i}"][k], np.float32)
+    rng = np.random.default_rng(SEED)
+    for path, leaf in jax.tree_util.tree_leaves_with_path(state.params):
+        name = "/".join(k.key for k in path)
+        delta = (np.asarray(leaf) - _leaf(params, name)).ravel()
+        index = np.sort(rng.choice(delta.size, min(TRAIN_SAMPLES, delta.size), replace=False))
+        out[f"index/{name}"] = index.astype(np.int64)
+        out[f"delta/{name}"] = delta[index].astype(np.float32)
+    for i in range(4):
+        for k in ("mean", "var"):
+            out[f"bn{i}_{k}"] = np.asarray(state.bn_state[f"bn{i}"][k], np.float32)
+    np.savez_compressed(
+        TRAIN_OUT, eps=np.stack(eps), **{k: np.asarray(v, np.float32) for k, v in losses.items()},
+        lr=np.float32(TRAIN_LR), steps=np.int64(TRAIN_STEPS), batch=np.int64(TRAIN_BATCH),
+        seed=np.int64(SEED), **out)
+    print(f"wrote {TRAIN_OUT} ({os.path.getsize(TRAIN_OUT)} bytes): losses={losses}")
+
+
+def _leaf(tree, name: str):
+    for k in name.split("/"):
+        tree = tree[k]
+    return tree
+
+
 def main() -> None:
     frames, gt, preds, max_value, mean_max, diff_u8 = device_stage()
     thr = np.asarray(threshold_masks(diff_u8, jnp.asarray([THRESHOLD]))[0])
@@ -215,8 +287,8 @@ def main() -> None:
 
 if __name__ == "__main__":
     what = sys.argv[1] if len(sys.argv) > 1 else "all"
-    if what not in ("slice", "sweep", "bf16", "saliency", "all"):
-        raise SystemExit(f"usage: {sys.argv[0]} [slice|sweep|bf16|saliency|all]")
+    if what not in ("slice", "sweep", "bf16", "saliency", "train", "all"):
+        raise SystemExit(f"usage: {sys.argv[0]} [slice|sweep|bf16|saliency|train|all]")
     if what in ("slice", "all"):
         main()
     if what in ("sweep", "all"):
@@ -225,3 +297,5 @@ if __name__ == "__main__":
         bf16()
     if what in ("saliency", "all"):
         saliency()
+    if what in ("train", "all"):
+        train()
