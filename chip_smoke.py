@@ -193,7 +193,43 @@ exits non-zero:
    set to 0 just before and read just after: B1 once a 512-frame chunk),
    the 16 frames' maps >= 99.9% within one level and preds within 1e-4 of
    the golden's, and B1 against its plain version on eval's float32 decodes
-   (2 x 512 and 2 x 16 frames) — bar: max abs error <= 1e-6.
+   (2 x 512 and 2 x 16 frames) — bar: max abs error <= 1e-6;
+26. mask distillation: ``build_pseudo_masks`` on the 32 frames of
+   tests/golden/torch_distill_golden.npz (``make_torch_slice_golden.py
+   distill``) — LayerCAM threshold masks >= 99.8% and the CRF masks through
+   B2 in bf16 >= 99.9% identical to the JAX package's float32 masks; then
+   as a main path over 8,192 synthetic frames (launch counts set to 0 just
+   before and read just after: B2 once a 64-frame chunk, 128 launches, B1
+   never), its frames/s without the CRF and of the CRF part alone, and the
+   CAM health; 3 float32 train steps with ``mask_distill=0.5`` at full width
+   against the golden's at phase 23's bars (``md_loss`` within 1e-5
+   relative), on cuDNN's deterministic algorithms (the term turns the
+   default backward's run-to-run drift into step 3's loss errors of up to
+   1.2e-05 total, 3.5e-05 md and 1.0e-04 kld over 3 runs); the multi-step loop with the term at batch 128 on 2,048 of
+   those frames and their masks, 4 windows of 50 steps (median, spread,
+   idle share, launches a step, the loss falling), beside phase 24's float32
+   run; ``train --mask-distill 0.3 --source synthetic:2:256 --epochs 1``
+   through ``main`` (exit 0);
+27. critic training: 3 steps of the critic's step (batch 128, dropout 0.3
+   with the JAX package's masks) against tests/golden/torch_critic_golden.npz
+   (``make_torch_slice_golden.py critic``) — losses within 1e-5 relative,
+   parameters within 0.25 lr; ``train_critic`` for one epoch of 100 steps on
+   12,800 synthetic frames (``traincritic``'s default), then the critic's
+   multi-step loop over one epoch as 4 windows of 25 steps (median, spread,
+   idle share, launches a step, the loss falling); ``critic_cam_health`` of
+   the synthetic critic on the golden's 128 frames, every field within 1e-3
+   of the JAX package's; ``traincritic --synthetic-frames 1024 --epochs 2
+   --cam-select 2`` through ``main`` (exit 0) and its ``.npz`` reloaded;
+28. data and export: ``dataset --source synthetic:2:256``, ``second --epochs
+   1`` and (with Pillow) ``evalsecond`` on its ``vae2_*`` artifacts through
+   ``main`` (exit 0 each); ``build_recon_dataset``'s frames/s over 8
+   synthetic trajectories of 1024 frames; ``export`` of the encoder, decoder
+   and critic, each ``torch.load(weights_only=True)`` bitwise equal to the
+   source's state dict; ``python -m critic_vae_tpu_torch export`` of a FiLM
+   decoder exits 1 with the JAX package's refusal.
+
+Phases 26-28 print the card's ``nvidia-smi`` name and power limit beside
+their rates.
 
 ``python3 chip_smoke.py --bf16-golden-only [--port DIR]`` runs phases 1, 2
 and 17 alone, driving the critic_vae_tpu_torch package in DIR (for example
@@ -201,7 +237,7 @@ an older checkout) against this checkout's goldens.
 
 The second-to-last line is a JSON object with, for each of the seven kernels
 (B1-B5, P1, P2), its launches on the paths that run it (phases 9, 11, 12,
-20-22 and 25), its error against
+20-22, 25 and 26), its error against
 its plain version, its times, its bound (the larger of its bytes over the
 HBM rate and its operations over the peak rate of their type, from this
 run's shapes) and the time of one PyTorch call computing the same function
@@ -214,7 +250,8 @@ Python wrapper (P1's rows sum the three questions, with ``empty_ms`` the
 empty kernel's device time); the other kernels' ``ms`` are CUDA-event times
 of calls, which their device time dominates. The last line is {"ok": true,
 "device": {...}}. Without CUDA the script fails and prints no result. About
-three minutes on an H100, the build (~10 s) included.
+three and a half minutes on an H100, the build (~10 s) included (208.9 s on
+an NVIDIA H100 80GB HBM3 at 700 W; phases 26-28 about a minute of it).
 """
 
 from __future__ import annotations
@@ -1783,8 +1820,10 @@ def _kl_split(vae, x, gold) -> dict:
             "kl_jax_f32_vs_f64": abs(float(gold["kld"][0]) / jax64 - 1)}
 
 
-def _golden_run(state, step, batch, gold, params) -> dict:
-    """The golden's 3 steps on a fresh ``state``: each measure's worst error."""
+def _golden_run(state, step, batch, gold, params, masks=None) -> dict:
+    """The golden's 3 steps on a fresh ``state`` (``masks``: the batch's
+    pseudo-label masks of a ``mask_distill`` step): each measure's worst
+    error."""
     import numpy as np
     import torch
 
@@ -1793,7 +1832,7 @@ def _golden_run(state, step, batch, gold, params) -> dict:
     lr, rows = float(gold["lr"]), []
     with no_tf32():
         for t, e in enumerate(gold["eps"]):
-            rows.append(step(state, batch, torch.from_numpy(e).to(batch.device)))
+            rows.append(step(state, batch, torch.from_numpy(e).to(batch.device), masks=masks))
             if t == 0:
                 bn1 = _bn_errors(state.vae.encoder.bns, gold, "_1")
     losses = {k: np.asarray([r[k].item() for r in rows]) for k in rows[0]}
@@ -1922,46 +1961,20 @@ def phase_train_throughput(dev, critic):
     data = torch.from_numpy(generate_frames(TRAIN_FRAMES, seed=3)[0]).to(dev)
     rng = np.random.default_rng(0)
     flops = train_step_flops(TRAIN_BATCH)
+    runs = {}
     for dtype, peak in (("float32", F32_FLOPS), ("bfloat16", BF16_FLOPS)):
         state = init_train_state(*weights.numpy_vae_params(0), device=dev)
         multi = make_multi_step(critic, compute_dtype=dtype)
-
-        def idx(k):
-            rows = [rng.permutation(TRAIN_FRAMES)[:TRAIN_BATCH] for _ in range(k)]
-            return torch.from_numpy(np.stack(rows).astype(np.int32)).to(dev)
-
-        with no_tf32():
-            multi(state, data, idx(10))  # warm-up: cuDNN's algorithm choices
-            windows = [idx(TRAIN_CHUNK) for _ in range(TRAIN_STEPS // TRAIN_CHUNK)]
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats(dev)
-            losses, window_ms = [], []
-            for w in windows:
-                t0 = time.perf_counter()
-                losses.append(multi(state, data, w)["total_loss"])
-                torch.cuda.synchronize()
-                window_ms.append(1e3 * (time.perf_counter() - t0) / TRAIN_CHUNK)
-            peak_mem = torch.cuda.max_memory_allocated(dev)
-            losses = torch.cat(losses).cpu().numpy()
-            prof_idx = idx(10)
-            torch.cuda.synchronize()
-            with torch.profiler.profile(
-                    activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-                w0 = time.perf_counter()
-                multi(state, data, prof_idx)
-                torch.cuda.synchronize()
-                wall = time.perf_counter() - w0
-        events = [e for e in prof.key_averages() if e.self_device_time_total > 0]
-        events.sort(key=lambda e: e.self_device_time_total, reverse=True)
-        kernel_ms = sum(e.self_device_time_total for e in events) / 1e3
-        per_step = sum(e.count for e in events) / 10
-        step_ms = float(np.median(window_ms))
+        t = _train_windows(dev, lambda idx: multi(state, data, idx)["total_loss"], rng,
+                           TRAIN_FRAMES, TRAIN_STEPS, TRAIN_CHUNK)
+        runs[dtype] = t
+        window_ms, losses, step_ms = t["window_ms"], t["losses"], t["step_ms"]
+        events, kernel_ms, wall = t["events"], t["kernel_ms"], t["wall"]
+        per_step, peak_mem, idle, idle_timed = (t["per_step"], t["peak_mem"], t["idle"],
+                                                t["idle_timed"])
         bound_ms = 1e3 * flops["step_flops"] / peak
         first, last = float(losses[:20].mean()), float(losses[-20:].mean())
         rate = 1e3 * TRAIN_BATCH / step_ms
-        idle = max(0.0, 1.0 - kernel_ms / (1e3 * wall))
-        # the profiler slows the host: against the timed steps' wall instead
-        idle_timed = max(0.0, 1.0 - kernel_ms / 10 / step_ms)
         log(f"[24 train {dtype}] batch {TRAIN_BATCH}, {len(window_ms)} windows of "
             f"{TRAIN_CHUNK} steps: ms a step {[round(v, 3) for v in window_ms]}, median "
             f"{step_ms:.3f} (spread {min(window_ms):.3f}-{max(window_ms):.3f}, "
@@ -1980,9 +1993,58 @@ def phase_train_throughput(dev, critic):
                 f"{e.key[:100]}")
         require(np.isfinite(losses).all() and last < first,
                 f"train {dtype}: the loss did not fall ({first} -> {last})")
-        require(all(t.dtype == torch.float32 for t in state.params + state.mu + state.nu),
+        require(all(p.dtype == torch.float32 for p in state.params + state.mu + state.nu),
                 f"train {dtype}: the state left float32")
         del state, multi
+    return runs
+
+
+def _train_windows(dev, run, rng, frames: int, steps: int, chunk: int, batch: int = TRAIN_BATCH,
+                   warmup: int = 10, profiled: int = 10) -> dict:
+    """Time ``run(idx) -> (K,) losses`` (K training steps on the batches of
+    a (K, batch) index tensor of rows drawn from ``rng`` out of ``frames``)
+    after a warm-up of ``warmup`` steps, as ``steps // chunk`` windows of
+    ``chunk`` steps: ms a step per window and their median, the losses, peak
+    memory, and a torch.profiler run of ``profiled`` more steps (kernel time,
+    launches a step, the device's idle share against that run's wall and
+    against the timed median)."""
+    import numpy as np
+    import torch
+
+    def idx(k):
+        rows = [rng.permutation(frames)[:batch] for _ in range(k)]
+        return torch.from_numpy(np.stack(rows).astype(np.int32)).to(dev)
+
+    with no_tf32():
+        run(idx(warmup))  # cuDNN's algorithm choices
+        windows = [idx(chunk) for _ in range(steps // chunk)]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        losses, window_ms = [], []
+        for w in windows:
+            t0 = time.perf_counter()
+            losses.append(run(w))
+            torch.cuda.synchronize()
+            window_ms.append(1e3 * (time.perf_counter() - t0) / chunk)
+        peak_mem = torch.cuda.max_memory_allocated(dev)
+        losses = torch.cat(losses).cpu().numpy()
+        prof_idx = idx(profiled)
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            w0 = time.perf_counter()
+            run(prof_idx)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - w0
+    events = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+    events.sort(key=lambda e: e.self_device_time_total, reverse=True)
+    kernel_ms = sum(e.self_device_time_total for e in events) / 1e3
+    step_ms = float(np.median(window_ms))
+    return {"window_ms": window_ms, "step_ms": step_ms, "losses": losses, "peak_mem": peak_mem,
+            "events": events, "kernel_ms": kernel_ms, "wall": wall,
+            "per_step": sum(e.count for e in events) / profiled,
+            "idle": max(0.0, 1.0 - kernel_ms / (1e3 * wall)),
+            # the profiler slows the host: against the timed steps' wall too
+            "idle_timed": max(0.0, 1.0 - kernel_ms / profiled / step_ms)}
 
 
 def _cli(args):
@@ -2117,6 +2179,320 @@ def _eval_commands(dev, scratch: Path, frames, params, state, gold):
     require(Image.open(eroot / "inject" / "image-000.png").size == (4 * W, H), "inject strips")
 
 
+DISTILL_GOLDEN = ROOT / "tests" / "golden" / "torch_distill_golden.npz"
+CRITIC_GOLDEN = ROOT / "tests" / "golden" / "torch_critic_golden.npz"
+DISTILL_FRAMES = 8192        # phase 26's main path: 128 B2 launches at chunk 64
+DISTILL_TRAIN_FRAMES = 2048  # phase 26's multi-step dataset (its first frames and masks)
+DISTILL_LOSS_REL = {**TRAIN_LOSS_REL, "md_loss": 1e-5}
+CRITIC_TRAIN_FRAMES = 12800  # traincritic's default --synthetic-frames: 100 steps an epoch
+CRITIC_WINDOW = 25           # phase 27: 4 windows of 25 steps, one epoch
+CRITIC_LOSS_REL = 1e-5       # phase 27's bars: the CPU tests' (tests/test_torch_critic_train.py)
+HEALTH_TOL = 1e-3
+RECON_FRAMES_SOURCE = "synthetic:8:1024"  # phase 28's build_recon_dataset rate
+
+
+def _bits(gold, key):
+    import numpy as np
+
+    return np.unpackbits(gold[key], axis=-1, count=W).astype(bool)
+
+
+def phase_distill(dev, critic, smi: str, scratch: Path, baseline=None):
+    """26: pseudo-label masks and mask-distillation training (module doc);
+    ``baseline``: phase 24's float32 timing, printed beside the term's."""
+    import numpy as np
+    import torch
+
+    from critic_vae_tpu_torch.crf.device import refine_masks_device
+    from critic_vae_tpu_torch.data.synthetic import generate_frames
+    from critic_vae_tpu_torch.io import weights
+    from critic_vae_tpu_torch.pipelines.distill import CAM_TUNED_CRF_PARAMS, build_pseudo_masks
+    from critic_vae_tpu_torch.train.critic import critic_cam_health
+    from critic_vae_tpu_torch.train.step import (init_train_state, make_multi_step,
+                                                 make_train_step)
+
+    gold = np.load(DISTILL_GOLDEN)
+    n = int(gold["num_frames"])
+    frames = generate_frames(n, seed=int(gold["frames_seed"]))[0]
+    thr = build_pseudo_masks(critic, frames, run_crf=False, device=dev)
+    crf = build_pseudo_masks(critic, frames, device=dev)
+    a_thr = float(np.mean(thr == _bits(gold, "thr_bits")))
+    a_crf = float(np.mean(crf == _bits(gold, "crf_bits")))
+    log(f"[26 distill] golden ({n} frames, the JAX package's float32 masks on the CPU): "
+        f"LayerCAM threshold masks identical {a_thr:.6f} (bar 0.998); CRF masks through B2 "
+        f"(bf16) identical to its float32 xla build's {a_crf:.6f} (bar 0.999)")
+    require(a_thr >= 0.998 and a_crf >= 0.999, "distill golden masks")
+
+    many = generate_frames(DISTILL_FRAMES, seed=26)[0]
+    build_pseudo_masks(critic, many[:MAIN_BATCH], device=dev)  # warm-up
+    masks, launches = _drive("build_pseudo_masks", lambda: build_pseudo_masks(
+        critic, many, device=dev), ("bilateral_build",), DISTILL_FRAMES, phase="26 distill")
+    require(launches["bilateral_build"] == DISTILL_FRAMES // CRF_CHUNK,
+            f"B2 launches {launches['bilateral_build']}, not one a {CRF_CHUNK}-frame chunk")
+    require(launches["diff_mask"] == 0, "build_pseudo_masks launched B1")
+    require(masks.shape == (DISTILL_FRAMES, H, W) and masks.dtype == bool and masks.any(),
+            "pseudo masks malformed")
+    t0 = time.perf_counter()
+    thr_many = build_pseudo_masks(critic, many, run_crf=False, device=dev)
+    thr_s = time.perf_counter() - t0
+    crf_s, refined = timed(lambda: refine_masks_device(
+        many, thr_many, CAM_TUNED_CRF_PARAMS, device=dev), 1, warmup=0)
+    crf_s /= 1e3
+    health = critic_cam_health(critic, many, device=dev)
+    agree = float(np.mean(refined == masks))
+    log(f"[26 distill] {smi}: build_pseudo_masks without the CRF {DISTILL_FRAMES / thr_s:.1f} "
+        f"frames/s ({thr_s:.3f} s); its CRF part alone (refine_masks_device, B2 bf16, CAM-tuned "
+        f"parameters) {DISTILL_FRAMES / crf_s:.1f} frames/s ({crf_s:.3f} s), masks identical to "
+        f"the path's {agree:.6f}; mask pixels {masks.mean():.4f} of all; CAM health (first 512 "
+        f"frames) " + " ".join(f"{k}={v:.4g}" for k, v in health.items()))
+
+    # 3 float32 steps with the term against the golden, at phase 23's bars, on
+    # its step rows (frames the critic scores >= 0.05: make_torch_slice_golden.py
+    # says why)
+    rows, md = gold["step_rows"], float(gold["mask_distill"])
+    batch_n = len(rows)
+    params, bn_state = weights.numpy_vae_params(int(gold["seed"]))
+    batch = torch.from_numpy(frames[rows]).to(dev)
+    gmasks = torch.from_numpy(_bits(gold, "crf_bits")[rows]).to(dev)
+    lr, steps = float(gold["lr"]), int(gold["steps"])
+    step = make_train_step(critic, learning_rate=lr, mask_distill=md)
+    # cuDNN's default float32 backward is nondeterministic, and the term
+    # turns the parameters' run-to-run drift into step 3's loss errors (3
+    # runs: total 1.0e-05-1.24e-05, md 2.7e-05-3.5e-05, kld up to 1.04e-04);
+    # its deterministic algorithms give one answer a card
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        g = _golden_run(init_train_state(params, bn_state, device=dev), step, batch, gold,
+                        params, masks=gmasks)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    log(f"[26 distill] golden steps: {steps} f32 steps with mask_distill={md}, batch {batch_n}, "
+        f"full width, cuDNN's deterministic algorithms: worst relative errors "
+        + ", ".join(f"{k} {v:.3e} (bar {DISTILL_LOSS_REL[k]:g})" for k, v in g["loss_rel"].items())
+        + f"; parameter changes within {g['params']:.4f} lr (bar 0.25), encoder conv biases "
+        f"{g['biases']:.3f} lr (bar {2 * steps}); BN means within {g['bn_mean']:.3e} (bar "
+        f"{1.5 * lr:.1e}), variances {g['bn_var']:.3e} relative (bar {TRAIN_BN_VAR_REL:g})")
+    require(set(g["loss_rel"]) == set(DISTILL_LOSS_REL)
+            and all(v <= DISTILL_LOSS_REL[k] for k, v in g["loss_rel"].items()),
+            f"distill golden: loss relative errors {g['loss_rel']}")
+    require(g["params"] <= 0.25 and g["biases"] <= 2 * steps, "distill golden: parameters")
+    require(g["bn_mean"] <= 1.5 * lr and g["bn_var"] <= TRAIN_BN_VAR_REL, "distill golden: BN")
+
+    # the multi-step loop with the term, timed as phase 24's float32 run
+    data = torch.from_numpy(many[:DISTILL_TRAIN_FRAMES]).to(dev)
+    mask_rows = torch.from_numpy(masks[:DISTILL_TRAIN_FRAMES].astype(np.uint8)).to(dev)
+    state = init_train_state(*weights.numpy_vae_params(0), device=dev)
+    multi = make_multi_step(critic, mask_distill=0.5)
+    t = _train_windows(dev, lambda idx: multi(state, data, idx, masks=mask_rows)["total_loss"],
+                       np.random.default_rng(0), DISTILL_TRAIN_FRAMES, TRAIN_STEPS, TRAIN_CHUNK)
+    first, last = float(t["losses"][:20].mean()), float(t["losses"][-20:].mean())
+    log(f"[26 distill] {smi}: the multi-step loop with mask_distill=0.5, float32, batch "
+        f"{TRAIN_BATCH}, {len(t['window_ms'])} windows of {TRAIN_CHUNK} steps: ms a step "
+        f"{[round(v, 3) for v in t['window_ms']]}, median {t['step_ms']:.3f} (spread "
+        f"{max(t['window_ms']) / min(t['window_ms']) - 1:.1%}), "
+        f"{1e3 * TRAIN_BATCH / t['step_ms']:.1f} frames/s; device idle {t['idle']:.1%} under "
+        f"the profiler ({t['idle_timed']:.1%} against the median); {t['per_step']:.0f} kernel "
+        f"launches a step; loss {first:.5f} -> {last:.5f}")
+    if baseline is not None:
+        log(f"[26 distill] beside phase 24's float32 run without the term: median "
+            f"{baseline['step_ms']:.3f} ms a step ({t['step_ms'] / baseline['step_ms']:.2f}x "
+            f"with it), device idle {baseline['idle']:.1%} ({baseline['idle_timed']:.1%} "
+            f"against its median), {baseline['per_step']:.0f} kernel launches a step")
+    require(np.isfinite(t["losses"]).all() and last < first, "distill: the loss did not fall")
+    del state, multi, data, mask_rows
+
+    root = scratch / "root_distill"
+    root.mkdir()
+    args = ["train", "--source", "synthetic:2:256", "--epochs", "1", "--mask-distill", "0.3",
+            "--root", str(root), "--log-dir", str(root / "logs"), "--device", dev.type]
+    t0 = time.perf_counter()
+    rc, lines = _cli(args)
+    log(f"[26 distill] train --mask-distill 0.3: exit {rc} in {time.perf_counter() - t0:.1f} s; "
+        + " | ".join(lines))
+    require(rc == 0 and any(ln.startswith("building pseudo-label masks") for ln in lines)
+            and (root / "saved-networks" / "vae_decoder.ckpt").is_file(),
+            "train --mask-distill failed")
+    return launches, t
+
+
+def _critic_masks(gold, t):
+    """Step ``t``'s dropout keep masks of the critic golden, NCHW."""
+    import numpy as np
+    import torch
+
+    out = []
+    for j, shape in enumerate(((8, 8, 8), (4, 4, 16), (32,))):
+        m = np.unpackbits(gold[f"mask{t}_{j}"], axis=-1, count=shape[-1]).astype(bool)
+        out.append(torch.from_numpy(m.transpose(0, 3, 1, 2).copy() if m.ndim == 4 else m))
+    return out
+
+
+def phase_critic_train(dev, smi: str, scratch: Path):
+    """27: critic training (module doc)."""
+    import numpy as np
+    import torch
+
+    from critic_vae_tpu_torch.data.synthetic import generate_frames
+    from critic_vae_tpu_torch.io import weights
+    from critic_vae_tpu_torch.train import critic as tc
+
+    gold = np.load(CRITIC_GOLDEN)
+    n, lr = int(gold["num_frames"]), float(gold["lr"])
+    frames = generate_frames(n, seed=int(gold["frames_seed"]))[0]
+    state = tc.init_critic_state(weights.numpy_critic_params(0), device=dev)
+    step = tc.make_critic_step(learning_rate=lr, dropout_rate=float(gold["dropout"]))
+    batch = torch.from_numpy(frames).to(dev)
+    labels = torch.from_numpy(gold["labels"]).to(dev)
+    with no_tf32():
+        losses = [step(state, batch, labels, [m.to(dev) for m in _critic_masks(gold, t)]).item()
+                  for t in range(int(gold["steps"]))]
+    loss_rel = float(np.max(np.abs(np.asarray(losses) / gold["losses"] - 1)))
+    got = weights.critic_to_params(state.critic)
+    param_err = max(float(np.abs(got[k] - gold[f"params/{k}"]).max()) for k in got) / lr
+    log(f"[27 critic] golden: {int(gold['steps'])} critic steps, batch {n}, dropout "
+        f"{float(gold['dropout']):g}, JAX's masks: losses {[round(v, 7) for v in losses]} vs JAX "
+        f"{[round(float(v), 7) for v in gold['losses']]}, worst relative error {loss_rel:.3e} "
+        f"(bar {CRITIC_LOSS_REL:g}); parameters within {param_err:.4f} lr (bar 0.25)")
+    require(loss_rel <= CRITIC_LOSS_REL and param_err <= 0.25, "critic golden")
+
+    frames, gt = generate_frames(CRITIC_TRAIN_FRAMES, seed=27)
+    soft = tc.soft_trunk_labels(gt)
+    t0 = time.perf_counter()
+    params, loss = tc.train_critic(frames, soft, epochs=1, batch_size=TRAIN_BATCH, device=dev,
+                                   progress=False)
+    secs = time.perf_counter() - t0
+    log(f"[27 critic] {smi}: train_critic, 1 epoch of {CRITIC_TRAIN_FRAMES // TRAIN_BATCH} steps "
+        f"at batch {TRAIN_BATCH} on {CRITIC_TRAIN_FRAMES} frames: {secs:.3f} s "
+        f"({CRITIC_TRAIN_FRAMES / secs:.1f} frames/s, first epoch), loss {loss:.4f}")
+    state = tc.init_critic_state(weights.numpy_critic_params(0), device=dev, seed=1)
+    multi = tc.make_critic_multi_step()
+    data = torch.from_numpy(frames).to(dev)
+    lab = torch.from_numpy(soft).to(dev)
+    steps = CRITIC_TRAIN_FRAMES // TRAIN_BATCH
+    t = _train_windows(dev, lambda idx: multi(state, data, lab, idx), np.random.default_rng(1),
+                       CRITIC_TRAIN_FRAMES, steps, CRITIC_WINDOW, warmup=5)
+    first = float(t["losses"][:CRITIC_WINDOW].mean())
+    last = float(t["losses"][-CRITIC_WINDOW:].mean())
+    log(f"[27 critic] {smi}: the critic's multi-step loop, batch {TRAIN_BATCH}, "
+        f"{len(t['window_ms'])} windows of {CRITIC_WINDOW} steps (one epoch): ms a step "
+        f"{[round(v, 4) for v in t['window_ms']]}, median {t['step_ms']:.4f} (spread "
+        f"{max(t['window_ms']) / min(t['window_ms']) - 1:.1%}), "
+        f"{1e3 * TRAIN_BATCH / t['step_ms']:.1f} frames/s; {t['kernel_ms'] / 10:.4f} ms of "
+        f"kernels a step, device idle {t['idle']:.1%} under the profiler "
+        f"({t['idle_timed']:.1%} against the median), {t['per_step']:.0f} kernel launches a "
+        f"step; loss {first:.5f} (first window) -> {last:.5f} (last)")
+    require(np.isfinite(t["losses"]).all() and last < first, "critic: the loss did not fall")
+
+    synthetic = weights.critic_from_params(weights.load_critic(
+        str(ROOT / "saved-networks" / "critic-synthetic.npz")))
+    health = tc.critic_cam_health(synthetic, generate_frames(
+        int(gold["health_frames"]), seed=int(gold["health_seed"]))[0], device=dev)
+    worst = max(abs(health[k] - float(gold[f"health/{k}"])) for k in health)
+    log(f"[27 critic] critic_cam_health of the synthetic critic on the golden's frames: "
+        + " ".join(f"{k}={v:.6g}" for k, v in health.items())
+        + f"; worst field off JAX's by {worst:.3e} (bar {HEALTH_TOL:g})")
+    require(worst <= HEALTH_TOL, "critic_cam_health against the golden")
+
+    out = scratch / "critic.npz"
+    t0 = time.perf_counter()
+    rc, lines = _cli(["traincritic", "--synthetic-frames", "1024", "--epochs", "2",
+                      "--cam-select", "2", "--out", str(out), "--root", str(scratch),
+                      "--device", dev.type])
+    log(f"[27 critic] traincritic --synthetic-frames 1024 --epochs 2 --cam-select 2: exit {rc} "
+        f"in {time.perf_counter() - t0:.1f} s; " + " | ".join(lines))
+    require(rc == 0 and out.is_file(), "traincritic failed")
+    reloaded = weights.critic_from_params(weights.load_critic(str(out))).to(dev)
+    with torch.inference_mode():
+        p = reloaded(torch.rand(4, 3, H, W, device=dev))
+    require(p.shape == (4, 1) and bool(torch.isfinite(p).all()), "the saved critic")
+    return t
+
+
+def phase_data_export(dev, critic, smi: str, scratch: Path):
+    """28: the recon dataset, the second VAE and export (module doc)."""
+    import numpy as np
+    import torch
+
+    from critic_vae_tpu_torch.data.sources import open_source
+    from critic_vae_tpu_torch.io import checkpoint as ckpt_io
+    from critic_vae_tpu_torch.io import weights
+    from critic_vae_tpu_torch.pipelines.dataset import build_recon_dataset
+
+    root = scratch / "root_data"
+    (root / "saved-networks").mkdir(parents=True)
+    params, state = weights.numpy_vae_params(0)
+    ckpt_io.save_pytree(str(root / "saved-networks" / "vae_encoder.ckpt"),
+                        {"params": params["encoder"], "bn_state": state})
+    ckpt_io.save_pytree(str(root / "saved-networks" / "vae_decoder.ckpt"),
+                        {"params": params["decoder"]})
+    common = ["--root", str(root), "--device", dev.type]
+    commands = [["dataset", "--source", "synthetic:2:256"], ["second", "--epochs", "1"]]
+    try:
+        from PIL import Image
+    except ImportError:
+        Image = None
+        log("[28 data] Pillow is not installed: evalsecond is not run (it reads PNGs)")
+    else:
+        from critic_vae_tpu_torch.data.synthetic import generate_frames
+
+        (root / "source-images").mkdir()
+        for i, f in enumerate(generate_frames(4, seed=28)[0]):
+            Image.fromarray(f).save(root / "source-images" / f"frame-{i}.png")
+        commands.append(["evalsecond"])
+    for command in commands:
+        t0 = time.perf_counter()
+        rc, lines = _cli([*command, *common])
+        log(f"[28 data] {' '.join(command)}: exit {rc} in {time.perf_counter() - t0:.1f} s; "
+            + " | ".join(lines))
+        require(rc == 0, f"{command[0]} failed")
+    require((root / "vae2_encoder.ckpt").is_file(), "second wrote no encoder")
+    require(Image is None or len(list((root / "images").glob("image-*.png"))) == 4,
+            "evalsecond wrote no strips")
+
+    vae = weights.vae_from_params(params, state).to(dev)
+    build_recon_dataset(open_source("synthetic:1:512"), critic, vae, device=dev)  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dset = build_recon_dataset(open_source(RECON_FRAMES_SOURCE), critic, vae, device=dev)
+    secs = time.perf_counter() - t0
+    log(f"[28 data] {smi}: build_recon_dataset over {RECON_FRAMES_SOURCE} (trajectories made "
+        f"on the host inside the timing): {len(dset)} recon frames in {secs:.3f} s, "
+        f"{len(dset) / secs:.1f} frames/s")
+    require(dset.shape[1:] == (H, W, 3) and np.isfinite(dset).all(), "recon dataset malformed")
+
+    paths = {k: str(scratch / f"export_{k}.pt") for k in ("enc", "dec", "critic")}
+    rc, lines = _cli(["export", "--encoder-out", paths["enc"], "--decoder-out", paths["dec"],
+                      "--critic-out", paths["critic"], *common])
+    log(f"[28 data] export: exit {rc}; " + " | ".join(lines))
+    require(rc == 0, "export failed")
+    enc_sd, dec_sd = weights.vae_state_dicts_to_torch(params, state)
+    crit_sd = weights.critic_state_dict_to_torch(weights.load_critic(
+        str(ROOT / "saved-networks" / "critic-synthetic.npz")))
+    for key, want in (("enc", enc_sd), ("dec", dec_sd), ("critic", crit_sd)):
+        got = torch.load(paths[key], weights_only=True)
+        require(list(got) == list(want) and all(
+            got[k].numpy().dtype == v.dtype and got[k].numpy().shape == v.shape
+            and np.array_equal(got[k].numpy(), v) for k, v in want.items()),
+            f"export {key}: not bitwise the source")
+    film = scratch / "root_film"
+    (film / "saved-networks").mkdir(parents=True)
+    fparams, fstate = weights.numpy_vae_params(0, film=True)
+    ckpt_io.save_pytree(str(film / "saved-networks" / "vae_encoder.ckpt"),
+                        {"params": fparams["encoder"], "bn_state": fstate})
+    ckpt_io.save_pytree(str(film / "saved-networks" / "vae_decoder.ckpt"),
+                        {"params": fparams["decoder"]})
+    proc = subprocess.run(
+        [sys.executable, "-m", "critic_vae_tpu_torch", "export", "--root", str(film),
+         "--encoder-out", str(film / "e.pt"), "--decoder-out", str(film / "d.pt")],
+        capture_output=True, text=True, timeout=300, cwd=scratch,
+        env=dict(os.environ, PYTHONPATH=str(ROOT)))
+    last = proc.stderr.strip().splitlines()[-1] if proc.stderr.strip() else ""
+    log(f"[28 data] export of a FiLM decoder: exit {proc.returncode}; {last}")
+    require(proc.returncode == 1 and "FiLM" in last and not (film / "e.pt").exists(),
+            "the FiLM export was not refused")
+
+
 def b1_bound(itemsize: int) -> dict:
     """B1's bound at the main path's (2 x 512, 3, 64, 64) decode of
     ``itemsize``-byte values: the decode read once, the f32 grey and maxima
@@ -2192,7 +2568,7 @@ def main(argv=None) -> int:
         phase_train_throughput(dev, critic)
         return 0
 
-    phase_identity()
+    smi = phase_identity()
     phase_build()
     b1 = phase_b1(dev)
     b2 = phase_b2(dev)
@@ -2225,10 +2601,14 @@ def main(argv=None) -> int:
                          *generate_frames(MAIN_FRAMES, seed=0))
     ld, b4_l3 = phase_densecrf(dev)
     phase_train_golden(dev, critic)
-    phase_train_throughput(dev, critic)
+    train_runs = phase_train_throughput(dev, critic)
     with tempfile.TemporaryDirectory() as scratch:
         le, b1_eval_err = phase_train_commands(dev, critic, Path(scratch))
-    launches = {k: launches[k] + lq[k] + ls[k] + ld[k] + le[k] for k in launches}
+    with tempfile.TemporaryDirectory() as scratch:
+        lm, _ = phase_distill(dev, critic, smi, Path(scratch), train_runs["float32"])
+        phase_critic_train(dev, smi, Path(scratch))
+        phase_data_export(dev, critic, smi, Path(scratch))
+    launches = {k: launches[k] + lq[k] + ls[k] + ld[k] + le[k] + lm[k] for k in launches}
     b1 = {**b1, "max_abs_err": max(b1["max_abs_err"], b1_eval_err)}
     b4 = {**b4, **b4_l3, "max_abs_err": max(b4["max_abs_err"], b4_l3["max_abs_err_l3"])}
     bounds = dict(zip(("b1", "b2", "b3", "b4", "b5"), crf_bounds()))

@@ -1,6 +1,6 @@
 """Command line of the port: ``python -m critic_vae_tpu_torch
-{video,train,eval,inject,evalsecond} ...``, the JAX package's modes of the
-same names (critic_vae_tpu/cli.py).
+{video,train,eval,inject,evalsecond,traincritic,dataset,second,export} ...``,
+the JAX package's modes of the same names (critic_vae_tpu/cli.py).
 
 ``train`` collects a balanced training set from ``--source``
 (``synthetic[:N[:T]]`` or a directory of ``.npy`` trajectories) with the
@@ -10,8 +10,23 @@ unless ``--no-resume``, TensorBoard events and a JSONL mirror under
 package's layout to ``--root``/saved-networks/vae_{encoder,decoder}.ckpt,
 which ``eval``, ``inject`` and ``video`` read. It starts from
 ``numpy_vae_params(--seed)``, not the JAX package's threefry draw.
-``--mask-distill`` is not ported yet (``error: ...``, exit 1);
-``--no-shard-dataset`` has no effect on one card.
+``--mask-distill W`` first builds pseudo-label masks of the collected
+frames (pipelines/distill.py: LayerCAM + the CAM-tuned CRF) and trains with
+the soft-Dice term at weight W; ``--no-shard-dataset`` has no effect on one
+card.
+
+``traincritic`` trains a critic on ``--episodes`` (X.npy + Y.npy episode
+dirs; labels from the masks) or ``--synthetic-frames`` synthetic frames,
+with soft or binary labels, optionally the best of ``--cam-select N`` seeds
+by the no-ground-truth LayerCAM health (train/critic.py), and writes the
+JAX package's flat ``.npz`` (default ``--root``/saved-networks/critic.npz).
+As in the JAX package, ``--cam-health-target`` takes effect only with
+``--cam-select`` > 1. ``dataset`` writes the reconstruction dataset of
+``--source`` (default ``--root``/recon-dataset.npz); ``second`` trains a
+VAE on it and writes ``--root``/vae2_{encoder,decoder}.ckpt, which
+``evalsecond`` reads; ``export`` writes the VAE (``--encoder-out`` with
+``--decoder-out``) and the critic (``--critic-out``) as the reference's
+torch ``state_dict`` files (``torch.save``), and refuses a FiLM decoder.
 
 ``eval`` (``evalsecond``: the second VAE's ``vae2_*.ckpt``) writes a
 4-panel strip a still of ``--images`` (default ``--root``/source-images) to
@@ -71,6 +86,8 @@ SOURCE_IMAGES_PATH = "source-images"
 SAVE_PATH = "images"
 INJECT_PATH = "inject"
 CHECKPOINT_PATH = "checkpoints"
+DATASET_PATH = "recon-dataset.npz"
+CRITIC_OUT_PATH = "saved-networks/critic.npz"
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -159,7 +176,69 @@ def build_parser() -> argparse.ArgumentParser:
             e.add_argument("--values", default=None,
                            help="comma-separated critic values to inject "
                            "(default: 0,0.2,0.4,0.6,0.8,1 — reference vae_nets.py:31)")
+    _add_data_commands(sub)
     return p
+
+
+def _add_vae_weights(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--encoder", default=None, help="encoder artifact (.ckpt)")
+    p.add_argument("--decoder", default=None, help="decoder artifact (.ckpt)")
+
+
+def _add_data_commands(sub) -> None:
+    """``dataset``, ``second``, ``traincritic`` and ``export``, with the JAX
+    package's flags and defaults."""
+    d = sub.add_parser("dataset", help="build recon dataset (reference: -dataset)")
+    _add_common(d)
+    _add_vae_weights(d)
+    d.add_argument("--source", default="synthetic")
+    d.add_argument("--out", default=None, help="output .npz path")
+    d.add_argument("--total-images", type=int, default=50_000)
+
+    s = sub.add_parser("second", help="train second VAE on recon dataset (reference: -second)")
+    _add_common(s)
+    s.add_argument("--seed", type=int, default=0)
+    s.add_argument("--dataset", dest="dataset_path", default=None)
+    s.add_argument("--epochs", type=int, default=7)
+    s.add_argument("--batch-size", type=int, default=128)
+    s.add_argument("--lr", type=float, default=5e-5)
+    s.add_argument("--correct-msssim", action="store_true",
+                   help="train with textbook MS-SSIM instead of the reference's variant")
+
+    tc = sub.add_parser("traincritic", help="train a critic from labeled episodes")
+    _add_common(tc)
+    tc.add_argument("--seed", type=int, default=0)
+    tc.add_argument("--episodes", default=None,
+                    help="directory of episode dirs (X.npy + Y.npy); labels derive from Y "
+                    "masks. Default: synthetic data")
+    tc.add_argument("--synthetic-frames", type=int, default=12800)
+    tc.add_argument("--epochs", type=int, default=15)
+    tc.add_argument("--batch-size", type=int, default=128)
+    tc.add_argument("--lr", type=float, default=1e-3)
+    tc.add_argument("--dropout", type=float, default=0.3)
+    tc.add_argument("--labels", choices=("soft", "binary"), default="soft",
+                    help="'soft' trunk-area fractions (train/critic.py::soft_trunk_labels) "
+                    "or 'binary' visibility")
+    tc.add_argument("--no-cam-health", action="store_true",
+                    help="skip the post-training no-GT LayerCAM health report")
+    tc.add_argument("--cam-select", type=int, default=1, metavar="N",
+                    help="train N candidate critics (seeds seed..seed+N-1) and keep the best "
+                    "by the no-GT deletion_drop health metric")
+    tc.add_argument("--cam-health-target", type=float, default=None, metavar="D",
+                    help="with --cam-select N: stop as soon as a candidate's deletion_drop "
+                    "reaches D; if none does, the best is kept and a warning printed")
+    tc.add_argument("--out", default=None, help="output critic .npz path")
+
+    x = sub.add_parser("export", help="export weights as torch .pt state_dicts loadable by "
+                       "the reference")
+    _add_common(x)
+    _add_vae_weights(x)
+    x.add_argument("--encoder-out", default=None,
+                   help="torch .pt path for the encoder state_dict")
+    x.add_argument("--decoder-out", default=None,
+                   help="torch .pt path for the decoder state_dict")
+    x.add_argument("--critic-out", default=None,
+                   help="also export the critic (from --critic) as a torch .pt state_dict")
 
 
 def _add_common(p: argparse.ArgumentParser) -> None:
@@ -195,7 +274,9 @@ def _add_train(sub) -> None:
                    help="weight of the auxiliary loss that the frozen critic read "
                    "decode(mu, 0) as 0 and decode(mu, v) as v; 0 = off")
     t.add_argument("--mask-distill", type=float, default=0.0, metavar="W",
-                   help="self-distillation of the mask path: not ported yet")
+                   help="weight of the self-distillation term: pseudo-label masks from the "
+                   "frozen critic (LayerCAM + CAM-tuned CRF, pipelines/distill.py) and a "
+                   "soft-Dice loss pushing the recon-diff signal into them; 0 = off")
     t.add_argument("--no-shard-dataset", action="store_true",
                    help="accepted for the JAX package's command line; one card holds "
                    "the whole dataset")
@@ -419,9 +500,6 @@ def cmd_video(args) -> int:
 def cmd_train(args) -> int:
     import time
 
-    if args.mask_distill > 0.0:
-        print("error: --mask-distill is not ported yet (pipelines/distill.py)", file=sys.stderr)
-        return 1
     from critic_vae_tpu_torch.data.sampler import balanced_critic_sampler
     from critic_vae_tpu_torch.data.sources import open_source
     from critic_vae_tpu_torch.device import resolve_device
@@ -436,17 +514,34 @@ def cmd_train(args) -> int:
                                    total_images=args.total_images, device=device,
                                    progress=lambda n: print(f"total images = {n}", end="\r"))
     print(f"\ncollected {len(dset)} frames")
+    pseudo_masks = None
+    if args.mask_distill > 0.0:
+        from critic_vae_tpu_torch.pipelines.distill import build_pseudo_masks
+
+        print("building pseudo-label masks (LayerCAM + CAM-tuned CRF)...")
+        pseudo_masks = build_pseudo_masks(critic, dset, device=device)
     log_dir = args.log_dir or str(root / f"logs/vae{str(time.time())[-5:]}")
     state = train(critic, dset, epochs=args.epochs, batch_size=args.batch_size,
                   learning_rate=args.lr, kld_weight=args.kld_weight,
                   faithful_msssim=not args.correct_msssim, compute_dtype=args.dtype,
-                  seed=args.seed, value_consistency=args.value_consistency, film=args.film,
+                  seed=args.seed, value_consistency=args.value_consistency,
+                  mask_distill=args.mask_distill, pseudo_masks=pseudo_masks, film=args.film,
                   log_dir=log_dir, checkpoint_dir=str(root / CHECKPOINT_PATH),
                   resume=not args.no_resume, log_images=args.log_images, device=device)
     enc, dec = str(root / ENCODER_PATH), str(root / DECODER_PATH)
     save_final_weights(state, enc, dec)
     print(f"saved {enc} and {dec}")
     return 0
+
+
+def _final_vae(args, root: Path, second: bool = False):
+    """(params, bn_state) from --encoder/--decoder, else the ``train``
+    artifacts (with ``second``, the second VAE's) under ``--root``."""
+    from critic_vae_tpu_torch.io import weights
+
+    enc = args.encoder or str(root / (SECOND_ENCODER_PATH if second else ENCODER_PATH))
+    dec = args.decoder or str(root / (SECOND_DECODER_PATH if second else DECODER_PATH))
+    return weights.load_final_weights(enc, dec)
 
 
 def _run_eval(args, second: bool, inject: bool) -> int:
@@ -462,9 +557,7 @@ def _run_eval(args, second: bool, inject: bool) -> int:
     device = resolve_device(args.device)
     root = Path(args.root)
     critic = weights.critic_from_params(weights.load_critic(args.critic)).to(device)
-    enc = args.encoder or str(root / (SECOND_ENCODER_PATH if second else ENCODER_PATH))
-    dec = args.decoder or str(root / (SECOND_DECODER_PATH if second else DECODER_PATH))
-    vae = weights.vae_from_params(*weights.load_final_weights(enc, dec)).to(device)
+    vae = weights.vae_from_params(*_final_vae(args, root, second)).to(device)
     images, files = ev.load_image_dir(args.images or str(root / SOURCE_IMAGES_PATH))
     print(f"evaluating {len(files)} source images...")
     if inject:
@@ -479,12 +572,175 @@ def _run_eval(args, second: bool, inject: bool) -> int:
     return 0
 
 
+def cmd_dataset(args) -> int:
+    from critic_vae_tpu_torch.data.sources import open_source
+    from critic_vae_tpu_torch.device import resolve_device
+    from critic_vae_tpu_torch.io import weights
+    from critic_vae_tpu_torch.pipelines.dataset import build_recon_dataset, save_dataset
+
+    device = resolve_device(args.device)
+    root = Path(args.root)
+    critic = weights.critic_from_params(weights.load_critic(args.critic))
+    vae = weights.vae_from_params(*_final_vae(args, root))
+    dset = build_recon_dataset(open_source(args.source), critic, vae,
+                               total_images=args.total_images, device=device)
+    out = args.out or str(root / DATASET_PATH)
+    save_dataset(out, dset)
+    print(f"saved {len(dset)} recon frames to {out}")
+    return 0
+
+
+def cmd_second(args) -> int:
+    from critic_vae_tpu_torch.device import resolve_device
+    from critic_vae_tpu_torch.io import weights
+    from critic_vae_tpu_torch.pipelines.dataset import load_dataset
+    from critic_vae_tpu_torch.pipelines.train import save_final_weights, train
+
+    device = resolve_device(args.device)
+    root = Path(args.root)
+    critic = weights.critic_from_params(weights.load_critic(args.critic))
+    path = args.dataset_path or str(root / DATASET_PATH)
+    print("training second vae...")
+    state = train(critic, load_dataset(path), epochs=args.epochs, batch_size=args.batch_size,
+                  learning_rate=args.lr, faithful_msssim=not args.correct_msssim,
+                  seed=args.seed, log_dir=None, checkpoint_dir=None, resume=False,
+                  device=device)
+    enc, dec = str(root / SECOND_ENCODER_PATH), str(root / SECOND_DECODER_PATH)
+    save_final_weights(state, enc, dec)
+    print(f"saved {enc} and {dec}")
+    return 0
+
+
+def _labelled_frames(args):
+    """(frames, gt) of ``--episodes`` or synthetic frames; (None, None) after
+    printing the JAX package's error when no episode has Y.npy."""
+    import glob
+    import os
+
+    import numpy as np
+
+    if not args.episodes:
+        from critic_vae_tpu_torch.data.synthetic import generate_frames
+
+        return generate_frames(args.synthetic_frames, seed=args.seed)
+    from critic_vae_tpu_torch.data.episode import load_episode
+
+    dirs = sorted(d for d in glob.glob(os.path.join(args.episodes, "*"))
+                  if os.path.isfile(os.path.join(d, "X.npy")))
+    if os.path.isfile(os.path.join(args.episodes, "X.npy")):
+        dirs.insert(0, args.episodes)
+    if not dirs:
+        print(f"error: no episodes (X.npy/Y.npy) under {args.episodes}", file=sys.stderr)
+        return None, None
+    frames_list, gt_list = [], []
+    for d in dirs:
+        f, g = load_episode(d, episode_slice=None)
+        if g is None:  # critic training needs labels
+            print(f"skipping {d}: no Y.npy ground truth", file=sys.stderr)
+            continue
+        frames_list.append(f)
+        gt_list.append(g)
+    if not frames_list:
+        print("error: no episode with Y.npy ground truth found — "
+              "traincritic needs labeled frames", file=sys.stderr)
+        return None, None
+    return np.concatenate(frames_list), np.concatenate(gt_list)
+
+
+def cmd_traincritic(args) -> int:
+    import os
+
+    from critic_vae_tpu_torch.device import resolve_device
+    from critic_vae_tpu_torch.io.weights import save_critic
+    from critic_vae_tpu_torch.train import critic as tc
+
+    frames, gt = _labelled_frames(args)
+    if frames is None:
+        return 1
+    device = resolve_device(args.device)
+    bin_labels = tc.labels_from_masks(gt)
+    labels = tc.soft_trunk_labels(gt) if args.labels == "soft" else bin_labels
+    print(f"training critic on {len(frames)} frames "
+          f"({bin_labels.mean():.0%} positive, {args.labels} labels"
+          + (f", best-of-{args.cam_select} by CAM health" if args.cam_select > 1 else "")
+          + ")...")
+    health = None
+    if args.cam_select > 1:
+        params, health, reports = tc.train_critic_selected(
+            frames, labels, candidates=args.cam_select, base_seed=args.seed,
+            epochs=args.epochs, batch_size=args.batch_size, learning_rate=args.lr,
+            dropout_rate=args.dropout, health_target=args.cam_health_target, device=device)
+        loss = next(r["final_loss"] for r in reports if r["seed"] == health["selected_seed"])
+        if health.get("health_target_met") is False:
+            print(f"WARNING: no candidate reached --cam-health-target "
+                  f"{args.cam_health_target} within {args.cam_select} seeds "
+                  f"(best deletion_drop {health['deletion_drop']:.3f}); "
+                  f"keeping the best — consider rerunning with a later "
+                  f"--seed or a larger --cam-select")
+    else:
+        # as in the JAX package, --cam-health-target is not read here
+        params, loss = tc.train_critic(frames, labels, epochs=args.epochs,
+                                       batch_size=args.batch_size, learning_rate=args.lr,
+                                       dropout_rate=args.dropout, seed=args.seed, device=device)
+    acc = tc.critic_accuracy(params, frames, bin_labels, device=device)
+    if health is None and not args.no_cam_health:
+        health = tc.critic_cam_health(params, frames, device=device)
+    out = args.out or str(Path(args.root) / CRITIC_OUT_PATH)
+    os.makedirs(os.path.dirname(out) or ".", exist_ok=True)
+    save_critic(out, params)
+    print(f"final loss={loss:.4f} train acc={acc:.3f}; saved {out}")
+    if health is not None:
+        print("cam health (no-GT, train/critic.py::critic_cam_health): "
+              + " ".join(f"{k}={v:.4g}" for k, v in health.items()))
+        if health["deletion_drop"] < tc.CAM_HEALTH_MIN_DELETION_DROP:
+            print(
+                f"WARNING: deletion_drop "
+                f"{health['deletion_drop']:.3f} < "
+                f"{tc.CAM_HEALTH_MIN_DELETION_DROP} — this critic's "
+                f"LayerCAM localization looks DEGENERATE (accuracy "
+                f"does not predict CAM quality; docs/RESULTS.md round "
+                f"5). The saliency mask chain (`video --quality`, "
+                f"mask distillation) will underperform with it; "
+                f"retrain with --labels soft or another --seed.",
+                file=sys.stderr,
+            )
+    return 0
+
+
+def cmd_export(args) -> int:
+    from critic_vae_tpu_torch.io import weights
+
+    wrote = []
+    if args.encoder_out or args.decoder_out:
+        if not (args.encoder_out and args.decoder_out):
+            print("error: --encoder-out and --decoder-out go together", file=sys.stderr)
+            return 1
+        enc_sd, dec_sd = weights.vae_state_dicts_to_torch(*_final_vae(args, Path(args.root)))
+        weights.save_state_dict_pt(args.encoder_out, enc_sd)
+        weights.save_state_dict_pt(args.decoder_out, dec_sd)
+        wrote += [args.encoder_out, args.decoder_out]
+    if args.critic_out:
+        weights.save_state_dict_pt(args.critic_out, weights.critic_state_dict_to_torch(
+            weights.load_critic(args.critic)))
+        wrote.append(args.critic_out)
+    if not wrote:
+        print("error: nothing to export (pass --encoder-out/--decoder-out "
+              "and/or --critic-out)", file=sys.stderr)
+        return 1
+    print(f"exported {', '.join(wrote)}")
+    return 0
+
+
 COMMANDS = {
     "video": cmd_video,
     "train": cmd_train,
     "eval": lambda args: _run_eval(args, second=False, inject=False),
     "inject": lambda args: _run_eval(args, second=False, inject=True),
     "evalsecond": lambda args: _run_eval(args, second=True, inject=False),
+    "traincritic": cmd_traincritic,
+    "dataset": cmd_dataset,
+    "second": cmd_second,
+    "export": cmd_export,
 }
 
 

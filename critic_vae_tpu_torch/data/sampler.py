@@ -13,6 +13,11 @@ the bin bookkeeping is the host's sequential chain (:func:`select_balanced`,
 the reference's if/elif order). The JAX package pads ragged chunks to two
 bucket shapes to bound XLA compiles; PyTorch compiles nothing, so the port
 scores chunks as they come, with the same scores.
+
+With ``recon_fn`` (the ``dataset`` command, pipelines/dataset.py) the set
+holds reconstructions instead: recon@pred of the high-bin frames, recon@0
+of the low-bin ones, both of the mid-bin ones (reference:
+vae_utility.py:431-443).
 """
 
 from __future__ import annotations
@@ -77,10 +82,14 @@ def balanced_critic_sampler(trajectories: Iterable[Tuple[str, np.ndarray]], crit
                             total_images: int = 50_000, collect: int = 150,
                             thresholds: BinThresholds = DEFAULT_THRESHOLDS,
                             batch_size: int = 1024, device="cuda",
+                            recon_fn: Optional[Callable[[np.ndarray, np.ndarray],
+                                                        Tuple[np.ndarray, np.ndarray]]] = None,
                             progress: Optional[Callable[[int], None]] = None) -> np.ndarray:
     """A balanced training set, (N, H, W, 3) float32, from (name, frames)
     trajectories (frames (T, H, W, 3) float32 in [0, 1]), the critic moved
-    to ``device`` (the card unless the caller asks for the CPU)."""
+    to ``device`` (the card unless the caller asks for the CPU).
+    ``recon_fn(frames, preds) -> (recon_at_pred, recon_at_zero)`` builds the
+    reconstruction set instead (module doc)."""
     critic = critic.to(resolve_device(device))
     out: List[np.ndarray] = []
     n = 0
@@ -88,11 +97,19 @@ def balanced_critic_sampler(trajectories: Iterable[Tuple[str, np.ndarray]], crit
         if n >= total_images:
             break
         preds = score_frames(critic, frames, batch_size)
-        idx, _ = select_balanced(preds, collect, thresholds)
+        idx, bins = select_balanced(preds, collect, thresholds)
         if len(idx) == 0:
             continue
-        out.append(frames[idx])
-        n += len(idx)
+        if recon_fn is None:
+            out.append(frames[idx])
+            n += len(idx)
+        else:
+            recon_pred, recon_zero = recon_fn(frames[idx], preds[idx])
+            take_pred = bins >= 1  # mid + high
+            take_zero = bins <= 1  # low + mid
+            out.append(np.asarray(recon_pred)[take_pred])
+            out.append(np.asarray(recon_zero)[take_zero])
+            n += int(take_pred.sum()) + int(take_zero.sum())
         if progress is not None:
             progress(n)
     if not out:

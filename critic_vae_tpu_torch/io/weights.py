@@ -23,6 +23,11 @@ Files:
 
 A decoder whose params hold ``film{i}`` (the JAX package's ``train --film``)
 builds a FiLM decoder.
+
+Export (the JAX package's ``export``): :func:`critic_state_dict_to_torch`
+and :func:`vae_state_dicts_to_torch` give the reference's torch
+``state_dict`` layouts as numpy arrays; a FiLM decoder has no counterpart
+there and is refused.
 """
 
 from __future__ import annotations
@@ -116,6 +121,55 @@ def load_critic(path: str) -> Dict[str, np.ndarray]:
     if str(path).endswith(".npz"):
         return load_critic_npz(path)
     return critic_params_from_torch(torch.load(path, map_location="cpu", weights_only=True))
+
+
+def numpy_critic_params(seed: int, dims=(8, 8, 8, 16), bottleneck: int = 32,
+                        channels: int = 3) -> Dict[str, np.ndarray]:
+    """Fresh critic params in the JAX flat layout, made with numpy from
+    ``seed``: the shapes and torch-default uniform bounds (1/sqrt(fan_in))
+    of ``critic_vae_tpu.models.critic.init_critic_params``, drawn from
+    ``np.random.default_rng(seed)`` in its key order, not from threefry."""
+    rng = np.random.default_rng(seed)
+
+    def uniform(shape, fan_in):
+        bound = 1.0 / np.sqrt(fan_in)
+        return rng.uniform(-bound, bound, shape).astype(np.float32)
+
+    params: Dict[str, np.ndarray] = {}
+    cin = channels
+    for i, cout in enumerate(dims):
+        params[f"conv{i}_w"] = uniform((3, 3, cin, cout), cin * 9)
+        params[f"conv{i}_b"] = uniform((cout,), cin * 9)
+        cin = cout
+    params["conv4_w"] = uniform((4, 4, dims[3], bottleneck), dims[3] * 16)
+    params["conv4_b"] = uniform((bottleneck,), dims[3] * 16)
+    params["fc0_w"] = uniform((bottleneck, bottleneck), bottleneck)
+    params["fc0_b"] = uniform((bottleneck,), bottleneck)
+    params["fc1_w"] = uniform((bottleneck, 1), bottleneck)
+    params["fc1_b"] = uniform((1,), bottleneck)
+    return params
+
+
+def save_critic(path: str, params: Dict[str, np.ndarray]) -> None:
+    """A critic as the JAX package's flat ``.npz`` (its ``save_critic``),
+    which its ``load_critic`` and :func:`load_critic` read."""
+    np.savez(path, **{k: np.asarray(v) for k, v in params.items()})
+
+
+def critic_state_dict_to_torch(params: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+    """Inverse of :func:`critic_params_from_torch`: the reference's critic
+    ``state_dict`` layout (OIHW convs, (out, in) linears) as numpy arrays."""
+    sd: Dict[str, np.ndarray] = {}
+    for i, key in enumerate(("features.0", "features.3", "features.6", "features.10")):
+        sd[f"{key}.weight"] = np.transpose(np.asarray(params[f"conv{i}_w"]), (3, 2, 0, 1)).copy()
+        sd[f"{key}.bias"] = np.asarray(params[f"conv{i}_b"])
+    sd["features.14.weight"] = np.transpose(np.asarray(params["conv4_w"]), (3, 2, 0, 1)).copy()
+    sd["features.14.bias"] = np.asarray(params["conv4_b"])
+    sd["crit.1.weight"] = np.ascontiguousarray(np.asarray(params["fc0_w"]).T)
+    sd["crit.1.bias"] = np.asarray(params["fc0_b"])
+    sd["crit.4.weight"] = np.ascontiguousarray(np.asarray(params["fc1_w"]).T)
+    sd["crit.4.bias"] = np.asarray(params["fc1_b"])
+    return sd
 
 
 def critic_to_params(critic: Critic) -> Dict[str, np.ndarray]:
@@ -252,6 +306,53 @@ def load_final_weights(encoder_path: str, decoder_path: str) -> Tuple[Params, Pa
     enc = load_pytree(encoder_path, {"params": like_params["encoder"], "bn_state": like_bn})
     dec = load_pytree(decoder_path, {"params": like_dec})
     return {"encoder": enc["params"], "decoder": dec["params"]}, enc["bn_state"]
+
+
+def vae_state_dicts_to_torch(params: Params, state: Params
+                             ) -> Tuple[Dict[str, np.ndarray], Dict[str, np.ndarray]]:
+    """JAX-layout ``(params, bn_state)`` -> the reference's encoder and
+    decoder ``state_dict`` layouts (OIHW convs, (out, in) linears, BatchNorm
+    running stats and ``num_batches_tracked``), as the JAX package's
+    ``vae_state_dicts_to_torch``; a FiLM decoder raises its ValueError."""
+    film_keys = [k for k in params["decoder"] if k.startswith("film")]
+    if film_keys:
+        raise ValueError(
+            f"decoder carries FiLM conditioning params {sorted(film_keys)}; "
+            "the torch reference architecture (vae_nets.py:116-147) cannot "
+            "represent them — export only non-film models"
+        )
+
+    def conv(p):
+        return np.transpose(np.asarray(p["w"]), (3, 2, 0, 1)).copy(), np.asarray(p["b"])
+
+    def linear(p):
+        return np.ascontiguousarray(np.asarray(p["w"]).T), np.asarray(p["b"])
+
+    enc, enc_sd = params["encoder"], {}
+    for i, idx in enumerate((0, 4, 8, 12)):
+        enc_sd[f"model.{idx}.weight"], enc_sd[f"model.{idx}.bias"] = conv(enc[f"conv{i}"])
+        bn = f"model.{idx + 1}"
+        enc_sd[f"{bn}.weight"] = np.asarray(enc[f"bn{i}"]["scale"])
+        enc_sd[f"{bn}.bias"] = np.asarray(enc[f"bn{i}"]["bias"])
+        enc_sd[f"{bn}.running_mean"] = np.asarray(state[f"bn{i}"]["mean"])
+        enc_sd[f"{bn}.running_var"] = np.asarray(state[f"bn{i}"]["var"])
+        enc_sd[f"{bn}.num_batches_tracked"] = np.asarray(0, np.int64)
+    for name in ("fc_mu", "fc_var"):
+        enc_sd[f"{name}.weight"], enc_sd[f"{name}.bias"] = linear(enc[name])
+    dec = params["decoder"]
+    dec_sd: Dict[str, np.ndarray] = {}
+    dec_sd["decoder_input.weight"], dec_sd["decoder_input.bias"] = linear(dec["input"])
+    for i, idx in enumerate((0, 3, 6, 9, 12)):
+        dec_sd[f"model.{idx}.weight"], dec_sd[f"model.{idx}.bias"] = conv(dec[f"conv{i}"])
+    return enc_sd, dec_sd
+
+
+def save_state_dict_pt(path: str, state_dict: Dict[str, np.ndarray]) -> None:
+    """A numpy ``state_dict`` as a torch ``.pt`` (``torch.save``, zip
+    format) of CPU tensors, which ``torch.load(weights_only=True)`` and the
+    JAX package's ``io/legacy_pt.py::load_torch_pt`` read."""
+    # np.array, not np.ascontiguousarray, which makes a 0-d array (1,)
+    torch.save({k: torch.from_numpy(np.array(v, order="C")) for k, v in state_dict.items()}, path)
 
 
 def save_vae_npz(path: str, params: Params, state: Params) -> None:

@@ -3,7 +3,10 @@ critic_vae_tpu/models/critic.py::critic_apply).
 
 4x[conv3x3 SAME -> ReLU -> maxpool2] with dims (8, 8, 8, 16), a valid 4x4
 conv to a 32-d embedding -> ReLU, Linear(32->32) -> ReLU, Linear(32->1),
-sigmoid. Dropout is train-only in the reference and absent here.
+sigmoid. Dropout (``dropout_rate > 0``) is the train mode of
+``critic_apply(train=True)``: after block 2's and block 3's pools and after
+fc0's ReLU, ``where(mask, h / keep, 0)``, the masks drawn from a
+``torch.Generator`` or given (the JAX package's bernoulli draws, for parity).
 
 Parameters stay float32; as in the JAX package, each layer casts its weights
 to the input's dtype, so a bfloat16 input runs the whole net in bfloat16.
@@ -68,7 +71,9 @@ class Critic(nn.Module):
 
     def forward(self, x: torch.Tensor, *, fused_pool: bool | str = False,
                 block0_f32: bool = False, downstream_dtype: torch.dtype | None = None,
-                start_block: int = 0, return_logits: bool = False, tap: int | None = None):
+                start_block: int = 0, return_logits: bool = False, tap: int | None = None,
+                dropout_rate: float = 0.0, generator: torch.Generator | None = None,
+                dropout_masks=None):
         """x (B, 3, 64, 64) in [0, 1] -> (B, 1) probabilities, or the
         pre-sigmoid logits with ``return_logits``.
 
@@ -81,7 +86,26 @@ class Critic(nn.Module):
         ``tap=k`` (0-3) also returns block k's post-pool activation, as
         ``critic_apply(tap_offset=(k, zeros))`` does: ``(out, activation)``,
         so that ``torch.autograd.grad`` of the output w.r.t. it is LayerCAM's
-        d out / d A (ops/saliency.py)."""
+        d out / d A (ops/saliency.py).
+
+        ``dropout_rate > 0`` is training's dropout, as ``critic_apply(train=True,
+        dropout_rate=...)``: the keep masks of block 2's pooled (B, 8, 8, 8),
+        block 3's pooled (B, 16, 4, 4) and fc0's (B, 32) are ``dropout_masks``
+        (three bool tensors in that order, NCHW) or, without them, uniform
+        draws from ``generator`` below ``1 - dropout_rate``."""
+        if dropout_rate > 0.0 and dropout_masks is None and generator is None:
+            raise ValueError("dropout requires a generator or dropout_masks")
+        masks = iter(dropout_masks or ())
+
+        def dropout(h):
+            if dropout_rate <= 0.0:
+                return h
+            keep = 1.0 - dropout_rate
+            mask = next(masks, None)
+            if mask is None:
+                mask = torch.rand(h.shape, generator=generator, device=h.device) < keep
+            return torch.where(mask.to(h.device), h / keep, 0.0).to(h.dtype)
+
         if tap is not None and not start_block <= tap < len(self.convs):
             raise ValueError(
                 f"tap block must be in {start_block}..{len(self.convs) - 1} (post-pool "
@@ -103,8 +127,10 @@ class Critic(nn.Module):
                 x = F.max_pool2d(F.relu(x), 2)
             if i == tap:
                 tapped = x
+            if i >= 2:
+                x = dropout(x)
         h = F.relu(conv(self.conv4, x, dtype)).flatten(1)
-        h = F.relu(linear(self.fc0, h, dtype))
+        h = dropout(F.relu(linear(self.fc0, h, dtype)))
         logit = linear(self.fc1, h, dtype)
         out = logit if return_logits else sigmoid(logit)
         return out if tap is None else (out, tapped)

@@ -48,15 +48,28 @@ def train(critic: Critic, dataset: np.ndarray, *, epochs: int = 7, batch_size: i
           log_dir: Optional[str] = None, checkpoint_dir: Optional[str] = None,
           checkpoint_every_steps: int = 500, keep_checkpoints: int = 3, resume: bool = True,
           initial_params=None, progress: bool = True, log_images: bool = False,
-          value_consistency: float = 0.0, film: bool = False, device="cuda") -> TrainState:
+          value_consistency: float = 0.0, mask_distill: float = 0.0,
+          pseudo_masks: Optional[np.ndarray] = None, film: bool = False,
+          device="cuda") -> TrainState:
     """Train the VAE on (N, 64, 64, 3) frames, uint8 or float in [0, 1], on
     ``device`` (the card unless the caller asks for the CPU), float32
     convs and matmuls without TF32. ``initial_params``: a JAX-layout
     ``(params, bn_state)`` to start from (default ``numpy_vae_params(seed,
-    film=film)``). Returns the final :class:`TrainState`."""
+    film=film)``). ``mask_distill > 0`` needs ``pseudo_masks`` (N, H, W),
+    row-aligned with the dataset (pipelines/distill.py), which go to the
+    device as uint8 beside it. Returns the final :class:`TrainState`."""
     dataset = np.asarray(dataset)
     if dataset.ndim != 4:
         raise ValueError(f"dataset must be (N, H, W, C), got {dataset.shape}")
+    if mask_distill > 0.0:
+        if pseudo_masks is None:
+            raise ValueError("mask_distill > 0 requires pseudo_masks")
+        pseudo_masks = np.asarray(pseudo_masks).astype(np.uint8)
+        if pseudo_masks.shape != dataset.shape[:3]:
+            raise ValueError(
+                f"pseudo_masks {pseudo_masks.shape} must be row-aligned with "
+                f"the dataset {dataset.shape[:3]}"
+            )
     if dataset.dtype != np.uint8:
         dataset = dataset.astype(np.float32, copy=False)
     num_samples = len(dataset)
@@ -81,9 +94,11 @@ def train(critic: Critic, dataset: np.ndarray, *, epochs: int = 7, batch_size: i
 
     critic = critic.to(device)
     dataset_dev = torch.from_numpy(dataset).to(device)
+    masks_dev = torch.from_numpy(pseudo_masks).to(device) if mask_distill > 0.0 else None
     multi_step = make_multi_step(critic, learning_rate=learning_rate, kld_weight=kld_weight,
                                  faithful_msssim=faithful_msssim, compute_dtype=compute_dtype,
-                                 value_consistency=value_consistency)
+                                 value_consistency=value_consistency,
+                                 mask_distill=mask_distill)
     logger = MetricLogger(log_dir) if log_dir else None
     shuffle_rng = np.random.default_rng(seed)
 
@@ -112,7 +127,8 @@ def train(critic: Critic, dataset: np.ndarray, *, epochs: int = 7, batch_size: i
                 row = first_row
                 while row < steps_per_epoch:
                     idx_chunk = idx_epoch[row:row + dispatch]
-                    losses = multi_step(state, dataset_dev, torch.from_numpy(idx_chunk).to(device))
+                    losses = multi_step(state, dataset_dev, torch.from_numpy(idx_chunk).to(device),
+                                        masks=masks_dev)
                     rows.append({k: v.cpu().numpy() for k, v in losses.items()})
                     row += len(idx_chunk)
                     cur_step = ep * steps_per_epoch + row

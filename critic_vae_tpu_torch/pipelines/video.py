@@ -89,13 +89,14 @@ SALIENCY_DEFAULTS = dict(logits=False, samples=1, noise=0.0, seed=0, sigma=None,
                          tta_flip=False, tta_shift=0)
 
 
-def episode_device_stage(vae: VAE, critic: Critic, frames_u8: torch.Tensor,
+def episode_device_stage(vae: Optional[VAE], critic: Critic, frames_u8: torch.Tensor,
                          batch_size: int = 512, *, compute_dtype: str = "float32",
                          with_recons: bool = False, recons_u8: bool = False,
                          mask_source: str = "diff", saliency_opts: Optional[Dict] = None):
     """Run :func:`episode_forward` over device-resident uint8 frames (N, H,
     W, 3) in chunks of ``batch_size``, the last padded by repeating its last
-    frame, so every chunk has one shape.
+    frame, so every chunk has one shape. ``vae`` may be None for the
+    saliency source without ``with_recons``, which never decodes.
 
     ``saliency_opts`` (read for ``mask_source="saliency"``) holds any of the
     JAX package's keys ``logits``, ``samples``, ``noise``, ``seed``,

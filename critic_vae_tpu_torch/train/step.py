@@ -20,6 +20,14 @@ tensor, the skip is the fused Adam's ``found_inf`` and the BN commit a
 
 ``compute_dtype="bfloat16"`` runs the convs and matmuls in bfloat16; the
 parameters, Adam's state, BN statistics and the loss stay float32.
+
+``mask_distill > 0`` adds the JAX package's self-distillation term: the
+diff map |decode(mu, 0) - decode(mu, v)| in Rec.601 grey, divided by its
+per-frame max + 1e-6 (the serving mask signal of ops/mask.py, here plain
+differentiable torch: kernel B1 has no backward), is pushed into the
+batch's pseudo-label masks by a soft-Dice loss. Its per-frame max is
+``amax``, whose backward spreads the gradient over ties as JAX's max does,
+and its |.| has JAX's slope 1 at 0.
 """
 
 from __future__ import annotations
@@ -40,6 +48,8 @@ ADAM = dict(beta1=0.9, beta2=0.999, eps=1e-8)  # torch defaults, as the referenc
 MAX_CONSECUTIVE_ERRORS = 100
 _INT32_MAX = 2**31 - 1  # optax's safe_increment saturates here
 VC_CLIP = 1e-6  # value consistency: the critic's outputs are clipped to [eps, 1 - eps]
+GREY = (0.2989, 0.5870, 0.1140)  # Rec.601, as ops/mask.py's diff maps
+DICE_EPS = 1e-6
 
 
 @dataclasses.dataclass
@@ -104,19 +114,39 @@ def _bce_terms(critic: Critic, recon_v, recon_0, target):
     return torch.mean(bce_v) + torch.mean(-torch.log(1.0 - c0))
 
 
+def _dice_term(recon_v, recon_0, masks) -> torch.Tensor:
+    """The mean soft-Dice loss between the per-frame max-normalised grey
+    diff of two (B, 3, H, W) decodes and (B, H, W) 0/1 masks."""
+    diff = recon_0.float() - recon_v.float()
+    # |diff| as JAX differentiates it, slope 1 at 0 (torch.abs's is 0): the
+    # decodes are equal in float32 wherever the critic's value rounds away
+    d = torch.where(diff >= 0, diff, -diff)
+    grey = d[:, 0] * GREY[0] + d[:, 1] * GREY[1] + d[:, 2] * GREY[2]
+    dn = grey / (torch.amax(grey, dim=(1, 2), keepdim=True) + DICE_EPS)
+    m = masks.float()
+    inter = torch.sum(dn * m, dim=(1, 2))
+    dice = 1.0 - (2.0 * inter + DICE_EPS) / (
+        torch.sum(dn, dim=(1, 2)) + torch.sum(m, dim=(1, 2)) + DICE_EPS)
+    return torch.mean(dice)
+
+
 def make_train_step(critic: Critic, *, learning_rate: float = 5e-5, kld_weight: float = 1e-3,
                     faithful_msssim: bool = True, compute_dtype: str = "float32",
-                    value_consistency: float = 0.0) -> Callable:
-    """``step(state, batch, eps=None) -> losses``: one step on ``batch``
-    (B, H, W, 3), uint8 or float in [0, 1], on the state's device, updating
-    ``state`` in place. ``losses``: float32 scalars on the device,
+                    value_consistency: float = 0.0, mask_distill: float = 0.0) -> Callable:
+    """``step(state, batch, eps=None, masks=None) -> losses``: one step on
+    ``batch`` (B, H, W, 3), uint8 or float in [0, 1], on the state's device,
+    updating ``state`` in place. ``losses``: float32 scalars on the device,
     ``total_loss``, ``recon_loss``, ``kld`` (and ``vc_loss`` with
-    ``value_consistency``). ``eps`` (B, latent) replaces the noise draw (the
-    JAX package's draws, for parity); the generator is then not advanced."""
+    ``value_consistency``, ``md_loss`` with ``mask_distill``). ``eps`` (B,
+    latent) replaces the noise draw (the JAX package's draws, for parity);
+    the generator is then not advanced. ``masks`` (B, H, W), the batch's
+    pseudo-label masks, are required with ``mask_distill > 0``."""
     cdt = DTYPES[compute_dtype]
 
-    def step(state: TrainState, batch: torch.Tensor,
-             eps: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+    def step(state: TrainState, batch: torch.Tensor, eps: Optional[torch.Tensor] = None,
+             masks: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+        if mask_distill > 0.0 and masks is None:
+            raise ValueError("mask_distill > 0 requires the batch's pseudo-label masks")
         if batch.dtype == torch.uint8:
             batch = batch.to(cdt) / 255.0
         x = batch.to(cdt).permute(0, 3, 1, 2).contiguous()
@@ -127,12 +157,17 @@ def make_train_step(critic: Critic, *, learning_rate: float = 5e-5, kld_weight: 
         recon, mu, logvar, stats = vae.vae_apply(x, preds, eps=eps, generator=state.generator)
         losses = vae_loss(x.float(), mu.float(), logvar.float(), recon.float(),
                           kld_weight=kld_weight, faithful=faithful_msssim)
-        if value_consistency > 0.0:
+        if value_consistency > 0.0 or mask_distill > 0.0:
+            # the deterministic mu path, where the masks come from
             recon_v = vae.decode(mu, preds)
             recon_0 = vae.decode(mu, torch.zeros_like(preds))
+        if value_consistency > 0.0:
             losses["vc_loss"] = value_consistency * _bce_terms(critic, recon_v, recon_0,
                                                                preds.float())
             losses["total_loss"] = losses["total_loss"] + losses["vc_loss"]
+        if mask_distill > 0.0:
+            losses["md_loss"] = mask_distill * _dice_term(recon_v, recon_0, masks)
+            losses["total_loss"] = losses["total_loss"] + losses["md_loss"]
         # the fused Adam reads each gradient as flat memory in its parameter's
         # order: a channels-last gradient would be applied to the wrong elements
         grads = [g.contiguous() for g in torch.autograd.grad(losses["total_loss"], params)]
@@ -161,17 +196,21 @@ def make_train_step(critic: Critic, *, learning_rate: float = 5e-5, kld_weight: 
 
 
 def make_multi_step(critic: Critic, **options) -> Callable:
-    """``multi_step(state, dataset, idx, eps=None) -> losses``: K steps of
-    :func:`make_train_step` (``options`` are its) over a device-resident
-    ``dataset`` (N, H, W, 3), uint8 or float, each batch gathered on the
-    device by a row of the int32 (K, B) ``idx``. The per-step losses stay on
-    the device, stacked to (K,) each (the counterpart of the JAX package's
-    ``lax.scan`` loop). ``eps`` (K, B, latent) replaces the noise draws."""
+    """``multi_step(state, dataset, idx, eps=None, masks=None) -> losses``: K
+    steps of :func:`make_train_step` (``options`` are its) over a
+    device-resident ``dataset`` (N, H, W, 3), uint8 or float, each batch
+    gathered on the device by a row of the int32 (K, B) ``idx``, and with
+    ``masks`` (N, H, W), row-aligned with the dataset, its mask rows by the
+    same row. The per-step losses stay on the device, stacked to (K,) each
+    (the counterpart of the JAX package's ``lax.scan`` loop). ``eps`` (K, B,
+    latent) replaces the noise draws."""
     step = make_train_step(critic, **options)
 
     def multi_step(state: TrainState, dataset: torch.Tensor, idx: torch.Tensor,
-                   eps: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
-        rows = [step(state, dataset.index_select(0, idx[k]), None if eps is None else eps[k])
+                   eps: Optional[torch.Tensor] = None,
+                   masks: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+        rows = [step(state, dataset.index_select(0, idx[k]), None if eps is None else eps[k],
+                     None if masks is None else masks.index_select(0, idx[k]))
                 for k in range(idx.shape[0])]
         return {key: torch.stack([r[key] for r in rows]) for key in rows[0]}
 

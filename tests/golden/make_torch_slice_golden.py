@@ -50,8 +50,34 @@ and each parameter leaf's change over the 3 steps at 64 seeded positions
 (JAX layout). chip_smoke.py and
 tests/test_torch_train.py hold the port's train step against it.
 
+The distill file (torch_distill_golden.npz) holds the JAX package's
+``build_pseudo_masks`` on 32 synthetic frames (``generate_frames(32,
+seed=30)``) with the synthetic critic: the thresholded LayerCAM masks
+(``run_crf=False``) and the CRF masks of its ``device`` backend on the CPU
+(the float32 ``xla`` build, 16 frames a chunk), and 3 train steps with
+``mask_distill=0.5`` at full width from ``numpy_vae_params(0)`` on 16 of
+the frames with their CRF masks, in the train file's layout (noise, losses
+with ``md_loss``, BN stats, parameter changes at 64 seeded positions). The
+16 (``step_rows``) are the first frames the critic scores at least 0.05: at
+a value near 0 the two decodes differ by ~v, the term divides their
+difference by its max (~1e-4 there) and its gradient changes by up to 10%
+when float32 noise of 5e-6 in mu moves a decoder ReLU across 0 in one decode
+and not the other (the JAX package's own float64 gradient at the port's mu
+shows it), so no two float32 implementations meet the train bars there.
+chip_smoke.py holds the card's masks and steps against it.
+
+The critic file (torch_critic_golden.npz) holds 3 steps of the JAX
+package's critic training step (``make_critic_multi_step``, dropout 0.3,
+``optax.adam(1e-3)``) from ``numpy_critic_params(0)`` on 128 synthetic
+frames (``generate_frames(128, seed=40)``) with soft trunk labels: the
+dropout masks each step drew (replayed with public ``jax.random`` calls:
+split the state's key, split the step's key in 3, bernoulli of each layer's
+NHWC shape), each step's loss and the params after the 3 steps; and
+``critic_cam_health`` of the synthetic critic on ``generate_frames(128,
+seed=9999)``. chip_smoke.py holds the card's critic training against it.
+
 Run from the repo root:
-  JAX_PLATFORMS=cpu python tests/golden/make_torch_slice_golden.py [slice|sweep|bf16|saliency|train|all]
+  JAX_PLATFORMS=cpu python tests/golden/make_torch_slice_golden.py [slice|sweep|bf16|saliency|train|distill|critic|all]
 """
 
 from __future__ import annotations
@@ -84,7 +110,7 @@ from critic_vae_tpu.ops.mask import (  # noqa: E402
     normalize_diffs_given_mean,
     threshold_masks,
 )
-from critic_vae_tpu_torch.io.weights import numpy_vae_params  # noqa: E402
+from critic_vae_tpu_torch.io.weights import numpy_critic_params, numpy_vae_params  # noqa: E402
 
 NUM_FRAMES = 16
 SEED = 0
@@ -108,6 +134,19 @@ TRAIN_STEPS = 3
 TRAIN_BATCH = 16
 TRAIN_LR = 5e-5
 TRAIN_SAMPLES = 64  # sampled positions of each parameter leaf's change
+DISTILL_OUT = os.path.join(ROOT, "tests", "golden", "torch_distill_golden.npz")
+DISTILL_FRAMES = 32
+DISTILL_SEED = 30
+DISTILL_WEIGHT = 0.5
+DISTILL_CRF_MEM = 1 << 30  # the JAX CRF's workspace cap: 16 frames a chunk at 64x64
+DISTILL_STEP_MIN_PRED = 0.05  # the step batch's frames: critic score at least this
+CRITIC_OUT = os.path.join(ROOT, "tests", "golden", "torch_critic_golden.npz")
+CRITIC_FRAMES = 128
+CRITIC_SEED = 40
+CRITIC_LR = 1e-3
+CRITIC_DROPOUT = 0.3
+HEALTH_FRAMES = 128
+HEALTH_SEED = 9999
 
 
 def device_stage():
@@ -209,12 +248,28 @@ def saliency() -> None:
 
 
 def train() -> None:
-    import optax
-
     from critic_vae_tpu.models.vae import encode
-    from critic_vae_tpu.train.step import TrainState, make_train_step
 
     frames, _ = generate_frames(TRAIN_BATCH, seed=SEED)
+    params, bn_state = numpy_vae_params(SEED)
+    x = jnp.asarray(frames).astype(jnp.float32) / jnp.asarray(255.0, jnp.float32)
+    mu1, logvar1, _ = jax.jit(lambda p, s, xx: encode(p, s, xx, train=True))(
+        jax.tree.map(jnp.asarray, params), jax.tree.map(jnp.asarray, bn_state), x)
+    out = _train_steps(frames, None, 0.0)
+    np.savez_compressed(TRAIN_OUT, mu1=np.asarray(mu1, np.float32),
+                        logvar1=np.asarray(logvar1, np.float32), **out)
+    print(f"wrote {TRAIN_OUT} ({os.path.getsize(TRAIN_OUT)} bytes): losses="
+          f"{ {k: out[k].tolist() for k in ('total_loss', 'recon_loss', 'kld')} }")
+
+
+def _train_steps(frames, masks, mask_distill: float) -> dict:
+    """3 JAX train steps at full width from numpy_vae_params(SEED) on one
+    batch: noise, losses, BN stats after step 1 and 3, parameter changes at
+    TRAIN_SAMPLES seeded positions a leaf (the train file's layout)."""
+    import optax
+
+    from critic_vae_tpu.train.step import TrainState, make_train_step
+
     critic = load_critic(os.path.join(ROOT, "saved-networks", "critic-synthetic.npz"))
     params, bn_state = numpy_vae_params(SEED)
     tx = optax.apply_if_finite(optax.adam(TRAIN_LR, b1=0.9, b2=0.999, eps=1e-8),
@@ -223,18 +278,16 @@ def train() -> None:
     key = jax.random.key(SEED)
     state = TrainState(p0, jax.tree.map(jnp.asarray, bn_state), tx.init(p0), key,
                        jnp.zeros((), jnp.int32))
-    step = make_train_step(critic, tx, compute_dtype=jnp.float32, donate=False)
-    x = jnp.asarray(frames).astype(jnp.float32) / jnp.asarray(255.0, jnp.float32)
-    mu1, logvar1, _ = jax.jit(lambda p, s, xx: encode(p, s, xx, train=True))(
-        p0, state.bn_state, x)
-    out = {"mu1": np.asarray(mu1, np.float32), "logvar1": np.asarray(logvar1, np.float32)}
-    eps, losses = [], {"total_loss": [], "recon_loss": [], "kld": []}
+    step = make_train_step(critic, tx, compute_dtype=jnp.float32, donate=False,
+                           mask_distill=mask_distill)
+    extra = (jnp.asarray(masks),) if mask_distill > 0.0 else ()
+    out, eps, losses = {}, [], {}
     for t in range(TRAIN_STEPS):
         key, sample_key = jax.random.split(key)  # as the step splits state.rng
-        eps.append(np.asarray(jax.random.normal(sample_key, (TRAIN_BATCH, 32), jnp.float32)))
-        state, metrics = step(state, jnp.asarray(frames))
-        for k in losses:
-            losses[k].append(float(metrics[k]))
+        eps.append(np.asarray(jax.random.normal(sample_key, (len(frames), 32), jnp.float32)))
+        state, metrics = step(state, jnp.asarray(frames), *extra)
+        for k, v in metrics.items():
+            losses.setdefault(k, []).append(float(v))
         if t == 0:
             for i in range(4):
                 for k in ("mean", "var"):
@@ -249,11 +302,78 @@ def train() -> None:
     for i in range(4):
         for k in ("mean", "var"):
             out[f"bn{i}_{k}"] = np.asarray(state.bn_state[f"bn{i}"][k], np.float32)
+    return dict(eps=np.stack(eps), **{k: np.asarray(v, np.float32) for k, v in losses.items()},
+                lr=np.float32(TRAIN_LR), steps=np.int64(TRAIN_STEPS),
+                batch=np.int64(len(frames)), seed=np.int64(SEED), **out)
+
+
+def distill() -> None:
+    from critic_vae_tpu.pipelines.distill import CAM_TUNED_CRF_PARAMS, build_pseudo_masks
+
+    os.environ["CRITIC_VAE_TPU_CRF_MEM"] = str(DISTILL_CRF_MEM)
+    frames, _ = generate_frames(DISTILL_FRAMES, seed=DISTILL_SEED)
+    critic = load_critic(os.path.join(ROOT, "saved-networks", "critic-synthetic.npz"))
+    thr = build_pseudo_masks(critic, frames, run_crf=False, batch_size=DISTILL_FRAMES)
+    crf = build_pseudo_masks(critic, frames, crf_backend="device", batch_size=DISTILL_FRAMES)
+    from critic_vae_tpu.models.critic import critic_apply
+
+    preds = np.asarray(critic_apply(critic, jnp.asarray(frames, jnp.float32) / 255.0))[:, 0]
+    rows = np.flatnonzero(preds >= DISTILL_STEP_MIN_PRED)[:TRAIN_BATCH]
+    steps = _train_steps(frames[rows], crf[rows], DISTILL_WEIGHT)
     np.savez_compressed(
-        TRAIN_OUT, eps=np.stack(eps), **{k: np.asarray(v, np.float32) for k, v in losses.items()},
-        lr=np.float32(TRAIN_LR), steps=np.int64(TRAIN_STEPS), batch=np.int64(TRAIN_BATCH),
-        seed=np.int64(SEED), **out)
-    print(f"wrote {TRAIN_OUT} ({os.path.getsize(TRAIN_OUT)} bytes): losses={losses}")
+        DISTILL_OUT, thr_bits=np.packbits(thr, axis=-1), crf_bits=np.packbits(crf, axis=-1),
+        step_rows=rows.astype(np.int64), step_min_pred=np.float32(DISTILL_STEP_MIN_PRED),
+        num_frames=np.int64(DISTILL_FRAMES), frames_seed=np.int64(DISTILL_SEED),
+        crf_params=np.asarray(CAM_TUNED_CRF_PARAMS, np.float64),
+        mask_distill=np.float32(DISTILL_WEIGHT), **steps)
+    print(f"wrote {DISTILL_OUT} ({os.path.getsize(DISTILL_OUT)} bytes): thr mask pixels "
+          f"{int(thr.sum())}, crf {int(crf.sum())}, losses "
+          f"{ {k: steps[k].tolist() for k in ('total_loss', 'md_loss')} }")
+
+
+def critic_masks(key, steps: int, batch: int, keep: float):
+    """The dropout keep masks the JAX critic step draws from a state's key,
+    NHWC: per step (block 2's pool, block 3's pool, fc0)."""
+    out = []
+    for _ in range(steps):
+        key, drop_key = jax.random.split(key)
+        ks = jax.random.split(drop_key, 3)
+        out.append([np.asarray(jax.random.bernoulli(k, keep, shape))
+                    for k, shape in zip(ks, ((batch, 8, 8, 8), (batch, 4, 4, 16), (batch, 32)))])
+    return out
+
+
+def critic() -> None:
+    import optax
+
+    from critic_vae_tpu.train.critic import (critic_cam_health, make_critic_multi_step,
+                                             soft_trunk_labels)
+
+    frames, gt = generate_frames(CRITIC_FRAMES, seed=CRITIC_SEED)
+    labels = soft_trunk_labels(gt)
+    params = jax.tree.map(jnp.asarray, numpy_critic_params(0))
+    tx = optax.adam(CRITIC_LR)
+    key = jax.random.key(1)
+    multi = make_critic_multi_step(tx, dropout_rate=CRITIC_DROPOUT, donate=False)
+    idx = np.arange(CRITIC_FRAMES, dtype=np.int32)[None].repeat(TRAIN_STEPS, 0)
+    (new, _, _), losses = multi((params, tx.init(params), key), jnp.asarray(frames),
+                                jnp.asarray(labels), jnp.asarray(idx))
+    masks = critic_masks(key, TRAIN_STEPS, CRITIC_FRAMES, 1.0 - CRITIC_DROPOUT)
+    health = critic_cam_health(
+        load_critic(os.path.join(ROOT, "saved-networks", "critic-synthetic.npz")),
+        generate_frames(HEALTH_FRAMES, seed=HEALTH_SEED)[0])
+    np.savez_compressed(
+        CRITIC_OUT, losses=np.asarray(losses, np.float32), labels=labels,
+        **{f"mask{t}_{j}": np.packbits(m, axis=-1) for t, ms in enumerate(masks)
+           for j, m in enumerate(ms)},
+        **{f"params/{k}": np.asarray(v) for k, v in new.items()},
+        **{f"health/{k}": np.float64(v) for k, v in health.items()},
+        lr=np.float32(CRITIC_LR), dropout=np.float32(CRITIC_DROPOUT),
+        steps=np.int64(TRAIN_STEPS), num_frames=np.int64(CRITIC_FRAMES),
+        frames_seed=np.int64(CRITIC_SEED), health_frames=np.int64(HEALTH_FRAMES),
+        health_seed=np.int64(HEALTH_SEED))
+    print(f"wrote {CRITIC_OUT} ({os.path.getsize(CRITIC_OUT)} bytes): losses "
+          f"{np.asarray(losses).tolist()} health {health}")
 
 
 def _leaf(tree, name: str):
@@ -287,8 +407,9 @@ def main() -> None:
 
 if __name__ == "__main__":
     what = sys.argv[1] if len(sys.argv) > 1 else "all"
-    if what not in ("slice", "sweep", "bf16", "saliency", "train", "all"):
-        raise SystemExit(f"usage: {sys.argv[0]} [slice|sweep|bf16|saliency|train|all]")
+    if what not in ("slice", "sweep", "bf16", "saliency", "train", "distill", "critic", "all"):
+        raise SystemExit(
+            f"usage: {sys.argv[0]} [slice|sweep|bf16|saliency|train|distill|critic|all]")
     if what in ("slice", "all"):
         main()
     if what in ("sweep", "all"):
@@ -299,3 +420,7 @@ if __name__ == "__main__":
         saliency()
     if what in ("train", "all"):
         train()
+    if what in ("distill", "all"):
+        distill()
+    if what in ("critic", "all"):
+        critic()

@@ -30,6 +30,8 @@ from critic_vae_tpu_torch.data.synthetic import generate_frames
 from critic_vae_tpu_torch.io import weights
 from critic_vae_tpu_torch.pipelines.video import eval_episode
 
+torch.set_num_threads(1)  # one intra-op thread a test process: xdist runs several at once
+
 CRITIC_NPZ = "saved-networks/critic-synthetic.npz"
 
 # (name, frames, VAE widths, bars: preds, maps within 1, thr, crf, thr IoU, crf IoU)

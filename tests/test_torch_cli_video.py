@@ -26,6 +26,8 @@ from critic_vae_tpu_torch.data.synthetic import generate_episode, generate_frame
 from critic_vae_tpu_torch.io import weights
 from critic_vae_tpu_torch.pipelines import video as tvid
 
+torch.set_num_threads(1)  # one intra-op thread a test process: xdist runs several at once
+
 ROOT = Path(__file__).resolve().parent.parent
 CRITIC_NPZ = str(ROOT / "saved-networks" / "critic-synthetic.npz")
 CPU = torch.device("cpu")

@@ -23,6 +23,8 @@ from critic_vae_tpu_torch.crf.fused_build import build_bilateral, build_bilatera
 from critic_vae_tpu_torch.crf.policy import resolve_crf_backend
 from critic_vae_tpu_torch.kernels import build as kb
 
+torch.set_num_threads(1)  # one intra-op thread a test process: xdist runs several at once
+
 H = W = 16
 W1, ALPHA, BETA = REFERENCE_CRF_PARAMS[:3]
 

@@ -41,6 +41,8 @@ from critic_vae_tpu_torch.crf.fused_resident import (
 )
 from critic_vae_tpu_torch.kernels import build as kb
 
+torch.set_num_threads(1)  # one intra-op thread a test process: xdist runs several at once
+
 H = W = 16
 W1, ALPHA, BETA, W2, GAMMA, ITERS = REFERENCE_CRF_PARAMS
 NEW_KERNELS = ("kernel_i8_build", "matvec_i8", "mean_field_resident")

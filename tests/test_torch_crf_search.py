@@ -27,6 +27,8 @@ from critic_vae_tpu_torch.crf.device import (
     refine_masks_device,
 )
 
+torch.set_num_threads(1)  # one intra-op thread a test process: xdist runs several at once
+
 H = W = 16
 
 

@@ -22,6 +22,8 @@ from critic_vae_tpu_torch.crf.device import (
 )
 from critic_vae_tpu_torch.data.synthetic import generate_frames
 
+torch.set_num_threads(1)  # one intra-op thread a test process: xdist runs several at once
+
 W1, ALPHA, BETA = REFERENCE_CRF_PARAMS[:3]
 
 

@@ -5,12 +5,15 @@ import importlib
 
 import numpy as np
 import pytest
+import torch
 
 from critic_vae_tpu.data import episode as j_episode
 from critic_vae_tpu.data import synthetic as j_synth
 from critic_vae_tpu_torch.data import episode as t_episode
 from critic_vae_tpu_torch.data import synthetic as t_synth
 from critic_vae_tpu_torch.ops import iou as t_iou
+
+torch.set_num_threads(1)  # one intra-op thread a test process: xdist runs several at once
 
 # the module, not the ``iou`` function that critic_vae_tpu.ops re-exports
 j_iou = importlib.import_module("critic_vae_tpu.ops.iou")

@@ -24,6 +24,8 @@ from critic_vae_tpu_torch.io import checkpoint as tckpt
 from critic_vae_tpu_torch.io import weights
 from critic_vae_tpu_torch.pipelines import evaluate as tev
 
+torch.set_num_threads(1)  # one intra-op thread a test process: xdist runs several at once
+
 CRITIC_NPZ = "saved-networks/critic-synthetic.npz"
 SLICE_GOLDEN = "tests/golden/torch_slice_golden.npz"
 NARROW = dict(dims=(4, 8, 8, 16), bottleneck=256)

@@ -28,6 +28,8 @@ from critic_vae_tpu_torch.models.vae import FUSED_POOL_SERVING, batchnorm_eval
 from critic_vae_tpu_torch.ops import mask as tmask
 from critic_vae_tpu_torch.ops import poolconv as tpc
 
+torch.set_num_threads(1)  # one intra-op thread a test process: xdist runs several at once
+
 CRITIC_NPZ = "saved-networks/critic-synthetic.npz"
 NARROW = dict(dims=(4, 8, 8, 16), bottleneck=256)
 F32_TOL = 1e-5

@@ -18,6 +18,8 @@ from critic_vae_tpu_torch.io import weights
 from critic_vae_tpu_torch.kernels import build as kb
 from critic_vae_tpu_torch.pipelines.video import eval_episode, threshold_sweep
 
+torch.set_num_threads(1)  # one intra-op thread a test process: xdist runs several at once
+
 ROOT = Path(__file__).resolve().parent.parent
 CRITIC_NPZ = str(ROOT / "saved-networks" / "critic-synthetic.npz")
 NARROW = dict(dims=(4, 8, 8, 16), bottleneck=256)

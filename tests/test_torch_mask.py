@@ -14,6 +14,8 @@ from critic_vae_tpu_torch.kernels import build as kb
 from critic_vae_tpu_torch.ops import mask as tmask
 from critic_vae_tpu_torch.ops.diff_mask import diff_mask, diff_mask_reference
 
+torch.set_num_threads(1)  # one intra-op thread a test process: xdist runs several at once
+
 CRITIC_NPZ = "saved-networks/critic-synthetic.npz"
 
 

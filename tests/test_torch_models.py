@@ -11,6 +11,8 @@ from critic_vae_tpu.models import critic as jcritic
 from critic_vae_tpu.models import vae as jvae
 from critic_vae_tpu_torch.io import weights
 
+torch.set_num_threads(1)  # one intra-op thread a test process: xdist runs several at once
+
 CRITIC_NPZ = "saved-networks/critic-synthetic.npz"
 NARROW = dict(dims=(4, 8, 8, 16), bottleneck=256)
 

@@ -16,6 +16,8 @@ from critic_vae_tpu.ops import msssim as jmsssim
 from critic_vae_tpu_torch.ops import losses as tlosses
 from critic_vae_tpu_torch.ops import msssim as tmsssim
 
+torch.set_num_threads(1)  # one intra-op thread a test process: xdist runs several at once
+
 LOSS_TOL = 1e-6
 GRAD_TOL = 1e-4  # relative to the largest gradient entry
 

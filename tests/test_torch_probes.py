@@ -19,6 +19,8 @@ from critic_vae_tpu_torch.ops.poolconv import s2d_pool_weights
 from critic_vae_tpu_torch.probes import caps_probe as p1
 from critic_vae_tpu_torch.probes import copy_floor_probe as p2
 
+torch.set_num_threads(1)  # one intra-op thread a test process: xdist runs several at once
+
 CPU = torch.device("cpu")
 
 

@@ -28,6 +28,8 @@ from critic_vae_tpu_torch.io import weights
 from critic_vae_tpu_torch.ops.mask import episode_forward, resolve_front_end
 from critic_vae_tpu_torch.pipelines.video import episode_device_stage, eval_episode
 
+torch.set_num_threads(1)  # one intra-op thread a test process: xdist runs several at once
+
 ROOT = Path(__file__).resolve().parent.parent
 CRITIC_NPZ = str(ROOT / "saved-networks" / "critic-synthetic.npz")
 GOLDEN = ROOT / "tests" / "golden" / "torch_saliency_golden.npz"

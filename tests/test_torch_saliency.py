@@ -23,6 +23,8 @@ from critic_vae_tpu_torch.ops import saliency as tsal
 from critic_vae_tpu_torch.ops.resize import METHODS, resize_maps, weight_matrix
 from critic_vae_tpu_torch.pipelines.video import threshold_sweep
 
+torch.set_num_threads(1)  # one intra-op thread a test process: xdist runs several at once
+
 ROOT = Path(__file__).resolve().parent.parent
 CRITIC_NPZ = str(ROOT / "saved-networks" / "critic-synthetic.npz")
 CPU = torch.device("cpu")

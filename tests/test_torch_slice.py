@@ -20,6 +20,8 @@ from critic_vae_tpu_torch.io import weights
 from critic_vae_tpu_torch.kernels import build as kb
 from critic_vae_tpu_torch.pipelines.video import eval_episode
 
+torch.set_num_threads(1)  # one intra-op thread a test process: xdist runs several at once
+
 ROOT = Path(__file__).resolve().parent.parent
 CRITIC_NPZ = str(ROOT / "saved-networks" / "critic-synthetic.npz")
 GOLDEN = ROOT / "tests" / "golden" / "torch_slice_golden.npz"
@@ -98,19 +100,26 @@ def test_cli_video_on_cpu(tmp_path):
 
 
 def test_port_runs_without_jax(tmp_path):
-    """Importing the port (every module) and running its CPU slice loads no
-    jax and nothing of the JAX package."""
+    """Importing every module of the port (pkgutil.walk_packages) and running
+    its CPU slice loads no jax and nothing of the JAX package."""
     code = (
-        "import sys\n"
+        "import importlib, pkgutil, sys\n"
         "import torch\n"
         "import critic_vae_tpu_torch\n"
+        "names = [m.name for m in pkgutil.walk_packages(critic_vae_tpu_torch.__path__,\n"
+        "                                               'critic_vae_tpu_torch.')\n"
+        "         if not m.name.endswith('.__main__')]  # that one runs the command line\n"
+        "for name in names:\n"
+        "    importlib.import_module(name)\n"
+        "for name in ('critic_vae_tpu_torch.pipelines.distill',\n"
+        "             'critic_vae_tpu_torch.train.critic',\n"
+        "             'critic_vae_tpu_torch.pipelines.dataset',\n"
+        "             'critic_vae_tpu_torch.pipelines.train',\n"
+        "             'critic_vae_tpu_torch.pipelines.evaluate'):\n"
+        "    assert name in names, name\n"
         "from critic_vae_tpu_torch.cli import main\n"
         "from critic_vae_tpu_torch.data.synthetic import generate_episode\n"
         "from critic_vae_tpu_torch.io.weights import numpy_vae_params, save_vae_npz\n"
-        "import critic_vae_tpu_torch.crf.host, critic_vae_tpu_torch.crf.policy\n"
-        "import critic_vae_tpu_torch.ops.upconv, critic_vae_tpu_torch.utils.image\n"
-        "import critic_vae_tpu_torch.viz.panels, critic_vae_tpu_torch.viz.gif\n"
-        "import critic_vae_tpu_torch.pipelines.video\n"
         f"generate_episode({str(tmp_path / 'ep')!r}, num_frames=2, seed=0)\n"
         f"save_vae_npz({str(tmp_path / 'v.npz')!r}, *numpy_vae_params(0, dims=(4, 8, 8, 16),"
         " bottleneck=256))\n"

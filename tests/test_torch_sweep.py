@@ -18,6 +18,8 @@ from critic_vae_tpu_torch.io import weights
 from critic_vae_tpu_torch.kernels import build as kb
 from critic_vae_tpu_torch.pipelines.video import DEFAULT_SWEEP, eval_episode, threshold_sweep
 
+torch.set_num_threads(1)  # one intra-op thread a test process: xdist runs several at once
+
 ROOT = Path(__file__).resolve().parent.parent
 CRITIC_NPZ = str(ROOT / "saved-networks" / "critic-synthetic.npz")
 GOLDEN = ROOT / "tests" / "golden" / "torch_slice_golden.npz"

@@ -37,6 +37,8 @@ from critic_vae_tpu_torch.crf.fused_resident import (
     workspace_bytes,
 )
 
+torch.set_num_threads(1)  # one intra-op thread a test process: xdist runs several at once
+
 W1, ALPHA, BETA, W2, GAMMA, ITERS = REFERENCE_CRF_PARAMS
 SHAPES = [(64, 64), (12, 20)]  # a whole number of 64-pixel tiles, and a ragged 240
 

@@ -16,6 +16,8 @@ from critic_vae_tpu_torch.io import weights
 from critic_vae_tpu_torch.models.critic import conv, linear
 from critic_vae_tpu_torch.ops.upconv import phase_kernels, upsample2_conv5
 
+torch.set_num_threads(1)  # one intra-op thread a test process: xdist runs several at once
+
 NARROW = dict(dims=(4, 8, 8, 16), bottleneck=256)
 F32_TOL = 1e-5  # relative to the largest output, float32 summation order
 
