@@ -226,18 +226,34 @@ exits non-zero:
    synthetic trajectories of 1024 frames; ``export`` of the encoder, decoder
    and critic, each ``torch.load(weights_only=True)`` bitwise equal to the
    source's state dict; ``python -m critic_vae_tpu_torch export`` of a FiLM
-   decoder exits 1 with the JAX package's refusal.
+   decoder exits 1 with the JAX package's refusal;
+29. ranks and the trace: on a 512-frame episode with ``numpy_vae_params(0)``
+   written as the JAX package's artifacts under a root R, in bf16: (d)
+   ``video --root R``, which finds its episode and weights under R (C.8;
+   the device CRF, ``auto``), the unmeshed reference; (a) ``video
+   --profile DIR`` with the same files given explicitly: one trace under
+   DIR naming B1 (``diff_mask``) and B2 (``bilateral_build``) as spans and
+   their kernels, the same IoU lines; (b) ``python -m
+   torch.distributed.run --standalone --nproc-per-node 1 -m
+   critic_vae_tpu_torch video --num-devices 1``: one rank on NCCL, its
+   ``multi-host``/``sharding`` lines, the same IoU lines and a
+   byte-identical ``bin_info_vae1.txt``; (c) ``eval_episode`` over the
+   2048 frames of phase 9 with a one-rank NCCL mesh formed in this process,
+   as a main path (launch counts set to 0 just before and read just after:
+   B1, B2), its results identical to the unmeshed run's, then frames/s with
+   and without the mesh, 3 reps each, alternating.
 
 Phases 26-28 print the card's ``nvidia-smi`` name and power limit beside
 their rates.
 
+``python3 chip_smoke.py --parallel-only`` runs phases 1, 2 and 29 alone.
 ``python3 chip_smoke.py --bf16-golden-only [--port DIR]`` runs phases 1, 2
 and 17 alone, driving the critic_vae_tpu_torch package in DIR (for example
 an older checkout) against this checkout's goldens.
 
 The second-to-last line is a JSON object with, for each of the seven kernels
 (B1-B5, P1, P2), its launches on the paths that run it (phases 9, 11, 12,
-20-22, 25 and 26), its error against
+20-22, 25, 26 and 29), its error against
 its plain version, its times, its bound (the larger of its bytes over the
 HBM rate and its operations over the peak rate of their type, from this
 run's shapes) and the time of one PyTorch call computing the same function
@@ -250,8 +266,9 @@ Python wrapper (P1's rows sum the three questions, with ``empty_ms`` the
 empty kernel's device time); the other kernels' ``ms`` are CUDA-event times
 of calls, which their device time dominates. The last line is {"ok": true,
 "device": {...}}. Without CUDA the script fails and prints no result. About
-three and a half minutes on an H100, the build (~10 s) included (208.9 s on
-an NVIDIA H100 80GB HBM3 at 700 W; phases 26-28 about a minute of it).
+four and a half minutes on an H100, the build (~10 s) included (263.2 s on
+an NVIDIA H100 80GB HBM3 at 700 W; phases 26-28 about a minute of it,
+phase 29 about 54 s).
 """
 
 from __future__ import annotations
@@ -291,6 +308,8 @@ B1_RAGGED_SIDE = 25        # B1's ragged frames: H*W = 625, no multiple of a 16-
 # squares, 4 sums, 1 scale, 1 exp): a lower count, as a bound wants
 ENTRY_OPS = 16
 SALIENCY_GOLDEN = ROOT / "tests" / "golden" / "torch_saliency_golden.npz"
+PARALLEL_FRAMES = 512      # phase 29's episode: one chunk
+PARALLEL_REPS = 3          # phase 29's timed eval_episode runs, with and without the mesh
 # the --quality preset (critic_vae_tpu_torch/cli.py _QUALITY_PRESET); its CRF
 # tuple is the golden's crf_params
 QUALITY_OPTS = {"method": "layercam", "tta_flip": True, "tta_shift": 2}
@@ -1633,7 +1652,8 @@ def phase_quality_main(dev, critic, vae, scratch: Path):
     root = scratch / "root_quality"
     root.mkdir()
     proc, secs = _run_cli(["--episode", str(ep), "--no-slice", "--quality", "--no-gif",
-                           "--root", str(root), "--device", dev.type], scratch)
+                           "--vae-seed", "0", "--root", str(root), "--device", dev.type],
+                          scratch)
     lines = proc.stdout.splitlines()
     log(f"[20 quality] video --quality: exit {proc.returncode} in {secs:.1f} s; "
         + " | ".join(lines))
@@ -2493,6 +2513,148 @@ def phase_data_export(dev, critic, smi: str, scratch: Path):
             "the FiLM export was not refused")
 
 
+def _trace_names(trace_dir: Path):
+    """(span and op names, kernel names) of the Chrome traces under
+    ``trace_dir`` (utils/profiling.py's files)."""
+    names, kernels = set(), set()
+    for path in sorted(trace_dir.rglob("*.pt.trace.json")):
+        for event in json.loads(path.read_text()).get("traceEvents", []):
+            name = event.get("name")
+            if not isinstance(name, str):
+                continue
+            (kernels if event.get("cat") == "kernel" else names).add(name)
+    return names, kernels
+
+
+def _iou_lines(lines):
+    return [ln for ln in lines if ln.startswith(("thr_iou=", "crf_iou="))]
+
+
+def phase_parallel(dev, critic, vae, smi: str, scratch: Path):
+    """29: (a) ``video --profile`` on the card, its trace naming B1 and B2;
+    (b) ``video --num-devices 1`` under ``torch.distributed.run`` (one rank,
+    NCCL) against (d) the unmeshed ``video --root R`` that finds its episode
+    and artifacts under R (C.8); (c) ``eval_episode`` with and without a
+    one-rank NCCL mesh in this process, 3 reps each, as a main path."""
+    import numpy as np
+    import torch
+
+    from critic_vae_tpu_torch.data.synthetic import generate_episode, generate_frames
+    from critic_vae_tpu_torch.io import weights
+    from critic_vae_tpu_torch.parallel.distributed import init_distributed
+    from critic_vae_tpu_torch.parallel.mesh import make_mesh
+    from critic_vae_tpu_torch.pipelines.video import eval_episode
+
+    root = scratch / "root"
+    ep = root / "minerl-episode"
+    generate_episode(str(ep), num_frames=PARALLEL_FRAMES, seed=29)
+    nets = root / "saved-networks"
+    nets.mkdir()
+    params, state = weights.numpy_vae_params(0)
+    enc, dec = nets / "vae_encoder.ckpt", nets / "vae_decoder.ckpt"
+    _save_zip_pytree(enc, {"params": params["encoder"], "bn_state": state})
+    _save_zip_pytree(dec, {"params": params["decoder"]})
+    common = ["--no-slice", "--no-gif", "--dtype", "bfloat16", "--device", dev.type]
+    explicit = ["--episode", str(ep), "--encoder", str(enc), "--decoder", str(dec)]
+
+    # (d) C.8: the defaults under --root, unmeshed; the reference of (a) and (b)
+    proc, secs = _run_cli(["--root", str(root), *common], scratch)
+    lines = proc.stdout.splitlines()
+    log(f"[29 parallel d] video --root R (episode and artifacts under R): exit "
+        f"{proc.returncode} in {secs:.1f} s; " + " | ".join(lines))
+    require(proc.returncode == 0, f"video --root failed: {proc.stderr[-2000:]}")
+    want = _iou_lines(lines)
+    require(len(want) == 2 and "crf backend: device (auto)" in lines,
+            f"video --root: no IoUs or not the device CRF: {lines}")
+    bin_info = (root / "bin_info_vae1.txt").read_bytes()
+
+    # (a) --profile: a trace naming B1 and B2, and the same IoUs
+    trace = scratch / "trace"
+    out_a = scratch / "root_a"
+    out_a.mkdir()
+    proc, secs = _run_cli([*explicit, "--root", str(out_a), "--profile", str(trace), *common],
+                          scratch)
+    lines = proc.stdout.splitlines()
+    require(proc.returncode == 0, f"video --profile failed: {proc.stderr[-2000:]}")
+    names, kernels = _trace_names(trace)
+    files = sorted(p.name for p in trace.rglob("*.pt.trace.json"))
+    b1_k = sorted(k for k in kernels if "diff_mask" in k)
+    b2_k = sorted(k for k in kernels if "tile_store_kernel" in k or "tile_rowsum_kernel" in k)
+    log(f"[29 parallel a] video --profile: exit {proc.returncode} in {secs:.1f} s; trace "
+        f"{files}: spans diff_mask {'diff_mask' in names}, bilateral_build "
+        f"{'bilateral_build' in names}; {len(kernels)} kernel names, B1's {b1_k[:1]}, "
+        f"B2's {[k[:60] for k in b2_k]}")
+    require(len(files) == 1, f"video --profile: {files} traces")
+    require({"diff_mask", "bilateral_build"} <= names and b1_k and b2_k,
+            "the --profile trace does not name B1 and B2")
+    require(_iou_lines(lines) == want, f"video --profile: IoUs {_iou_lines(lines)} != {want}")
+
+    # (b) one rank on NCCL under the launcher, --num-devices 1
+    out_b = scratch / "root_b"
+    out_b.mkdir()
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node", "1",
+           "-m", "critic_vae_tpu_torch", "video", *explicit, "--root", str(out_b),
+           "--num-devices", "1", *common]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=300, cwd=scratch, env=env)
+    secs = time.perf_counter() - t0
+    lines = proc.stdout.splitlines()
+    log(f"[29 parallel b] torch.distributed.run --nproc-per-node 1 video --num-devices 1: exit "
+        f"{proc.returncode} in {secs:.1f} s; " + " | ".join(lines))
+    require(proc.returncode == 0, f"torchrun video failed: {proc.stderr[-3000:]}")
+    require(lines[:2] == ["multi-host: 1 processes, 1 devices",
+                          "sharding the device stage over 1 device(s)"],
+            f"torchrun video: no multi-host/sharding lines: {lines[:3]}")
+    same_bin = (out_b / "bin_info_vae1.txt").read_bytes() == bin_info
+    log(f"[29 parallel b] IoU lines {_iou_lines(lines)} against the unmeshed {want}; "
+        f"bin_info_vae1.txt byte-identical: {same_bin}")
+    require(_iou_lines(lines) == want and same_bin, "the one-rank NCCL video differs")
+
+    # (c) eval_episode with and without a one-rank NCCL mesh in this process
+    frames, gt = generate_frames(MAIN_FRAMES, seed=0)
+    kw = dict(device=dev, batch_size=MAIN_BATCH, compute_dtype="bfloat16", crf_backend="auto",
+              threshold=50)
+    s = __import__("socket").socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    require(not torch.distributed.is_initialized(), "a process group exists before phase 29")
+    init_distributed(f"127.0.0.1:{port}", num_processes=1, process_id=0, device="cuda")
+    try:
+        mesh = make_mesh(1, dev)
+        require(mesh.group is not None and torch.distributed.get_backend() == "nccl",
+                "no NCCL group")
+        eval_episode(vae, critic, frames[:MAIN_BATCH], gt[:MAIN_BATCH], mesh=mesh, **kw)
+        eval_episode(vae, critic, frames[:MAIN_BATCH], gt[:MAIN_BATCH], **kw)  # warm-ups
+        res, launches = _drive("g eval_episode 1-rank NCCL mesh",
+                               lambda: eval_episode(vae, critic, frames, gt, mesh=mesh, **kw),
+                               ("diff_mask", "bilateral_build"), MAIN_FRAMES,
+                               phase="29 parallel")
+        plain = eval_episode(vae, critic, frames, gt, **kw)
+        same = (np.array_equal(res.preds, plain.preds) and np.array_equal(res.diff_u8, plain.diff_u8)
+                and np.array_equal(res.thr_masks, plain.thr_masks)
+                and np.array_equal(res.crf_masks, plain.crf_masks))
+        rates = {"mesh": [], "plain": []}
+        for _ in range(PARALLEL_REPS):
+            for key, m in (("mesh", mesh), ("plain", None)):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                eval_episode(vae, critic, frames, gt, mesh=m, **kw)
+                torch.cuda.synchronize()
+                rates[key].append(MAIN_FRAMES / (time.perf_counter() - t0))
+    finally:
+        torch.distributed.destroy_process_group()
+    med = {k: sorted(v)[len(v) // 2] for k, v in rates.items()}
+    log(f"[29 parallel c] eval_episode over {MAIN_FRAMES} frames (bf16, chunk {MAIN_BATCH}, "
+        f"device CRF): frames/s with the one-rank NCCL mesh "
+        f"{', '.join(f'{r:.1f}' for r in rates['mesh'])} (median {med['mesh']:.1f}), without "
+        f"{', '.join(f'{r:.1f}' for r in rates['plain'])} (median {med['plain']:.1f}); "
+        f"mesh/plain {med['mesh'] / med['plain']:.4f}; results identical: {same}; {smi}")
+    require(same, "the one-rank mesh changed eval_episode's results")
+    return launches
+
+
 def b1_bound(itemsize: int) -> dict:
     """B1's bound at the main path's (2 x 512, 3, 64, 64) decode of
     ``itemsize``-byte values: the decode read once, the f32 grey and maxima
@@ -2530,6 +2692,8 @@ def main(argv=None) -> int:
                     help="run only the card's identity, the build and phase 17")
     ap.add_argument("--train-only", action="store_true",
                     help="run only the card's identity, the build and phases 23-24")
+    ap.add_argument("--parallel-only", action="store_true",
+                    help="run only the card's identity, the build and phase 29")
     ap.add_argument("--port", type=Path, default=ROOT,
                     help="directory holding the critic_vae_tpu_torch package to drive "
                          "(default: this script's; the goldens are always this script's)")
@@ -2557,6 +2721,16 @@ def main(argv=None) -> int:
         phase_identity()
         phase_build()
         phase_bf16_golden(dev, synthetic_models(dev)[0])
+        return 0
+    if args.parallel_only:
+        import tempfile
+
+        from critic_vae_tpu_torch.io.weights import synthetic_models
+
+        smi = phase_identity()
+        phase_build()
+        with tempfile.TemporaryDirectory() as scratch:
+            phase_parallel(dev, *synthetic_models(dev), smi, Path(scratch))
         return 0
     if args.train_only:
         from critic_vae_tpu_torch.io.weights import synthetic_models
@@ -2608,7 +2782,10 @@ def main(argv=None) -> int:
         lm, _ = phase_distill(dev, critic, smi, Path(scratch), train_runs["float32"])
         phase_critic_train(dev, smi, Path(scratch))
         phase_data_export(dev, critic, smi, Path(scratch))
-    launches = {k: launches[k] + lq[k] + ls[k] + ld[k] + le[k] + lm[k] for k in launches}
+    with tempfile.TemporaryDirectory() as scratch:
+        lp = phase_parallel(dev, critic, vae, smi, Path(scratch))
+    launches = {k: launches[k] + lq[k] + ls[k] + ld[k] + le[k] + lm[k] + lp[k]
+                for k in launches}
     b1 = {**b1, "max_abs_err": max(b1["max_abs_err"], b1_eval_err)}
     b4 = {**b4, **b4_l3, "max_abs_err": max(b4["max_abs_err"], b4_l3["max_abs_err_l3"])}
     bounds = dict(zip(("b1", "b2", "b3", "b4", "b5"), crf_bounds()))

@@ -16,8 +16,12 @@ path, its threshold sweep and the ``int8``/``vmem`` CRF builds, and the
 probes of the fused front-end kernel
 (``probes/``), are hand-written CUDA C++ under ``csrc/`` (built by
 ``kernels/build.py`` at first use); each wrapper takes its plain PyTorch
-version only for CPU tensors. This package imports torch
-and numpy, never jax.
+version only for CPU tensors. The command line (``cli.py``) takes its defaults from
+``config.py``; ``parallel/`` runs the serving path over ``torch.distributed``
+ranks, one a device, and ``utils/profiling.py`` takes ``--profile``'s trace.
+This package imports torch and numpy, never jax.
 """
 
 __version__ = "0.1.0"
+
+from critic_vae_tpu_torch.config import Config, default_config  # noqa: E402,F401

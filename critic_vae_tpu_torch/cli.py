@@ -46,16 +46,42 @@ line saying why. With ``--sweep`` (reference:
 -thresh) it runs the threshold sweep and prints one ``thr=, thr_iou=,
 crf_iou=`` line per threshold.
 
-Weights: ``--encoder/--decoder`` are the JAX package's ``train`` artifacts
-(FiLM decoders included); ``--vae`` a combined ``.npz``; else random weights
-from ``--vae-seed``. ``--critic`` is a ``.npz`` or the reference's torch
-``.pt``. The CRF backend is resolved once, before any weights load, as in
-the JAX package: ``--crf-backend auto`` prints ``crf backend: device
-(auto)`` or ``host (auto)``, and a backend that cannot run prints
-``error: ...`` and exits with 1. ``--crf-params`` replaces the reference's
-CRF tuple. The device CRF's build is chosen, as in the JAX package, by
-``CRITIC_VAE_TPU_CRF_BUILD`` (auto|xla|pallas|int8|vmem), and its per-chunk
-memory budget by ``CRITIC_VAE_TPU_CRF_MEM`` (bytes, default 6 GiB).
+Defaults come from ``config.py`` (the JAX package's ``config.py``), paths
+under ``--root``. ``video`` reads ``--episode``, by default
+``--root``/minerl-episode. Its VAE is ``--encoder/--decoder`` (the JAX
+package's ``train`` artifacts, FiLM decoders included), by default
+``--root``/saved-networks/vae_{encoder,decoder}.ckpt, read strictly: a
+missing file raises, as in the JAX package. Two options are the port's own:
+``--vae`` (a combined ``.npz``) and ``--vae-seed S`` (random weights,
+``numpy_vae_params(S)``). ``--critic`` is a ``.npz`` or the reference's
+torch ``.pt``; its default is a deviation: the repo's synthetic critic
+``saved-networks/critic-synthetic.npz``, whatever ``--root``, where the JAX
+package's is the reference's critic under ``--root``
+(PathConfig.critic_path), a file the repo does not hold. The CRF backend is
+resolved once, before any weights load: ``--crf-backend auto`` prints
+``crf backend: device (auto)`` or ``host (auto)``, and a backend that
+cannot run prints ``error: ...`` and exits with 1. ``--crf-params``
+replaces the reference's CRF tuple. The device CRF's build is chosen, as in
+the JAX package, by ``CRITIC_VAE_TPU_CRF_BUILD``
+(auto|xla|pallas|int8|vmem), and its per-chunk memory budget by
+``CRITIC_VAE_TPU_CRF_MEM`` (bytes, default 6 GiB).
+
+Every command takes the JAX package's ``--seed`` (where the JAX package
+only seeds the template its weights load into, it has no effect here) and
+``--profile DIR``, which ``video`` honours: a ``torch.profiler`` trace of
+its run (the sweep, or the episode), kernels named, under DIR
+(utils/profiling.py). ``--device cpu`` runs on the CPU; the card is the
+default.
+
+Ranks: ``main`` forms the ``torch.distributed`` group first when a launcher
+set one up (parallel/distributed.py: ``python -m torch.distributed.run
+--nproc-per-node N -m critic_vae_tpu_torch ...``; NCCL on the card, gloo
+with ``--device cpu``), and the primary prints ``multi-host: N processes, N
+devices``. Every rank computes; only rank 0 writes files and prints
+results. ``video --num-devices N`` shards the device stage and the device
+CRF over an N-rank mesh (0: every rank; parallel/mesh.py, one device a
+rank, so N must be the number of ranks). ``train`` and ``second`` refuse to
+run on more than one rank (exit 1): data-parallel training is not ported.
 
 ``--quality`` expands into the JAX package's measured-best chain (LayerCAM,
 {id, mirror} x {0, +-2 px} TTA, the CAM-tuned CRF, threshold 64), a flag set
@@ -70,46 +96,42 @@ is parsed and checked before any weights load.
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 from pathlib import Path
 from typing import Optional
 
+from critic_vae_tpu_torch.config import Config, default_config
+
+# the repo's synthetic critic: --critic's default, whatever --root (the JAX
+# package's default, the reference's critic, is not in the repo)
 DEFAULT_CRITIC = Path(__file__).resolve().parent.parent / "saved-networks" / "critic-synthetic.npz"
-# the JAX package's paths under --root (its config.py PathConfig)
-BIN_INFO_PATH = "bin_info_vae1.txt"
-VIDEO_PATH = "videos"
-ENCODER_PATH = "saved-networks/vae_encoder.ckpt"
-DECODER_PATH = "saved-networks/vae_decoder.ckpt"
-SECOND_ENCODER_PATH = "vae2_encoder.ckpt"
-SECOND_DECODER_PATH = "vae2_decoder.ckpt"
-SOURCE_IMAGES_PATH = "source-images"
-SAVE_PATH = "images"
-INJECT_PATH = "inject"
-CHECKPOINT_PATH = "checkpoints"
-DATASET_PATH = "recon-dataset.npz"
 CRITIC_OUT_PATH = "saved-networks/critic.npz"
+
+# argparse defaults come from the typed config, as the JAX package's
+_D = default_config()
 
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="critic_vae_tpu_torch")
     sub = p.add_subparsers(dest="command", required=True)
     v = sub.add_parser("video", help="mask-video pipeline (reference: -video)")
-    v.add_argument("--episode", required=True, help="episode dir with X.npy (and Y.npy)")
+    _add_common(v)
+    v.add_argument("--episode", default=None,
+                   help="episode dir with X.npy (and Y.npy); default --root/minerl-episode")
     v.add_argument("--no-slice", action="store_true",
                    help="use every frame instead of the reference's [100:5000:2] slice")
-    v.add_argument("--root", default=".", help="working directory of the outputs "
-                   "(bin_info_vae1.txt, videos/)")
-    v.add_argument("--critic", default=str(DEFAULT_CRITIC),
-                   help="critic: .npz (JAX flat format) or the reference's torch .pt")
     vae = v.add_mutually_exclusive_group()
     vae.add_argument("--encoder", default=None,
-                     help="encoder artifact of the JAX package's train (with --decoder)")
+                     help="encoder artifact of the JAX package's train (with --decoder); "
+                     "default --root/saved-networks/vae_encoder.ckpt and vae_decoder.ckpt")
     vae.add_argument("--vae", default=None, help="VAE .npz (io/weights.py format)")
-    vae.add_argument("--vae-seed", type=int, default=0,
-                     help="random VAE weights from this seed (numpy_vae_params)")
+    vae.add_argument("--vae-seed", type=int, default=None,
+                     help="random VAE weights from this seed (numpy_vae_params) instead of "
+                     "the artifacts")
     v.add_argument("--decoder", default=None,
                    help="decoder artifact of the JAX package's train (with --encoder)")
-    v.add_argument("--threshold", type=int, default=50,
+    v.add_argument("--threshold", type=int, default=_D.mask.threshold,
                    help="mask threshold on the normalized uint8 maps (default %(default)s)")
     v.add_argument("--quality", action="store_true",
                    help="the JAX package's measured-best mask chain in one flag: "
@@ -160,7 +182,10 @@ def build_parser() -> argparse.ArgumentParser:
                    "shifted views (with --saliency-tta-flip the {id,mirror}x{0,+-D} product)")
     v.add_argument("--no-crf", action="store_true")
     v.add_argument("--no-gif", action="store_true")
-    v.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    v.add_argument("--num-devices", type=int, default=None, metavar="N",
+                   help="shard the device stage and the device CRF over an N-rank mesh, one "
+                   "device a rank (0: every rank; N must be the number of ranks; default: "
+                   "no mesh)")
     _add_train(sub)
     for name, help_ in (("eval", "evaluate source images (reference default mode)"),
                         ("inject", "injection ladder strips (reference: -inject)"),
@@ -193,21 +218,20 @@ def _add_data_commands(sub) -> None:
     _add_vae_weights(d)
     d.add_argument("--source", default="synthetic")
     d.add_argument("--out", default=None, help="output .npz path")
-    d.add_argument("--total-images", type=int, default=50_000)
+    d.add_argument("--total-images", type=int, default=_D.train.total_images)
 
     s = sub.add_parser("second", help="train second VAE on recon dataset (reference: -second)")
-    _add_common(s)
-    s.add_argument("--seed", type=int, default=0)
+    _add_common(s, seed_help=TRAIN_SEED_HELP)
     s.add_argument("--dataset", dest="dataset_path", default=None)
-    s.add_argument("--epochs", type=int, default=7)
-    s.add_argument("--batch-size", type=int, default=128)
-    s.add_argument("--lr", type=float, default=5e-5)
+    s.add_argument("--epochs", type=int, default=_D.train.epochs)
+    s.add_argument("--batch-size", type=int, default=_D.train.batch_size)
+    s.add_argument("--lr", type=float, default=_D.train.learning_rate)
     s.add_argument("--correct-msssim", action="store_true",
                    help="train with textbook MS-SSIM instead of the reference's variant")
 
     tc = sub.add_parser("traincritic", help="train a critic from labeled episodes")
-    _add_common(tc)
-    tc.add_argument("--seed", type=int, default=0)
+    _add_common(tc, seed_help="seed of the synthetic frames and of the critic's training "
+                "(with --cam-select N, the first of N seeds)")
     tc.add_argument("--episodes", default=None,
                     help="directory of episode dirs (X.npy + Y.npy); labels derive from Y "
                     "masks. Default: synthetic data")
@@ -241,26 +265,36 @@ def _add_data_commands(sub) -> None:
                    help="also export the critic (from --critic) as a torch .pt state_dict")
 
 
-def _add_common(p: argparse.ArgumentParser) -> None:
+TRAIN_SEED_HELP = "seed of the initial weights, the noise and the shuffle"
+
+
+def _add_common(p: argparse.ArgumentParser, seed_help: str = (
+        "accepted as in the JAX package, where it only seeds the template the weights "
+        "load into: no effect here")) -> None:
+    """The JAX package's common flags (its cli.py ``_add_common``), with
+    ``--critic``'s default the repo's synthetic critic (the module's note),
+    and the port's ``--device``."""
     p.add_argument("--root", default=".", help="working directory (paths resolve against it)")
     p.add_argument("--critic", default=str(DEFAULT_CRITIC),
-                   help="critic: .npz (JAX flat format) or the reference's torch .pt")
+                   help="critic: .npz (JAX flat format) or the reference's torch .pt "
+                   "(default: the repo's saved-networks/critic-synthetic.npz)")
+    p.add_argument("--seed", type=int, default=_D.train.seed, help=seed_help)
+    p.add_argument("--profile", default=None, metavar="DIR",
+                   help="write a torch.profiler trace of video's run into DIR (the other "
+                   "commands take no trace)")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
 
 
 def _add_train(sub) -> None:
     t = sub.add_parser("train", help="train the VAE (reference: -train)")
-    _add_common(t)
-    # the defaults are the JAX package's TrainConfig's (reference: vae_parameters.py)
-    t.add_argument("--seed", type=int, default=0,
-                   help="seed of the initial weights, the noise and the shuffle")
+    _add_common(t, seed_help=TRAIN_SEED_HELP)
     t.add_argument("--source", default="synthetic",
                    help="trajectory source: synthetic[:N[:T]] | minerl:<root> | <npy dir>")
-    t.add_argument("--epochs", type=int, default=7)
-    t.add_argument("--batch-size", type=int, default=128)
-    t.add_argument("--lr", type=float, default=5e-5)
-    t.add_argument("--kld-weight", type=float, default=1e-3)
-    t.add_argument("--total-images", type=int, default=50_000)
+    t.add_argument("--epochs", type=int, default=_D.train.epochs)
+    t.add_argument("--batch-size", type=int, default=_D.train.batch_size)
+    t.add_argument("--lr", type=float, default=_D.train.learning_rate)
+    t.add_argument("--kld-weight", type=float, default=_D.train.kld_weight)
+    t.add_argument("--total-images", type=int, default=_D.train.total_images)
     t.add_argument("--no-resume", action="store_true")
     t.add_argument("--log-dir", default=None)
     t.add_argument("--log-images", action="store_true",
@@ -370,28 +404,44 @@ def _apply_quality_preset(args) -> None:
             setattr(args, dest, preset)
 
 
-def _load_vae(args, weights):
-    """(params, bn_state) from --encoder/--decoder, --vae or --vae-seed."""
-    if args.encoder is not None:
-        return weights.load_final_weights(args.encoder, args.decoder)
+def _cfg(args) -> Config:
+    return default_config(args.root)
+
+
+def _primary() -> bool:
+    from critic_vae_tpu_torch.parallel.distributed import is_primary
+
+    return is_primary()
+
+
+def _load_vae(args, cfg: Config):
+    """(params, bn_state) of ``video``: --vae, --vae-seed, else the ``train``
+    artifacts (--encoder/--decoder, by default under --root), read
+    strictly."""
+    from critic_vae_tpu_torch.io import weights
+
     if args.vae is not None:
         return weights.load_vae_npz(args.vae)
-    return weights.numpy_vae_params(args.vae_seed)
+    if args.vae_seed is not None:
+        return weights.numpy_vae_params(args.vae_seed)
+    return _final_vae(args, cfg)
 
 
 def cmd_video(args) -> int:
-    from critic_vae_tpu_torch.crf import REFERENCE_CRF_PARAMS
-    from critic_vae_tpu_torch.data.episode import DEFAULT_SLICE, load_episode
+    from critic_vae_tpu_torch.data.episode import load_episode
     from critic_vae_tpu_torch.device import resolve_device
     from critic_vae_tpu_torch.io import weights
     from critic_vae_tpu_torch.pipelines import video as vid
+    from critic_vae_tpu_torch.utils.profiling import profile_trace
 
+    cfg = _cfg(args)
+    pri = _primary()  # every rank runs the stages; only the primary writes
     if (args.encoder is None) != (args.decoder is None):
         print("error: --encoder and --decoder go together", file=sys.stderr)
         return 1
     if args.quality:
         _apply_quality_preset(args)
-    thresholds = vid.DEFAULT_SWEEP
+    thresholds = cfg.mask.threshold_sweep
     if args.sweep_range is not None:
         args.sweep = True
         thresholds = _parse_sweep_range(args.sweep_range)
@@ -408,7 +458,7 @@ def cmd_video(args) -> int:
         return 1
     search_grid = _parse_crf_grid(args.crf_search) if searching else None
     crf_params = (_parse_crf_params(args.crf_params) if args.crf_params is not None
-                  else REFERENCE_CRF_PARAMS)
+                  else cfg.mask.crf_params)
     saliency_opts = {
         "logits": args.saliency_logits, "samples": args.saliency_samples,
         "noise": args.saliency_noise, "seed": args.saliency_seed,
@@ -417,7 +467,15 @@ def cmd_video(args) -> int:
         "tta_flip": args.saliency_tta_flip, "tta_shift": args.saliency_tta_shift,
     }
     device = resolve_device(args.device)
-    frames, gt = load_episode(args.episode, None if args.no_slice else DEFAULT_SLICE)
+    mesh = None
+    if args.num_devices is not None:
+        from critic_vae_tpu_torch.parallel.mesh import make_mesh
+
+        mesh = make_mesh(args.num_devices, device)
+        if pri:
+            print(f"sharding the device stage over {mesh.size} device(s)")
+    episode_dir = args.episode or str(cfg.paths.resolve(cfg.paths.minerl_episode_path))
+    frames, gt = load_episode(episode_dir, None if args.no_slice else cfg.mask.episode_slice)
     if len(frames) == 0:
         print("error: the episode slice selects 0 frames; try --no-slice", file=sys.stderr)
         return 1
@@ -437,64 +495,90 @@ def cmd_video(args) -> int:
         except ValueError as e:
             print(f"error: {e}", file=sys.stderr)
             return 1
-        if args.crf_backend == "auto":
+        if pri and args.crf_backend == "auto":
             print(f"crf backend: {backend} (auto)")
         args.crf_backend = backend
     critic = weights.critic_from_params(weights.load_critic(args.critic)).to(device)
-    vae = weights.vae_from_params(*_load_vae(args, weights)).to(device)
-    print(f"processing {len(frames)} frames on {device}...")
-    if gt is None:
-        print("no Y.npy ground truth: IoU scoring and bin_info are skipped")
-    source = dict(mask_source=args.mask_source, saliency_opts=saliency_opts)
+    vae = weights.vae_from_params(*_load_vae(args, cfg)).to(device)
+    if pri:
+        print(f"processing {len(frames)} frames on {device}...")
+        if gt is None:
+            print("no Y.npy ground truth: IoU scoring and bin_info are skipped")
+    source = dict(mask_source=args.mask_source, saliency_opts=saliency_opts, mesh=mesh)
     if args.sweep:
-        print("testing thresholds (thr):")
-        results = vid.threshold_sweep(
-            vae, critic, frames, gt, thresholds, device=device, crf_params=crf_params,
-            run_crf=not args.no_crf, batch_size=args.batch_size, compute_dtype=args.dtype,
-            crf_backend=args.crf_backend, **source,
-        )
-        for r in results:
-            print(f"thr={r['threshold']}, thr_iou={r['thr_iou']}, crf_iou={r['crf_iou']}")
+        if pri:
+            print("testing thresholds (thr):")
+        with profile_trace(args.profile):
+            results = vid.threshold_sweep(
+                vae, critic, frames, gt, thresholds, device=device, crf_params=crf_params,
+                run_crf=not args.no_crf, batch_size=args.batch_size,
+                compute_dtype=args.dtype, crf_backend=args.crf_backend, **source,
+            )
+        if pri:
+            for r in results:
+                print(f"thr={r['threshold']}, thr_iou={r['thr_iou']}, crf_iou={r['crf_iou']}")
         return 0
     from critic_vae_tpu_torch.viz.gif import pillow_available, write_gif
 
+    # the same on every rank: the recons are gathered with the other outputs
     gif = not args.no_gif
     if gif and not pillow_available():
-        print("Pillow is not installed: no GIF is written (as with --no-gif)")
+        if pri:
+            print("Pillow is not installed: no GIF is written (as with --no-gif)")
         gif = False
-    result = vid.eval_episode(
-        vae, critic, frames, gt, device=device, threshold=args.threshold,
-        crf_params=crf_params, run_crf=not args.no_crf and not searching,
-        batch_size=args.batch_size, compute_dtype=args.dtype, crf_backend=args.crf_backend,
-        recons_u8=True, with_recons=gif, **source,  # the recons feed the panels only
-    )
+    with profile_trace(args.profile):
+        result = vid.eval_episode(
+            vae, critic, frames, gt, device=device, threshold=args.threshold,
+            crf_params=crf_params, run_crf=not args.no_crf and not searching,
+            batch_size=args.batch_size, compute_dtype=args.dtype,
+            crf_backend=args.crf_backend, recons_u8=True,
+            with_recons=gif, **source,  # the recons feed the panels only
+        )
     if searching:
         import dataclasses
 
         from critic_vae_tpu_torch.crf.device import crf_param_search
         from critic_vae_tpu_torch.ops.iou import iou
 
-        print(f"searching CRF parameters "
-              f"({'default grid' if not args.crf_search else args.crf_search})...")
+        if pri:
+            print(f"searching CRF parameters "
+                  f"({'default grid' if not args.crf_search else args.crf_search})...")
         best_masks, search = crf_param_search(frames, result.thr_masks, gt, search_grid,
-                                              device=device)
-        for score, p in search:
-            print(f"  iou={score:.3f}  (w1={p[0]}, alpha={p[1]}, beta={p[2]}, "
-                  f"w2={p[3]}, gamma={p[4]}, iters={p[5]})")
+                                              device=device, mesh=mesh)
+        if pri:
+            for score, p in search:
+                print(f"  iou={score:.3f}  (w1={p[0]}, alpha={p[1]}, beta={p[2]}, "
+                      f"w2={p[3]}, gamma={p[4]}, iters={p[5]})")
         result = dataclasses.replace(result, crf_masks=best_masks, crf_iou=iou(gt, best_masks))
-    root = Path(args.root)
-    if gt is not None:
+    if gt is not None and pri:
         print(f"thr_iou={result.thr_iou}")
         print(f"crf_iou={result.crf_iou}")
         diag = vid.bin_diagnostics(result.preds, gt, result.thr_masks)
-        vid.write_bin_info(diag, str(root / BIN_INFO_PATH), total_frames=len(frames))
-    if gif:
+        vid.write_bin_info(diag, str(cfg.paths.resolve("bin_info_vae1.txt")),
+                           total_frames=len(frames))
+    if gif and pri:
         strips = vid.compose_frames(frames, result, gt, args.threshold)
-        out = str(root / VIDEO_PATH / f"video-threshold={args.threshold}.gif")
+        out = str(cfg.paths.resolve(
+            os.path.join(cfg.paths.video_path, f"video-threshold={args.threshold}.gif")))
         print("creating video...")
         write_gif(strips, out)
         print(f"wrote {out}")
     return 0
+
+
+def _single_process(command: str) -> bool:
+    """False, after one line from the primary, when more than one rank runs:
+    ``command`` trains, and data-parallel training is not ported, so no rank
+    may train alone on a copy of the data."""
+    from critic_vae_tpu_torch.parallel.distributed import world_size
+
+    world = world_size()
+    if world == 1:
+        return True
+    if _primary():
+        print(f"error: {command} on {world} ranks: data-parallel training is not ported; "
+              f"run {command} in one process", file=sys.stderr)
+    return False
 
 
 def cmd_train(args) -> int:
@@ -506,8 +590,10 @@ def cmd_train(args) -> int:
     from critic_vae_tpu_torch.io import weights
     from critic_vae_tpu_torch.pipelines.train import save_final_weights, train
 
+    if not _single_process("train"):
+        return 1
     device = resolve_device(args.device)
-    root = Path(args.root)
+    cfg = _cfg(args)
     critic = weights.critic_from_params(weights.load_critic(args.critic)).to(device)
     print(f"collecting balanced training frames from {args.source!r}...")
     dset = balanced_critic_sampler(open_source(args.source), critic,
@@ -520,27 +606,32 @@ def cmd_train(args) -> int:
 
         print("building pseudo-label masks (LayerCAM + CAM-tuned CRF)...")
         pseudo_masks = build_pseudo_masks(critic, dset, device=device)
-    log_dir = args.log_dir or str(root / f"logs/vae{str(time.time())[-5:]}")
+    log_dir = args.log_dir or str(cfg.paths.resolve(f"logs/vae{str(time.time())[-5:]}"))
     state = train(critic, dset, epochs=args.epochs, batch_size=args.batch_size,
                   learning_rate=args.lr, kld_weight=args.kld_weight,
                   faithful_msssim=not args.correct_msssim, compute_dtype=args.dtype,
                   seed=args.seed, value_consistency=args.value_consistency,
                   mask_distill=args.mask_distill, pseudo_masks=pseudo_masks, film=args.film,
-                  log_dir=log_dir, checkpoint_dir=str(root / CHECKPOINT_PATH),
+                  log_dir=log_dir, checkpoint_dir=str(cfg.paths.resolve("checkpoints")),
                   resume=not args.no_resume, log_images=args.log_images, device=device)
-    enc, dec = str(root / ENCODER_PATH), str(root / DECODER_PATH)
+    enc = str(cfg.paths.resolve(cfg.paths.encoder_path))
+    dec = str(cfg.paths.resolve(cfg.paths.decoder_path))
     save_final_weights(state, enc, dec)
     print(f"saved {enc} and {dec}")
     return 0
 
 
-def _final_vae(args, root: Path, second: bool = False):
+def _final_vae(args, cfg: Config, second: bool = False):
     """(params, bn_state) from --encoder/--decoder, else the ``train``
-    artifacts (with ``second``, the second VAE's) under ``--root``."""
+    artifacts (with ``second``, the second VAE's) under ``--root``; a
+    missing file raises, as in the JAX package."""
     from critic_vae_tpu_torch.io import weights
 
-    enc = args.encoder or str(root / (SECOND_ENCODER_PATH if second else ENCODER_PATH))
-    dec = args.decoder or str(root / (SECOND_DECODER_PATH if second else DECODER_PATH))
+    paths = cfg.paths
+    enc = args.encoder or str(paths.resolve(
+        paths.second_encoder_path if second else paths.encoder_path))
+    dec = args.decoder or str(paths.resolve(
+        paths.second_decoder_path if second else paths.decoder_path))
     return weights.load_final_weights(enc, dec)
 
 
@@ -555,20 +646,24 @@ def _run_eval(args, second: bool, inject: bool) -> int:
     if inject and args.values:
         values = np.asarray([float(v) for v in args.values.split(",")], np.float32)
     device = resolve_device(args.device)
-    root = Path(args.root)
+    cfg = _cfg(args)
+    pri = _primary()  # every rank computes, only the primary writes
     critic = weights.critic_from_params(weights.load_critic(args.critic)).to(device)
-    vae = weights.vae_from_params(*_final_vae(args, root, second)).to(device)
-    images, files = ev.load_image_dir(args.images or str(root / SOURCE_IMAGES_PATH))
-    print(f"evaluating {len(files)} source images...")
+    vae = weights.vae_from_params(*_final_vae(args, cfg, second)).to(device)
+    images, files = ev.load_image_dir(
+        args.images or str(cfg.paths.resolve(cfg.paths.source_images_path)))
+    if pri:
+        print(f"evaluating {len(files)} source images...")
     if inject:
-        out_dir = args.out or str(root / INJECT_PATH)
+        out_dir = args.out or str(cfg.paths.resolve(cfg.paths.inject_path))
         res = ev.inject_images(vae, critic, images, values, device=device)
-        paths = ev.save_inject_strips(res, images, out_dir)
+        paths = ev.save_inject_strips(res, images, out_dir) if pri else []
     else:
-        out_dir = args.out or str(root / SAVE_PATH)
+        out_dir = args.out or str(cfg.paths.resolve(cfg.paths.save_path))
         res = ev.evaluate_images(vae, critic, images, device=device)
-        paths = ev.save_eval_strips(res, images, out_dir)
-    print(f"wrote {len(paths)} strips to {out_dir}")
+        paths = ev.save_eval_strips(res, images, out_dir) if pri else []
+    if pri:
+        print(f"wrote {len(paths)} strips to {out_dir}")
     return 0
 
 
@@ -579,14 +674,15 @@ def cmd_dataset(args) -> int:
     from critic_vae_tpu_torch.pipelines.dataset import build_recon_dataset, save_dataset
 
     device = resolve_device(args.device)
-    root = Path(args.root)
+    cfg = _cfg(args)
     critic = weights.critic_from_params(weights.load_critic(args.critic))
-    vae = weights.vae_from_params(*_final_vae(args, root))
+    vae = weights.vae_from_params(*_final_vae(args, cfg))
     dset = build_recon_dataset(open_source(args.source), critic, vae,
                                total_images=args.total_images, device=device)
-    out = args.out or str(root / DATASET_PATH)
-    save_dataset(out, dset)
-    print(f"saved {len(dset)} recon frames to {out}")
+    out = args.out or str(cfg.paths.resolve(cfg.paths.save_dataset_path))
+    if _primary():  # one writer of the file
+        save_dataset(out, dset)
+        print(f"saved {len(dset)} recon frames to {out}")
     return 0
 
 
@@ -596,16 +692,19 @@ def cmd_second(args) -> int:
     from critic_vae_tpu_torch.pipelines.dataset import load_dataset
     from critic_vae_tpu_torch.pipelines.train import save_final_weights, train
 
+    if not _single_process("second"):
+        return 1
     device = resolve_device(args.device)
-    root = Path(args.root)
+    cfg = _cfg(args)
     critic = weights.critic_from_params(weights.load_critic(args.critic))
-    path = args.dataset_path or str(root / DATASET_PATH)
+    path = args.dataset_path or str(cfg.paths.resolve(cfg.paths.save_dataset_path))
     print("training second vae...")
     state = train(critic, load_dataset(path), epochs=args.epochs, batch_size=args.batch_size,
                   learning_rate=args.lr, faithful_msssim=not args.correct_msssim,
                   seed=args.seed, log_dir=None, checkpoint_dir=None, resume=False,
                   device=device)
-    enc, dec = str(root / SECOND_ENCODER_PATH), str(root / SECOND_DECODER_PATH)
+    enc = str(cfg.paths.resolve(cfg.paths.second_encoder_path))
+    dec = str(cfg.paths.resolve(cfg.paths.second_decoder_path))
     save_final_weights(state, enc, dec)
     print(f"saved {enc} and {dec}")
     return 0
@@ -658,12 +757,14 @@ def cmd_traincritic(args) -> int:
     if frames is None:
         return 1
     device = resolve_device(args.device)
+    pri = _primary()  # every rank trains the same critic, only the primary writes
     bin_labels = tc.labels_from_masks(gt)
     labels = tc.soft_trunk_labels(gt) if args.labels == "soft" else bin_labels
-    print(f"training critic on {len(frames)} frames "
-          f"({bin_labels.mean():.0%} positive, {args.labels} labels"
-          + (f", best-of-{args.cam_select} by CAM health" if args.cam_select > 1 else "")
-          + ")...")
+    if pri:
+        print(f"training critic on {len(frames)} frames "
+              f"({bin_labels.mean():.0%} positive, {args.labels} labels"
+              + (f", best-of-{args.cam_select} by CAM health" if args.cam_select > 1 else "")
+              + ")...")
     health = None
     if args.cam_select > 1:
         params, health, reports = tc.train_critic_selected(
@@ -671,7 +772,7 @@ def cmd_traincritic(args) -> int:
             epochs=args.epochs, batch_size=args.batch_size, learning_rate=args.lr,
             dropout_rate=args.dropout, health_target=args.cam_health_target, device=device)
         loss = next(r["final_loss"] for r in reports if r["seed"] == health["selected_seed"])
-        if health.get("health_target_met") is False:
+        if health.get("health_target_met") is False and pri:
             print(f"WARNING: no candidate reached --cam-health-target "
                   f"{args.cam_health_target} within {args.cam_select} seeds "
                   f"(best deletion_drop {health['deletion_drop']:.3f}); "
@@ -685,7 +786,9 @@ def cmd_traincritic(args) -> int:
     acc = tc.critic_accuracy(params, frames, bin_labels, device=device)
     if health is None and not args.no_cam_health:
         health = tc.critic_cam_health(params, frames, device=device)
-    out = args.out or str(Path(args.root) / CRITIC_OUT_PATH)
+    if not pri:
+        return 0
+    out = args.out or str(_cfg(args).paths.resolve(CRITIC_OUT_PATH))
     os.makedirs(os.path.dirname(out) or ".", exist_ok=True)
     save_critic(out, params)
     print(f"final loss={loss:.4f} train acc={acc:.3f}; saved {out}")
@@ -710,12 +813,14 @@ def cmd_traincritic(args) -> int:
 def cmd_export(args) -> int:
     from critic_vae_tpu_torch.io import weights
 
+    if not _primary():  # files only, no collective: the primary writes them
+        return 0
     wrote = []
     if args.encoder_out or args.decoder_out:
         if not (args.encoder_out and args.decoder_out):
             print("error: --encoder-out and --decoder-out go together", file=sys.stderr)
             return 1
-        enc_sd, dec_sd = weights.vae_state_dicts_to_torch(*_final_vae(args, Path(args.root)))
+        enc_sd, dec_sd = weights.vae_state_dicts_to_torch(*_final_vae(args, _cfg(args)))
         weights.save_state_dict_pt(args.encoder_out, enc_sd)
         weights.save_state_dict_pt(args.decoder_out, dec_sd)
         wrote += [args.encoder_out, args.decoder_out]
@@ -745,5 +850,21 @@ COMMANDS = {
 
 
 def main(argv: Optional[list] = None) -> int:
+    import torch.distributed as dist
+
+    from critic_vae_tpu_torch.parallel.distributed import init_distributed, world_size
+
     args = build_parser().parse_args(argv)
-    return COMMANDS[args.command](args)
+    # ranks: the process group comes first, before any device use
+    # (parallel/distributed.py); a no-op without a launcher's environment
+    formed = not dist.is_initialized()
+    init_distributed(device=args.device)
+    formed = formed and dist.is_initialized()
+    if dist.is_initialized() and _primary():
+        # the port prints this whenever a group exists, one rank included
+        print(f"multi-host: {world_size()} processes, {world_size()} devices")
+    try:
+        return COMMANDS[args.command](args)
+    finally:
+        if formed:
+            dist.destroy_process_group()

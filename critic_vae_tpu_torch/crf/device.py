@@ -26,6 +26,11 @@ threshold sweep). ``densecrf_device`` refines any (n, H, W, L)
 probabilities, returning labels or with ``soft`` the marginals, through
 every build; ``crf_param_search`` refines the same masks once for each
 combination of a parameter grid and scores each by IoU counted on the card.
+Each takes ``mesh=`` (parallel/mesh.py): the chunk is rounded up to a
+multiple of the mesh's ranks, each rank refines its rows of every chunk
+(the JAX package's ``_meshed_dispatch``: frames are independent, so no
+collective but the gather), and the rows are gathered so that every rank
+holds the whole result.
 
 The M @ Q message accumulates in float32 whatever M's storage dtype, as the
 JAX package's ``preferred_element_type=f32`` does. For a bf16 M on CUDA that
@@ -365,12 +370,15 @@ def _chunk_frames(frame_chunk: int, fused: str, multi: bool, compute_dtype: str,
 
 def _run_chunked(flat_imgs: torch.Tensor, flat_second: torch.Tensor, params, h: int,
                  w: int, frame_chunk: int, compute_dtype: str, *, build: str = "auto",
-                 fetch: bool = True, soft: bool = False):
+                 fetch: bool = True, soft: bool = False, mesh=None):
     """Refine (n, N, 3) frames with (n, N) 0/1 masks, (n, N, T) mask sets or
     (n, N, L) float probabilities, in fixed-size chunks padded by repeating
     the last frame. Returns (n, N) or (n, T, N) uint8 labels, or for
     probabilities with ``soft`` the (n, N, L) float32 marginals; as numpy
-    with ``fetch`` or as a device tensor without."""
+    with ``fetch`` or as a device tensor without. With a ``mesh`` the chunk
+    is rounded up to a multiple of its ranks, each rank runs the chunk body
+    on its rows (the JAX package's ``_meshed_dispatch``) and the rows are
+    gathered (parallel/mesh.py::fetch)."""
     w1, alpha, beta, w2, gamma, iters = params
     fused = _resolve_build(build, h, w, flat_imgs.device)
     probs = flat_second.is_floating_point()
@@ -394,6 +402,10 @@ def _run_chunked(flat_imgs: torch.Tensor, flat_second: torch.Tensor, params, h: 
     else:
         lanes = 2 * (flat_second.shape[2] if multi else 1)
     frame_chunk = _chunk_frames(min(frame_chunk, n), fused, multi, compute_dtype, npix, lanes)
+    if mesh is not None:
+        from critic_vae_tpu_torch.parallel.mesh import fetch as mesh_fetch, shard_batch
+
+        frame_chunk += (-frame_chunk) % mesh.size
     kw = dict(h=h, w=w, iters=int(iters), compute_dtype=compute_dtype, fused=fused)
     segs = []
     for i in range(0, n, frame_chunk):
@@ -404,11 +416,15 @@ def _run_chunked(flat_imgs: torch.Tensor, flat_second: torch.Tensor, params, h: 
             pad = frame_chunk - valid
             imgs = torch.cat([imgs, imgs[-1:].expand(pad, *imgs.shape[1:])])
             second = torch.cat([second, second[-1:].expand(pad, *second.shape[1:])])
+        if mesh is not None:
+            imgs, second = shard_batch(mesh, imgs), shard_batch(mesh, second)
         args = (imgs.contiguous(), second, taps, w1, w2, alpha, beta, gamma)
         if probs:
             seg = _chunk_mean_field(*args, soft=soft, **kw)
         else:
             seg = _crf_chunk_from_masks(*args, **kw)
+        if mesh is not None:
+            seg = mesh_fetch(mesh, seg)
         segs.append(seg[:valid])
     out = torch.cat(segs) if len(segs) > 1 else segs[0]
     return out.cpu().numpy() if fetch else out
@@ -434,7 +450,7 @@ def _frames_on(frames_u8, device, name: str):
 @torch.inference_mode()
 def densecrf_device(imgs, probs, params: Tuple, *, frame_chunk: int = 64,
                     compute_dtype: str = "float32", soft: bool = False, build: str = "xla",
-                    device=None) -> np.ndarray:
+                    device=None, mesh=None) -> np.ndarray:
     """Batched exact dense CRF on the card, the call shape of
     :func:`critic_vae_tpu_torch.crf.host.densecrf_batch` (the JAX package's
     ``densecrf_device``, its defaults included: the ``xla`` build in
@@ -451,6 +467,8 @@ def densecrf_device(imgs, probs, params: Tuple, *, frame_chunk: int = 64,
         L = 2, ``pallas`` otherwise) or "auto" (:func:`_resolve_build`).
       device: where numpy inputs go (default the card); tensors are used
         where they lie.
+      mesh: a data-parallel mesh: each rank refines its rows of each chunk
+        (parallel/mesh.py), and every rank returns the whole result.
 
     Returns (n, H, W) uint8 labels, or the (n, H, W, L) float32 marginals
     with ``soft``, as numpy; the leading axis is dropped for one frame."""
@@ -466,7 +484,7 @@ def densecrf_device(imgs, probs, params: Tuple, *, frame_chunk: int = 64,
         raise ValueError(f"imgs shape {tuple(frames.shape)} does not match probs {tuple(p.shape)}")
     out = _run_chunked(frames.reshape(n, h * w_, 3).contiguous(),
                        p.reshape(n, h * w_, L).contiguous(), params, h, w_, frame_chunk,
-                       compute_dtype, build=build, soft=soft)
+                       compute_dtype, build=build, soft=soft, mesh=mesh)
     out = out.reshape((n, h, w_, L) if soft else (n, h, w_))
     return out[0] if single else out
 
@@ -481,7 +499,7 @@ def _iou_counts(pred: torch.Tensor, gt: torch.Tensor) -> torch.Tensor:
 @torch.inference_mode()
 def crf_param_search(frames_u8, thr_masks, gt, param_grid: dict | None = None, *,
                      frame_chunk: int = 64, compute_dtype: str = "auto",
-                     build: str = "auto", device=None):
+                     build: str = "auto", device=None, mesh=None):
     """A CRF hyperparameter search on the card (the JAX package's
     ``crf_param_search``): every combination of ``param_grid`` (dict of
     lists over w1/alpha/beta/w2/gamma/iters; a missing key takes the
@@ -489,7 +507,10 @@ def crf_param_search(frames_u8, thr_masks, gt, param_grid: dict | None = None, *
     (n, H, W, 3) uint8 frames by :func:`refine_masks_device`, and is scored
     by its whole-stack IoU against ``gt``, counted on the card. The frames,
     masks and ``gt`` go to the card once (numpy inputs to ``device``,
-    default the card; tensors stay where they lie).
+    default the card; tensors stay where they lie). With a ``mesh`` the
+    corpus is padded to a multiple of its ranks by repeating the last frame,
+    every combination refines over the mesh, and each refinement is trimmed
+    back before it is scored, as in the JAX package.
 
     Returns (best_masks, results): ``results`` the (iou, params6) of every
     combination in descending IoU (ties in grid order), ``best_masks`` the
@@ -514,11 +535,17 @@ def crf_param_search(frames_u8, thr_masks, gt, param_grid: dict | None = None, *
     frames, device = _frames_on(frames_u8, device, "crf_param_search")
     masks = torch.as_tensor(thr_masks, device=device).to(torch.uint8)
     gt_dev = torch.as_tensor(gt, device=device).bool()
+    n_frames = frames.shape[0]
+    if mesh is not None and n_frames % mesh.size:
+        pad = mesh.size - n_frames % mesh.size
+        frames = torch.cat([frames, frames[-1:].expand(pad, *frames.shape[1:])])
+        masks = torch.cat([masks, masks[-1:].expand(pad, *masks.shape[1:])])
     results, best = [], None
     for c in combos:
         params = tuple(c[k] for k in keys)
         refined = refine_masks_device(frames, masks, params, frame_chunk=frame_chunk,
-                                      compute_dtype=compute_dtype, build=build, fetch=False)
+                                      compute_dtype=compute_dtype, build=build, fetch=False,
+                                      mesh=mesh)[:n_frames]
         tp, fn, fp = _iou_counts(refined, gt_dev).tolist()
         union = tp + fn + fp
         score = 1.0 if union == 0 else tp / union
@@ -532,7 +559,7 @@ def crf_param_search(frames_u8, thr_masks, gt, param_grid: dict | None = None, *
 @torch.inference_mode()
 def refine_masks_device(frames_u8, thr_masks, params: Tuple = REFERENCE_CRF_PARAMS, *,
                         frame_chunk: int = 64, compute_dtype: str = "auto",
-                        build: str = "auto", fetch: bool = True, device=None):
+                        build: str = "auto", fetch: bool = True, device=None, mesh=None):
     """Refine (n, H, W) threshold masks of (n, H, W, 3) uint8 frames with the
     exact dense CRF; returns (n, H, W) bool, as numpy with ``fetch`` or as a
     tensor on the device without.
@@ -544,7 +571,8 @@ def refine_masks_device(frames_u8, thr_masks, params: Tuple = REFERENCE_CRF_PARA
     sizes). ``compute_dtype="auto"`` stores B2's M in bf16 (the kernel's fast
     path; held to >= 99.9% segmentation agreement with float32) and the
     ``xla`` build's in float32; ``int8`` and ``vmem`` fix their own
-    storage."""
+    storage. With a ``mesh`` each rank refines its rows of every chunk and
+    every rank returns the whole result."""
     frames, device = _frames_on(frames_u8, device, "refine_masks_device")
     n, h, w_, _ = frames.shape
     if tuple(thr_masks.shape) != (n, h, w_):
@@ -554,7 +582,7 @@ def refine_masks_device(frames_u8, thr_masks, params: Tuple = REFERENCE_CRF_PARA
     masks = torch.as_tensor(thr_masks, device=device).to(torch.uint8).reshape(n, h * w_)
     out = _run_chunked(
         frames.reshape(n, h * w_, 3), masks, params, h, w_, frame_chunk,
-        compute_dtype, build=build, fetch=fetch,
+        compute_dtype, build=build, fetch=fetch, mesh=mesh,
     )
     return out.reshape(n, h, w_).astype(bool) if fetch else out.reshape(n, h, w_).bool()
 
@@ -563,14 +591,16 @@ def refine_masks_device(frames_u8, thr_masks, params: Tuple = REFERENCE_CRF_PARA
 def refine_masks_multi_device(frames_u8, thr_masks_multi,
                               params: Tuple = REFERENCE_CRF_PARAMS, *,
                               frame_chunk: int = 64, compute_dtype: str = "auto",
-                              build: str = "auto", fetch: bool = True, device=None):
+                              build: str = "auto", fetch: bool = True, device=None,
+                              mesh=None):
     """Refine T mask sets of the same frames in one pass (the threshold
     sweep): (F, H, W, 3) uint8 frames and (T, F, H, W) 0/1 masks -> (T, F,
     H, W) bool, as numpy with ``fetch`` or on the device without. Each set
     agrees with ``refine_masks_device(frames, thr_masks_multi[t])``; all T
     share one bilateral build and one read of it per iteration.
 
-    Inputs are used where they lie, as in :func:`refine_masks_device`."""
+    Inputs are used where they lie and ``mesh`` splits the chunks, as in
+    :func:`refine_masks_device`."""
     frames, device = _frames_on(frames_u8, device, "refine_masks_multi_device")
     f, h, w_, _ = frames.shape
     t = thr_masks_multi.shape[0]
@@ -584,7 +614,7 @@ def refine_masks_multi_device(frames_u8, thr_masks_multi,
              .permute(1, 2, 3, 0).reshape(f, h * w_, t))
     out = _run_chunked(
         frames.reshape(f, h * w_, 3), masks, params, h, w_, frame_chunk,
-        compute_dtype, build=build, fetch=fetch,
+        compute_dtype, build=build, fetch=fetch, mesh=mesh,
     )  # (F, T, N)
     if fetch:
         return out.transpose(1, 0, 2).reshape(t, f, h, w_).astype(bool)

@@ -179,7 +179,7 @@ def mean_field_resident(imgs_u8, probs_pairs, taps, w1, w2, alpha, beta, gamma, 
     ns = _spatial_norm(taps.to(dev), h, w).reshape(-1)
     ws = _workspace(c, n, p, dev)
     lib = kb.library()
-    with torch.cuda.device(dev):
+    with torch.cuda.device(dev), kb.launch_span("mean_field_resident"):
         status = lib.cvt_mean_field_resident(
             imgs_u8.data_ptr(), probs.data_ptr(), ns.data_ptr(), c, n, w, p, float(w1),
             float(w2), float(alpha), float(beta), float(gamma), int(iters),

@@ -16,6 +16,8 @@ from __future__ import annotations
 
 import torch
 
+from critic_vae_tpu_torch.parallel.distributed import world_size
+
 DEVICE_MAX_PIXELS = 128 * 128       # largest frame ``auto`` gives the device CRF
 DEVICE_HARD_MAX_PIXELS = 256 * 256  # largest frame an explicit ``device`` accepts
 
@@ -23,8 +25,9 @@ DEVICE_HARD_MAX_PIXELS = 256 * 256  # largest frame an explicit ``device`` accep
 def resolve_crf_backend(requested: str, h: int, w: int, *, device) -> str:
     """Resolve ``auto`` | ``device`` | ``host`` for h x w frames on ``device``.
 
-    ``auto`` picks ``device`` on a CUDA device within ``DEVICE_MAX_PIXELS``
-    and ``host`` otherwise (the JAX package's rule, CUDA in the accelerator's
+    ``auto`` picks ``device`` on a CUDA device in a one-process run (one
+    rank of torch.distributed, or no group) within ``DEVICE_MAX_PIXELS`` and
+    ``host`` otherwise (the JAX package's rule, CUDA in the accelerator's
     place); ``host`` is ``host``; an explicit ``device`` is honoured up to
     ``DEVICE_HARD_MAX_PIXELS`` and raises past it."""
     if requested not in ("auto", "host", "device"):
@@ -40,6 +43,6 @@ def resolve_crf_backend(requested: str, h: int, w: int, *, device) -> str:
         return "device"
     if requested == "host":
         return "host"
-    if torch.device(device).type == "cuda" and npix <= DEVICE_MAX_PIXELS:
+    if torch.device(device).type == "cuda" and world_size() == 1 and npix <= DEVICE_MAX_PIXELS:
         return "device"
     return "host"

@@ -179,7 +179,8 @@ def episode_forward(vae: VAE, critic: Critic, frames: torch.Tensor, *,
                     saliency_noise: float = 0.0, saliency_sigma: float | None = None,
                     saliency_seed: int | None = None, saliency_method: str = "gradient",
                     saliency_cam_block: int = 1, saliency_cam_upsample: str = "lanczos3",
-                    saliency_tta_flip: bool = False, saliency_tta_shift: int = 0):
+                    saliency_tta_flip: bool = False, saliency_tta_shift: int = 0,
+                    saliency_rows: tuple | None = None):
     """Per-frame stage of the video pipeline over one batch (the JAX
     ``episode_forward``).
 
@@ -197,7 +198,11 @@ def episode_forward(vae: VAE, critic: Critic, frames: torch.Tensor, *,
     ``diff`` and their per-frame max as ``max_value``; the stage runs in
     float32 with TF32 off whatever ``compute_dtype``, and ``preds`` are
     probabilities. SmoothGrad (``saliency_noise > 0``) draws its noise from a
-    generator seeded ``saliency_seed`` on the frames' device (required then).
+    generator seeded ``saliency_seed`` on the frames' device (required then);
+    ``saliency_rows=(start, total)`` says that ``frames`` are rows start.. of
+    a batch of ``total`` (a rank's rows under a mesh), whose whole noise is
+    drawn and these rows' taken, so each frame gets the noise it gets in
+    one process.
     ``auto`` resolves to ``split`` for it; ``merged`` and ``block0_f32``
     raise, with the JAX package's messages. The diff source runs under
     ``torch.inference_mode``, the saliency stage with autograd.
@@ -246,7 +251,7 @@ def episode_forward(vae: VAE, critic: Critic, frames: torch.Tensor, *,
         samples=saliency_samples, noise=saliency_noise, generator=generator,
         method=saliency_method, cam_block=saliency_cam_block,
         cam_upsample=saliency_cam_upsample, tta_flip=saliency_tta_flip,
-        tta_shift=saliency_tta_shift, **sigma_kw)
+        tta_shift=saliency_tta_shift, noise_rows=saliency_rows, **sigma_kw)
     out = {"preds": preds, "diff": sal, "max_value": sal.amax(dim=(1, 2))}
     if with_recons:
         with torch.inference_mode():

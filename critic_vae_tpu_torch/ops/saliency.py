@@ -90,7 +90,8 @@ def critic_saliency(critic, x: torch.Tensor, *, smooth_sigma: float | None = Non
                     logits: bool = False, samples: int = 1, noise: float = 0.0,
                     generator: torch.Generator | None = None, method: str = "gradient",
                     cam_block: int = 1, cam_upsample: str = "lanczos3",
-                    tta_flip: bool = False, tta_shift: int = 0):
+                    tta_flip: bool = False, tta_shift: int = 0,
+                    noise_rows: tuple | None = None):
     """Saliency maps and predictions for a batch of NCHW frames ``x`` (B, 3,
     H, W) in [0, 1], as the JAX ``critic_saliency`` with a
     ``torch.Generator`` where it takes a key.
@@ -99,7 +100,9 @@ def critic_saliency(critic, x: torch.Tensor, *, smooth_sigma: float | None = Non
     for ``layercam``); 0 disables the blur. ``noise == 0`` is one backward
     pass whatever ``samples``; ``noise > 0`` draws (samples, B, H, W, 3)
     unit normals from ``generator`` (required, on x's device) and averages
-    the maps of ``x + noise * draw``. ``logits`` differentiates the logit
+    the maps of ``x + noise * draw``; with ``noise_rows=(start, total)`` the
+    draw is that of a batch of ``total`` frames, of which ``x`` holds rows
+    start.. (a rank's rows under a mesh). ``logits`` differentiates the logit
     (``gradient`` only; ``layercam`` always does). Returns (preds (B,), the
     clean view's probabilities, and saliency (B, H, W)), float32 on x's
     device, outside any autograd graph."""
@@ -110,8 +113,9 @@ def critic_saliency(critic, x: torch.Tensor, *, smooth_sigma: float | None = Non
             raise ValueError("critic_saliency: SmoothGrad (noise>0) requires a PRNG key "
                              "(a torch.Generator)")
         b, c, h, w = x.shape
-        draws = torch.randn((samples, b, h, w, c), generator=generator, device=x.device,
-                            dtype=torch.float32)
+        start, total = noise_rows if noise_rows is not None else (0, b)
+        draws = torch.randn((samples, total, h, w, c), generator=generator, device=x.device,
+                            dtype=torch.float32)[:, start : start + b]
     return critic_saliency_from_noise(
         critic, x, draws, smooth_sigma=smooth_sigma, logits=logits, noise=noise,
         method=method, cam_block=cam_block, cam_upsample=cam_upsample, tta_flip=tta_flip,

@@ -36,11 +36,13 @@ def build_pseudo_masks(critic: Critic, frames: np.ndarray, *,
                        threshold: int = DEFAULT_CAM_THRESHOLD, cam_block: int = 1,
                        run_crf: bool = True, crf_params: Tuple = CAM_TUNED_CRF_PARAMS,
                        crf_backend: str = "auto", batch_size: int = 512,
-                       device="cuda") -> np.ndarray:
+                       device="cuda", mesh=None) -> np.ndarray:
     """(N, H, W) bool LayerCAM (+ CAM-tuned CRF) masks of (N, H, W, 3)
     frames, uint8 or float in [0, 1], computed on ``device`` (the card unless
     the caller asks for the CPU). ``run_crf=False`` returns the thresholded
-    LayerCAM masks; ``crf_backend`` resolves as crf/policy.py says."""
+    LayerCAM masks; ``crf_backend`` resolves as crf/policy.py says. With a
+    ``mesh`` (parallel/mesh.py) the saliency stage and the device CRF run
+    over its ranks, each on its rows, and every rank returns every mask."""
     from critic_vae_tpu_torch.crf.policy import resolve_crf_backend
     from critic_vae_tpu_torch.ops.mask import normalize_diffs_given_mean
     from critic_vae_tpu_torch.pipelines.video import _refine, episode_device_stage
@@ -58,7 +60,7 @@ def build_pseudo_masks(critic: Critic, frames: np.ndarray, *,
     # the saliency source never decodes: no VAE
     preds, maxes, diff_chunks, valids, _ = episode_device_stage(
         None, critic, frames_dev, batch_size, with_recons=False, mask_source="saliency",
-        saliency_opts={"method": "layercam", "cam_block": cam_block})
+        saliency_opts={"method": "layercam", "cam_block": cam_block}, mesh=mesh)
     mean_max = float(np.mean(maxes.cpu().numpy()))
     thr_masks = torch.cat([normalize_diffs_given_mean(chunk, mean_max)[:valid] > threshold
                            for chunk, valid in zip(diff_chunks, valids)])
@@ -95,5 +97,6 @@ def build_pseudo_masks(critic: Critic, frames: np.ndarray, *,
     backend = resolve_crf_backend(crf_backend, frames_u8.shape[1], frames_u8.shape[2],
                                   device=device)
     if backend == "device":
-        return _refine(frames_dev, thr_masks, tuple(crf_params), backend).cpu().numpy()
+        return _refine(frames_dev, thr_masks, tuple(crf_params), backend,
+                       mesh=mesh).cpu().numpy()
     return np.asarray(_refine(frames_u8, thr_host, tuple(crf_params), backend)).astype(bool)

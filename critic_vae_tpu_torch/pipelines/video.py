@@ -10,7 +10,10 @@ crf/policy.py resolves it. ``eval_episode`` keeps everything up to the masks
 on the device and scores on the host; with the host CRF a worker thread
 refines each chunk's masks as they reach the host. ``threshold_sweep`` runs
 the device stage once and scores every threshold on the device (the host
-CRF refines per threshold). ``bin_diagnostics``/``write_bin_info`` write the
+CRF refines per threshold). With ``mesh=`` (parallel/mesh.py) each rank
+runs the device stage and the device CRF on its rows of every chunk and
+the rows are gathered, so every rank holds the whole result, as the JAX
+package's meshed runs. ``bin_diagnostics``/``write_bin_info`` write the
 reference's bin_info file, ``compose_frames`` the annotated strips of the
 GIF (Pillow, imported only there).
 """
@@ -56,14 +59,15 @@ def _sweep_chunk_stats(masks: torch.Tensor, gt: torch.Tensor):
             torch.sum(~g & m, dim=(1, 2, 3)))
 
 
-def _refine(frames_u8, thr_masks, crf_params, backend: str, num_threads: int = 0):
+def _refine(frames_u8, thr_masks, crf_params, backend: str, num_threads: int = 0,
+            mesh=None):
     """CRF refinement on ``backend``: ``device`` (the exact mean field of
-    crf/device.py, on the masks' device) or ``host`` (the C++ lattice on
-    numpy arrays)."""
+    crf/device.py, on the masks' device, over ``mesh`` when given) or
+    ``host`` (the C++ lattice on numpy arrays)."""
     if backend == "device":
         from critic_vae_tpu_torch.crf.device import refine_masks_device
 
-        return refine_masks_device(frames_u8, thr_masks, crf_params, fetch=False)
+        return refine_masks_device(frames_u8, thr_masks, crf_params, fetch=False, mesh=mesh)
     if backend != "host":
         raise ValueError(f"unknown crf backend {backend!r} (host|device)")
     from critic_vae_tpu_torch.crf.host import refine_masks
@@ -92,7 +96,8 @@ SALIENCY_DEFAULTS = dict(logits=False, samples=1, noise=0.0, seed=0, sigma=None,
 def episode_device_stage(vae: Optional[VAE], critic: Critic, frames_u8: torch.Tensor,
                          batch_size: int = 512, *, compute_dtype: str = "float32",
                          with_recons: bool = False, recons_u8: bool = False,
-                         mask_source: str = "diff", saliency_opts: Optional[Dict] = None):
+                         mask_source: str = "diff", saliency_opts: Optional[Dict] = None,
+                         mesh=None):
     """Run :func:`episode_forward` over device-resident uint8 frames (N, H,
     W, 3) in chunks of ``batch_size``, the last padded by repeating its last
     frame, so every chunk has one shape. ``vae`` may be None for the
@@ -104,6 +109,14 @@ def episode_device_stage(vae: Optional[VAE], critic: Critic, frames_u8: torch.Te
     ``tta_shift`` (ops/saliency.py::critic_saliency's options); another key
     raises. With SmoothGrad on (``noise > 0``) chunk k draws its noise from
     its own generator, seeded ``seed + k``.
+
+    With a ``mesh`` (parallel/mesh.py) ``batch_size`` is rounded up to a
+    multiple of its ranks, as in the JAX package, each rank runs its rows of
+    every padded chunk (drawing the whole chunk's SmoothGrad noise and taking
+    its rows', so each frame gets the noise of the one-process run at that
+    batch size), and the chunk's outputs are gathered so that every rank
+    holds them whole (parallel/mesh.py::fetch); the frames must be the same
+    on every rank.
 
     Returns (preds (N,), max_value (N,), diff_chunks, valids, recons): the
     trimmed per-frame outputs, the per-chunk diff maps as they came (still
@@ -118,6 +131,10 @@ def episode_device_stage(vae: Optional[VAE], critic: Critic, frames_u8: torch.Te
         sal.update(saliency_opts)
     # noise == 0 is the deterministic path whatever the sample count
     sampling = mask_source == "saliency" and sal["noise"] > 0.0
+    if mesh is not None:
+        batch_size = max(batch_size, mesh.size)
+        batch_size += (-batch_size) % mesh.size
+    keys = ("preds", "max_value", "diff") + (("recon_one", "recon_zero") if with_recons else ())
     n = frames_u8.shape[0]
     preds, maxes, diff_chunks, valids = [], [], [], []
     recons = ([], []) if with_recons else None
@@ -127,6 +144,12 @@ def episode_device_stage(vae: Optional[VAE], critic: Critic, frames_u8: torch.Te
         if valid < batch_size:
             pad = chunk[-1:].expand(batch_size - valid, -1, -1, -1)
             chunk = torch.cat([chunk, pad])
+        rows = None
+        if mesh is not None:
+            from critic_vae_tpu_torch.parallel.mesh import row_offset, shard_batch
+
+            rows = (row_offset(mesh, batch_size), batch_size)
+            chunk = shard_batch(mesh, chunk)
         out = episode_forward(
             vae, critic, chunk, compute_dtype=compute_dtype, with_recons=with_recons,
             recons_u8=recons_u8, mask_source=mask_source, saliency_logits=sal["logits"],
@@ -134,7 +157,12 @@ def episode_device_stage(vae: Optional[VAE], critic: Critic, frames_u8: torch.Te
             saliency_sigma=sal["sigma"], saliency_method=sal["method"],
             saliency_cam_block=sal["cam_block"], saliency_cam_upsample=sal["cam_upsample"],
             saliency_tta_flip=sal["tta_flip"], saliency_tta_shift=sal["tta_shift"],
-            saliency_seed=sal["seed"] + i // batch_size if sampling else None)
+            saliency_seed=sal["seed"] + i // batch_size if sampling else None,
+            saliency_rows=rows if sampling else None)
+        if mesh is not None:
+            from critic_vae_tpu_torch.parallel.mesh import fetch
+
+            out = {k: fetch(mesh, out[k]) for k in keys}
         preds.append(out["preds"][:valid])
         maxes.append(out["max_value"][:valid])
         diff_chunks.append(out["diff"])
@@ -153,8 +181,8 @@ def eval_episode(vae: VAE, critic: Critic, frames_u8: np.ndarray,
                  run_crf: bool = True, batch_size: int = 512, num_threads: int = 0,
                  compute_dtype: str = "float32", crf_backend: str = "auto",
                  recons_u8: bool = False, with_recons: bool = False,
-                 mask_source: str = "diff",
-                 saliency_opts: Optional[Dict] = None) -> EpisodeResult:
+                 mask_source: str = "diff", saliency_opts: Optional[Dict] = None,
+                 mesh=None) -> EpisodeResult:
     """The mask pipeline over an episode (reference: eval_textured_frames).
 
     Args:
@@ -174,6 +202,11 @@ def eval_episode(vae: VAE, critic: Critic, frames_u8: np.ndarray,
         saliency maps through the same normalisation, threshold and CRF;
         ``diff_u8`` then holds the normalised saliency maps), with
         ``saliency_opts`` as in :func:`episode_device_stage`.
+      mesh: a data-parallel mesh (parallel/mesh.py): the device stage and
+        the device CRF run over its ranks, each on its rows of every chunk,
+        and every rank returns the whole result, equal to one process's at
+        the same (rounded) batch size. ``auto`` takes the host CRF when
+        more than one process runs (crf/policy.py), as in the JAX package.
     """
     backend = None
     if run_crf:
@@ -185,7 +218,7 @@ def eval_episode(vae: VAE, critic: Critic, frames_u8: np.ndarray,
     preds, max_value, diff_chunks, valids, recons = episode_device_stage(
         vae, critic, frames, batch_size, compute_dtype=compute_dtype,
         with_recons=with_recons, recons_u8=recons_u8, mask_source=mask_source,
-        saliency_opts=saliency_opts,
+        saliency_opts=saliency_opts, mesh=mesh,
     )
     # global two-pass normalisation: the mean of the trimmed per-frame maxima
     mean_max = torch.mean(max_value)
@@ -198,7 +231,10 @@ def eval_episode(vae: VAE, critic: Critic, frames_u8: np.ndarray,
 
     crf = None
     if backend == "device":
-        crf = _refine(frames, torch.cat(thr_parts), crf_params, "device")
+        # every rank holds every mask: under a mesh the device CRF splits
+        # them again (the JAX package's multi-process branch refines them
+        # after its fetch, which the gathered masks are here)
+        crf = _refine(frames, torch.cat(thr_parts), crf_params, "device", mesh=mesh)
     diff_u8 = torch.cat(u8_parts).cpu().numpy()
     if backend == "host":
         # each chunk's masks to the host, refined there while the next come
@@ -231,8 +267,8 @@ def threshold_sweep(vae: VAE, critic: Critic, frames_u8: np.ndarray, gt: np.ndar
                     crf_params: Tuple = REFERENCE_CRF_PARAMS, run_crf: bool = True,
                     batch_size: int = 512, num_threads: int = 0,
                     compute_dtype: str = "float32", crf_backend: str = "auto",
-                    mask_source: str = "diff",
-                    saliency_opts: Optional[Dict] = None) -> List[Dict]:
+                    mask_source: str = "diff", saliency_opts: Optional[Dict] = None,
+                    mesh=None) -> List[Dict]:
     """Threshold sweep with the device stage run once (reference: -video
     -thresh, which re-runs the whole pipeline per threshold).
 
@@ -242,8 +278,8 @@ def threshold_sweep(vae: VAE, critic: Critic, frames_u8: np.ndarray, gt: np.ndar
     counted on the device too, while the host CRF refines them one
     threshold at a time. Returns one dict per threshold: ``threshold``,
     ``thr_iou`` (3 digits) and ``crf_iou`` (3 digits, None without
-    ``run_crf``). Arguments as in :func:`eval_episode` (``mask_source`` and
-    ``saliency_opts`` too); ``gt`` is required.
+    ``run_crf``). Arguments as in :func:`eval_episode` (``mask_source``,
+    ``saliency_opts`` and ``mesh`` too); ``gt`` is required.
     """
     backend = None
     if run_crf:
@@ -255,7 +291,7 @@ def threshold_sweep(vae: VAE, critic: Critic, frames_u8: np.ndarray, gt: np.ndar
     gt_dev = torch.from_numpy(np.ascontiguousarray(gt, dtype=bool)).to(device)
     _, max_value, diff_chunks, valids, _ = episode_device_stage(
         vae, critic, frames, batch_size, compute_dtype=compute_dtype,
-        mask_source=mask_source, saliency_opts=saliency_opts,
+        mask_source=mask_source, saliency_opts=saliency_opts, mesh=mesh,
     )
     mean_max = torch.mean(max_value)
     t = torch.tensor(list(thresholds), dtype=torch.int32, device=device)
@@ -275,7 +311,7 @@ def threshold_sweep(vae: VAE, critic: Critic, frames_u8: np.ndarray, gt: np.ndar
         from critic_vae_tpu_torch.crf.device import refine_masks_multi_device
 
         refined = refine_masks_multi_device(frames, torch.cat(mask_parts, dim=1), crf_params,
-                                            fetch=False)
+                                            fetch=False, mesh=mesh)
         crf_ious = [round(v, 3) for v in _ious(torch.stack(_sweep_chunk_stats(refined, gt_dev)))]
     elif backend == "host":
         masks = torch.cat(mask_parts, dim=1).cpu().numpy()

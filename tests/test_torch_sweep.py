@@ -169,7 +169,7 @@ def test_cli_video_backend_error_is_reported(tmp_path, capsys):
     ep = tmp_path / "big"
     generate_episode(str(ep), num_frames=2, size=300, seed=0)
     rc = main(["video", "--episode", str(ep), "--no-slice", "--device", "cpu",
-               "--crf-backend", "device"])
+               "--crf-backend", "device", "--vae-seed", "0"])
     out, err = capsys.readouterr()
     assert rc == 1
     assert err.startswith("error: ") and "host" in err and "Traceback" not in err
