@@ -241,12 +241,35 @@ exits non-zero:
    2048 frames of phase 9 with a one-rank NCCL mesh formed in this process,
    as a main path (launch counts set to 0 just before and read just after:
    B1, B2), its results identical to the unmeshed run's, then frames/s with
-   and without the mesh, 3 reps each, alternating.
+   and without the mesh, 3 reps each, alternating;
+30. data-parallel training at full width (critic-synthetic,
+   ``numpy_vae_params(0)``, batch 128, float32 with TF32 off, cuDNN's
+   deterministic algorithms for the parity parts): (a) a one-rank NCCL mesh
+   formed in this process as in 29 (c): 3 steps of ``make_multi_step``
+   with and without it from the same state and draws (losses within 1e-6
+   relative, and whether bitwise; parameters within 0.25 lr, the encoder's
+   conv biases within 2 lr a step), ``make_sharded_multi_step`` at D = 1
+   bitwise the meshed loop on the same rows, then 4 windows of 50 steps
+   with and without the mesh, alternating: ms a step, launches a step (and
+   those the mesh adds), the NCCL kernels' share of the device time
+   (torch.profiler), the idle share and the ratio mesh/plain; (b) two
+   processes spawned on this card, each forming a gloo group with CUDA
+   tensors on cuda:0 (NCCL refuses two ranks on one card): 3 steps of the
+   replicated and of the sharded loop (64 rows a rank) against (a)'s
+   one-process steps on the equivalent global rows (losses at phase 23's
+   bars: total and recon 1e-5 relative, kld 5e-5), both ranks' parameters,
+   BN stats and Adam moments bitwise
+   equal by ``fetch``; (c) under ``python -m torch.distributed.run
+   --nproc-per-node 1`` (one NCCL rank): ``train --device cuda --source
+   synthetic:1:1024 --epochs 1 --batch-size 128 --root R`` (its
+   ``multi-host`` line, one checkpoint set, one events file and JSONL, the
+   two artifacts), the same command again (``resumed from``), then
+   ``dataset`` and ``second`` on R.
 
 Phases 26-28 print the card's ``nvidia-smi`` name and power limit beside
 their rates.
 
-``python3 chip_smoke.py --parallel-only`` runs phases 1, 2 and 29 alone.
+``python3 chip_smoke.py --parallel-only`` runs phases 1, 2, 29 and 30 alone.
 ``python3 chip_smoke.py --bf16-golden-only [--port DIR]`` runs phases 1, 2
 and 17 alone, driving the critic_vae_tpu_torch package in DIR (for example
 an older checkout) against this checkout's goldens.
@@ -266,9 +289,10 @@ Python wrapper (P1's rows sum the three questions, with ``empty_ms`` the
 empty kernel's device time); the other kernels' ``ms`` are CUDA-event times
 of calls, which their device time dominates. The last line is {"ok": true,
 "device": {...}}. Without CUDA the script fails and prints no result. About
-four and a half minutes on an H100, the build (~10 s) included (263.2 s on
-an NVIDIA H100 80GB HBM3 at 700 W; phases 26-28 about a minute of it,
-phase 29 about 54 s).
+six minutes on an H100, the build (~10 s) included (328.5-363.4 s on an
+NVIDIA H100 80GB HBM3 at 700 W, phases 26-28 about a minute of it, phase
+29 about 54 s and phase 30 103-121 s, three fifths of that its four
+launches of ``torch.distributed.run``).
 """
 
 from __future__ import annotations
@@ -2280,13 +2304,9 @@ def phase_distill(dev, critic, smi: str, scratch: Path, baseline=None):
     # turns the parameters' run-to-run drift into step 3's loss errors (3
     # runs: total 1.0e-05-1.24e-05, md 2.7e-05-3.5e-05, kld up to 1.04e-04);
     # its deterministic algorithms give one answer a card
-    deterministic = torch.backends.cudnn.deterministic
-    torch.backends.cudnn.deterministic = True
-    try:
+    with _deterministic():
         g = _golden_run(init_train_state(params, bn_state, device=dev), step, batch, gold,
                         params, masks=gmasks)
-    finally:
-        torch.backends.cudnn.deterministic = deterministic
     log(f"[26 distill] golden steps: {steps} f32 steps with mask_distill={md}, batch {batch_n}, "
         f"full width, cuDNN's deterministic algorithms: worst relative errors "
         + ", ".join(f"{k} {v:.3e} (bar {DISTILL_LOSS_REL[k]:g})" for k, v in g["loss_rel"].items())
@@ -2592,17 +2612,11 @@ def phase_parallel(dev, critic, vae, smi: str, scratch: Path):
     # (b) one rank on NCCL under the launcher, --num-devices 1
     out_b = scratch / "root_b"
     out_b.mkdir()
-    env = dict(os.environ, PYTHONPATH=str(ROOT))
-    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node", "1",
-           "-m", "critic_vae_tpu_torch", "video", *explicit, "--root", str(out_b),
-           "--num-devices", "1", *common]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=300, cwd=scratch, env=env)
-    secs = time.perf_counter() - t0
-    lines = proc.stdout.splitlines()
+    rc, lines, err, secs = _torchrun(["video", *explicit, "--root", str(out_b),
+                                      "--num-devices", "1", *common], scratch)
     log(f"[29 parallel b] torch.distributed.run --nproc-per-node 1 video --num-devices 1: exit "
-        f"{proc.returncode} in {secs:.1f} s; " + " | ".join(lines))
-    require(proc.returncode == 0, f"torchrun video failed: {proc.stderr[-3000:]}")
+        f"{rc} in {secs:.1f} s; " + " | ".join(lines))
+    require(rc == 0, f"torchrun video failed: {err[-3000:]}")
     require(lines[:2] == ["multi-host: 1 processes, 1 devices",
                           "sharding the device stage over 1 device(s)"],
             f"torchrun video: no multi-host/sharding lines: {lines[:3]}")
@@ -2615,12 +2629,8 @@ def phase_parallel(dev, critic, vae, smi: str, scratch: Path):
     frames, gt = generate_frames(MAIN_FRAMES, seed=0)
     kw = dict(device=dev, batch_size=MAIN_BATCH, compute_dtype="bfloat16", crf_backend="auto",
               threshold=50)
-    s = __import__("socket").socket()
-    s.bind(("127.0.0.1", 0))
-    port = s.getsockname()[1]
-    s.close()
     require(not torch.distributed.is_initialized(), "a process group exists before phase 29")
-    init_distributed(f"127.0.0.1:{port}", num_processes=1, process_id=0, device="cuda")
+    init_distributed(f"127.0.0.1:{_free_port()}", num_processes=1, process_id=0, device="cuda")
     try:
         mesh = make_mesh(1, dev)
         require(mesh.group is not None and torch.distributed.get_backend() == "nccl",
@@ -2653,6 +2663,337 @@ def phase_parallel(dev, critic, vae, smi: str, scratch: Path):
         f"mesh/plain {med['mesh'] / med['plain']:.4f}; results identical: {same}; {smi}")
     require(same, "the one-rank mesh changed eval_episode's results")
     return launches
+
+
+PTRAIN_FRAMES = 1024        # phase 30's dataset
+PTRAIN_STEPS = 3            # phase 30's parity steps
+PTRAIN_WINDOWS = 4          # phase 30's timed windows a variant, alternating
+PTRAIN_MESH_REL = 1e-6      # phase 30 (a): losses of the one-rank mesh against none
+# host-side ops of the mesh's collectives in a torch.profiler CPU trace
+COLLECTIVE_HOST_OPS = ("record_param_comms", "c10d::allreduce_", "_AllSum", "_AllSumBackward")
+
+
+def _ptrain_inputs():
+    """Phase 30's steps: the dataset, the replicated loop's global (3, 128)
+    rows, the sharded loop's local offsets over 2 ranks and their global
+    equivalents, and the (3, 128, 32) draws, all from seeds."""
+    import numpy as np
+
+    from critic_vae_tpu_torch.data.synthetic import generate_frames
+    from critic_vae_tpu_torch.train.step import sharded_epoch_indices
+
+    data = generate_frames(PTRAIN_FRAMES, seed=30)[0]
+    rng = np.random.default_rng(30)
+    repl = np.stack([rng.permutation(PTRAIN_FRAMES)[:TRAIN_BATCH]
+                     for _ in range(PTRAIN_STEPS)]).astype(np.int32)
+    local = sharded_epoch_indices(rng, PTRAIN_FRAMES, TRAIN_BATCH, 2)[:PTRAIN_STEPS]
+    owner = np.repeat(np.arange(2) * (PTRAIN_FRAMES // 2), TRAIN_BATCH // 2)[None, :]
+    eps = rng.standard_normal((PTRAIN_STEPS, TRAIN_BATCH, 32)).astype(np.float32)
+    return data, repl, local, (local + owner).astype(np.int32), eps
+
+
+@contextlib.contextmanager
+def _deterministic():
+    """cuDNN's deterministic algorithms, for step-for-step training parity on
+    the card (the default backward drifts run to run)."""
+    import torch
+
+    old = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = old
+
+
+def _free_port() -> int:
+    """A free TCP port on this machine, for a process group's rendezvous."""
+    import socket
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def _ptrain_run(dev, critic, mesh, data, idx, eps, sharded=False):
+    """(losses as numpy, state) of 3 float32 steps from ``numpy_vae_params(0)``
+    on the card: ``make_multi_step`` (``mesh`` None or a mesh), or with
+    ``sharded`` ``make_sharded_multi_step`` on this rank's rows of ``data``."""
+    import torch
+
+    from critic_vae_tpu_torch.io import weights
+    from critic_vae_tpu_torch.parallel.mesh import row_slice
+    from critic_vae_tpu_torch.train.step import (init_train_state, make_multi_step,
+                                                 make_sharded_multi_step)
+
+    state = init_train_state(*weights.numpy_vae_params(0), device=dev)
+    if sharded:
+        data = data[row_slice(mesh, len(data))]
+        multi = make_sharded_multi_step(critic, mesh=mesh)
+    else:
+        multi = make_multi_step(critic, mesh=mesh)
+    with _deterministic(), no_tf32():
+        losses = multi(state, torch.from_numpy(data).to(dev), torch.from_numpy(idx).to(dev),
+                       torch.from_numpy(eps).to(dev))
+    return {k: v.cpu().numpy() for k, v in losses.items()}, state
+
+
+def parallel_train_rank(rank: int, outdir: str, address: str) -> None:
+    """Phase 30 (b)'s rank ``rank`` of 2: a gloo group, CUDA tensors on
+    cuda:0, 3 steps of the replicated and of the sharded loop; each
+    loop's losses, and whether the two ranks' parameters, BN stats and
+    Adam moments are bitwise equal (compared by ``fetch``), into
+    ``rank{rank}.npz``."""
+    import numpy as np
+    import torch
+
+    from critic_vae_tpu_torch.io import weights
+    from critic_vae_tpu_torch.parallel.distributed import init_distributed
+    from critic_vae_tpu_torch.parallel.mesh import fetch, make_mesh
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    require(init_distributed(address, num_processes=2, process_id=rank, device="cpu"),
+            "no two-rank group")
+    mesh = make_mesh(0, dev)
+    require(mesh.size == 2 and mesh.device == dev
+            and torch.distributed.get_backend() == "gloo", f"not a gloo mesh on the card: {mesh}")
+    critic = weights.synthetic_models(dev)[0]
+    data, repl, local, _, eps = _ptrain_inputs()
+    out = {}
+    for name, idx, sharded in (("repl", repl, False), ("shard", local, True)):
+        losses, state = _ptrain_run(dev, critic, mesh, data, idx, eps, sharded)
+        flat = torch.cat([t.detach().reshape(-1).float() for t in (
+            state.params + state.mu + state.nu
+            + [b for bn in state.vae.encoder.bns for b in (bn.running_mean, bn.running_var)])])
+        both = fetch(mesh, flat[None])
+        out.update({f"{name}/{k}": v for k, v in losses.items()})
+        out[f"{name}/equal"] = np.array(bool(torch.equal(both[0], both[1])))
+        out[f"{name}/values"] = np.array(flat.numel())
+    np.savez(os.path.join(outdir, f"rank{rank}.npz"), **out)
+    torch.distributed.destroy_process_group()
+
+
+def _torchrun(args, scratch: Path, timeout=300):
+    """``python -m torch.distributed.run --standalone --nproc-per-node 1 -m
+    critic_vae_tpu_torch ARGS`` in ``scratch``: (exit code, stdout lines,
+    stderr, seconds)."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node", "1",
+           "-m", "critic_vae_tpu_torch", *args]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=timeout, cwd=scratch,
+                          env=env)
+    lines = [ln for ln in proc.stdout.replace("\r", "\n").splitlines() if ln.strip()]
+    return proc.returncode, lines, proc.stderr, time.perf_counter() - t0
+
+
+def _step_windows(dev, runs: dict, data, rng) -> dict:
+    """Each of ``runs`` (name -> ``run(idx) -> (K,) losses``) timed as
+    PTRAIN_WINDOWS windows of TRAIN_CHUNK steps at batch 128, the variants in
+    turn a window, after a warm-up each; then one torch.profiler run of 10
+    steps each: ms a step (median), launches a step, the NCCL kernels'
+    share of the device time, the idle share against the timed median, and
+    the host time of the collectives a step (the c10d calls and the
+    reductions' autograd nodes, from a CPU profile of 10 more steps)."""
+    import numpy as np
+    import torch
+
+    def idx(k):
+        return torch.from_numpy(np.stack([rng.permutation(len(data))[:TRAIN_BATCH]
+                                          for _ in range(k)]).astype(np.int32)).to(dev)
+
+    out = {name: {"window_ms": []} for name in runs}
+    with no_tf32():
+        for run in runs.values():
+            run(idx(10))
+        for _ in range(PTRAIN_WINDOWS):
+            for name, run in runs.items():
+                w = idx(TRAIN_CHUNK)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                run(w)
+                torch.cuda.synchronize()
+                out[name]["window_ms"].append(1e3 * (time.perf_counter() - t0) / TRAIN_CHUNK)
+        for name, run in runs.items():
+            w = idx(10)
+            torch.cuda.synchronize()
+            with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+                run(w)
+                torch.cuda.synchronize()
+            events = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+            with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as host:
+                run(w)
+                torch.cuda.synchronize()
+            comm_us = sum(e.self_cpu_time_total for e in host.key_averages()
+                          if e.key in COLLECTIVE_HOST_OPS)
+            kernel_ms = sum(e.self_device_time_total for e in events) / 1e3
+            nccl_ms = sum(e.self_device_time_total for e in events
+                          if "nccl" in e.key.lower()) / 1e3
+            r = out[name]
+            r["step_ms"] = float(np.median(r["window_ms"]))
+            r["launches"] = sum(e.count for e in events) / 10
+            r["nccl_launches"] = sum(e.count for e in events if "nccl" in e.key.lower()) / 10
+            r["kernel_ms"] = kernel_ms / 10
+            r["nccl_share"] = nccl_ms / kernel_ms
+            r["idle"] = max(0.0, 1.0 - kernel_ms / 10 / r["step_ms"])
+            r["comm_host_ms"] = comm_us / 1e3 / 10
+    return out
+
+
+def phase_parallel_train(dev, critic, smi: str, scratch: Path):
+    """30: data-parallel training at full width (critic-synthetic,
+    ``numpy_vae_params(0)``, batch 128, float32, TF32 off, cuDNN
+    deterministic for the parity parts). (a) a one-rank NCCL mesh in this
+    process: 3 steps of ``make_multi_step`` with and without it from the
+    same state and draws (losses within 1e-6 relative, parameters within
+    0.25 lr, the encoder's conv biases 2 lr a step), ``make_sharded_multi_step``
+    at D = 1 (bitwise the meshed replicated loop on the same rows), and 4
+    alternating windows of 50 steps each way (ms a step, launches, the NCCL
+    share, idle). (b) two spawned ranks on this card over gloo: 3 steps of
+    the replicated and of the sharded loop (64 rows a rank) against (a)'s
+    one-process steps on the equivalent global rows (losses within 1e-5
+    relative, kld 5e-5: phase 23's bars), both ranks' states bitwise
+    equal. (c) ``train`` (twice,
+    resuming), ``dataset`` and ``second`` under ``torch.distributed.run
+    --nproc-per-node 1`` (NCCL)."""
+    import numpy as np
+    import torch
+
+    from critic_vae_tpu_torch.io import checkpoint as ckpt_io
+    from critic_vae_tpu_torch.parallel.distributed import init_distributed
+    from critic_vae_tpu_torch.parallel.mesh import make_mesh
+    from critic_vae_tpu_torch.train.step import make_multi_step, state_tree
+
+    t_phase = time.perf_counter()
+    data, repl, local, global_sh, eps = _ptrain_inputs()
+
+    def rel(got, want):  # each loss's largest relative error over the steps
+        return {k: float(np.max(np.abs(got[k].astype(np.float64) / want[k] - 1))) for k in want}
+
+    def show(errs):
+        return ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+
+    # (b) first, so the two ranks run while (a) runs here
+    bdir = scratch / "ranks"
+    bdir.mkdir()
+    address = f"127.0.0.1:{_free_port()}"
+    code = (f"import sys; sys.path.insert(0, {str(ROOT)!r}); import chip_smoke; "
+            "chip_smoke.parallel_train_rank(int(sys.argv[1]), sys.argv[2], sys.argv[3])")
+    t_b = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, "-c", code, str(r), str(bdir), address],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                              cwd=scratch) for r in range(2)]
+    try:
+        # (a) the one-process references and a one-rank NCCL mesh in this process
+        plain, plain_state = _ptrain_run(dev, critic, None, data, repl, eps)
+        plain_sh, _ = _ptrain_run(dev, critic, None, data, global_sh, eps)
+        require(not torch.distributed.is_initialized(), "a process group exists before phase 30")
+        init_distributed(f"127.0.0.1:{_free_port()}", num_processes=1, process_id=0,
+                         device="cuda")
+        try:
+            mesh = make_mesh(1, dev)
+            require(mesh.group is not None and torch.distributed.get_backend() == "nccl",
+                    "no NCCL group")
+            meshed, mesh_state = _ptrain_run(dev, critic, mesh, data, repl, eps)
+            sh1, _ = _ptrain_run(dev, critic, mesh, data, repl, eps, sharded=True)
+            a, b = state_tree(plain_state)["params"], state_tree(mesh_state)["params"]
+            bias = {f"encoder.convs.{i}.bias" for i in range(4)}
+            p_err = max(float(np.abs(a[k] - b[k]).max()) for k in a if k not in bias) / 5e-5
+            b_err = max(float(np.abs(a[k] - b[k]).max()) for k in bias) / 5e-5
+            bitwise = all(np.array_equal(meshed[k], plain[k]) for k in plain)
+            sh_same = all(np.array_equal(sh1[k], meshed[k]) for k in meshed)
+            log(f"[30 parallel train a] 3 f32 steps, batch {TRAIN_BATCH}, one-rank NCCL mesh "
+                f"against none: losses within {show(rel(meshed, plain))} relative (bar "
+                f"{PTRAIN_MESH_REL:g}; bitwise {bitwise}); parameters within "
+                f"{p_err:.4f} lr (bar 0.25), the encoder's conv biases {b_err:.4f} lr (bar "
+                f"{2 * PTRAIN_STEPS}); make_sharded_multi_step at D = 1 bitwise the meshed "
+                f"loop on the same rows: {sh_same}; total_loss "
+                f"{[round(float(v), 6) for v in meshed['total_loss']]}")
+            require(max(rel(meshed, plain).values()) <= PTRAIN_MESH_REL and p_err <= 0.25
+                    and b_err <= 2 * PTRAIN_STEPS and sh_same
+                    and all(np.isfinite(v).all() for v in meshed.values()),
+                    "the one-rank mesh's steps differ")
+            del plain_state, mesh_state
+            # the ranks share the card: they end before anything is timed
+            outs = [pr.communicate(timeout=600)[0] for pr in procs]
+            secs_b = time.perf_counter() - t_b
+
+            from critic_vae_tpu_torch.io import weights
+            from critic_vae_tpu_torch.train.step import init_train_state
+
+            states = {k: init_train_state(*weights.numpy_vae_params(0), device=dev)
+                      for k in ("plain", "mesh")}
+            steps = {"plain": make_multi_step(critic), "mesh": make_multi_step(critic, mesh=mesh)}
+            data_dev = torch.from_numpy(data).to(dev)
+            t = _step_windows(dev, {k: (lambda idx, k=k: steps[k](states[k], data_dev, idx)
+                                        ["total_loss"]) for k in steps},
+                              data, np.random.default_rng(31))
+            del states, steps, data_dev
+        finally:
+            torch.distributed.destroy_process_group()
+        m, p = t["mesh"], t["plain"]
+        for key, r in (("plain", p), ("mesh", m)):
+            log(f"[30 parallel train a] {key}: ms a step {[round(v, 3) for v in r['window_ms']]}, "
+                f"median {r['step_ms']:.3f}; {r['kernel_ms']:.3f} ms of kernels a step in "
+                f"{r['launches']:.0f} launches ({r['nccl_launches']:.0f} NCCL, "
+                f"{r['nccl_share']:.2%} of the device time); device idle {r['idle']:.1%}; the "
+                f"collectives' host time {r['comm_host_ms']:.3f} ms a step under the profiler")
+        log(f"[30 parallel train a] mesh/plain {m['step_ms'] / p['step_ms']:.4f} (medians); "
+            f"the mesh adds {m['launches'] - p['launches']:.0f} launches a step; {smi}")
+    finally:
+        for pr in procs:
+            pr.kill()
+    for r, (pr, out) in enumerate(zip(procs, outs)):
+        require(pr.returncode == 0, f"phase 30 rank {r} failed:\n{out[-3000:]}")
+    ranks = [dict(np.load(bdir / f"rank{r}.npz")) for r in range(2)]
+    for name, want in (("repl", plain), ("shard", plain_sh)):
+        got = [{k: g[f"{name}/{k}"] for k in want} for g in ranks]
+        errs = {k: max(rel(g, want)[k] for g in got) for k in want}
+        equal = [bool(g[f"{name}/equal"]) for g in ranks]
+        log(f"[30 parallel train b] two gloo ranks on one card, {name} loop "
+            f"({TRAIN_BATCH // 2} rows a rank): losses within {show(errs)} relative of one "
+            f"process on the same global rows (phase 23's bars {TRAIN_LOSS_REL}); the ranks' "
+            f"{int(ranks[0][f'{name}/values'])} state values bitwise equal by fetch: {equal}")
+        require(all(v <= TRAIN_LOSS_REL[k] for k, v in errs.items()) and all(equal),
+                f"two ranks' {name} loop differs")
+    log(f"[30 parallel train b] the two ranks' processes took {secs_b:.1f} s")
+
+    # (c) the commands under the launcher, one NCCL rank
+    root = scratch / "root_ptrain"
+    root.mkdir()
+    train_args = ["train", "--device", "cuda", "--source", "synthetic:1:1024", "--epochs", "1",
+                  "--batch-size", str(TRAIN_BATCH), "--root", str(root), "--log-dir",
+                  str(root / "logs")]
+    for label, args in (("train", train_args), ("train again", train_args),
+                        ("dataset", ["dataset", "--device", "cuda", "--source",
+                                     "synthetic:1:1024", "--root", str(root)]),
+                        ("second", ["second", "--device", "cuda", "--epochs", "1",
+                                    "--batch-size", str(TRAIN_BATCH), "--root", str(root)])):
+        rc, lines, err, secs = _torchrun(args, scratch)
+        shown = lines if len(lines) <= 5 else lines[:3] + ["..."] + lines[-2:]
+        log(f"[30 parallel train c] torch.distributed.run --nproc-per-node 1 {label}: exit {rc} "
+            f"in {secs:.1f} s; " + " | ".join(shown))
+        require(rc == 0 and lines[0] == "multi-host: 1 processes, 1 devices",
+                f"torchrun {label} failed: {err[-3000:]}")
+        if label == "train":
+            ckpts = sorted(p.name for p in (root / "checkpoints").iterdir())
+            events = sorted(p.name.split(".")[0] for p in (root / "logs").iterdir())
+            arts = sorted(p.name for p in (root / "saved-networks").iterdir())
+            log(f"[30 parallel train c] checkpoints {ckpts}; logs {events}; artifacts {arts}")
+            require(len(ckpts) == 2 and events == ["events", "metrics"]
+                    and arts == ["vae_decoder.ckpt", "vae_encoder.ckpt"],
+                    "train under the launcher wrote other files")
+            first = ckpt_io.latest_checkpoint(str(root / "checkpoints"))
+        if label == "train again":
+            require(any(ln.startswith("resumed from") for ln in lines)
+                    and ckpt_io.latest_checkpoint(str(root / "checkpoints"))[1] == first[1],
+                    "the second train did not resume")
+    require((root / "vae2_encoder.ckpt").is_file(), "second wrote no artifacts")
+    log(f"[30 parallel train] phase 30 took {time.perf_counter() - t_phase:.1f} s; {smi}")
+    return t
 
 
 def b1_bound(itemsize: int) -> dict:
@@ -2693,7 +3034,7 @@ def main(argv=None) -> int:
     ap.add_argument("--train-only", action="store_true",
                     help="run only the card's identity, the build and phases 23-24")
     ap.add_argument("--parallel-only", action="store_true",
-                    help="run only the card's identity, the build and phase 29")
+                    help="run only the card's identity, the build and phases 29-30")
     ap.add_argument("--port", type=Path, default=ROOT,
                     help="directory holding the critic_vae_tpu_torch package to drive "
                          "(default: this script's; the goldens are always this script's)")
@@ -2729,8 +3070,11 @@ def main(argv=None) -> int:
 
         smi = phase_identity()
         phase_build()
+        critic, vae = synthetic_models(dev)
         with tempfile.TemporaryDirectory() as scratch:
-            phase_parallel(dev, *synthetic_models(dev), smi, Path(scratch))
+            phase_parallel(dev, critic, vae, smi, Path(scratch))
+        with tempfile.TemporaryDirectory() as scratch:
+            phase_parallel_train(dev, critic, smi, Path(scratch))
         return 0
     if args.train_only:
         from critic_vae_tpu_torch.io.weights import synthetic_models
@@ -2784,6 +3128,8 @@ def main(argv=None) -> int:
         phase_data_export(dev, critic, smi, Path(scratch))
     with tempfile.TemporaryDirectory() as scratch:
         lp = phase_parallel(dev, critic, vae, smi, Path(scratch))
+    with tempfile.TemporaryDirectory() as scratch:
+        phase_parallel_train(dev, critic, smi, Path(scratch))
     launches = {k: launches[k] + lq[k] + ls[k] + ld[k] + le[k] + lm[k] + lp[k]
                 for k in launches}
     b1 = {**b1, "max_abs_err": max(b1["max_abs_err"], b1_eval_err)}

@@ -12,8 +12,12 @@ which ``eval``, ``inject`` and ``video`` read. It starts from
 ``numpy_vae_params(--seed)``, not the JAX package's threefry draw.
 ``--mask-distill W`` first builds pseudo-label masks of the collected
 frames (pipelines/distill.py: LayerCAM + the CAM-tuned CRF) and trains with
-the soft-Dice term at weight W; ``--no-shard-dataset`` has no effect on one
-card.
+the soft-Dice term at weight W. Over more than one rank it trains
+data-parallel (pipelines/train.py): the dataset is sharded over the ranks
+when they divide its frames and the batch, and ``--no-shard-dataset``
+replicates it on every rank instead, which also changes the shuffle stream
+(one global permutation an epoch, not one a shard) and is recorded in the
+resume meta.
 
 ``traincritic`` trains a critic on ``--episodes`` (X.npy + Y.npy episode
 dirs; labels from the masks) or ``--synthetic-frames`` synthetic frames,
@@ -80,8 +84,10 @@ with ``--device cpu``), and the primary prints ``multi-host: N processes, N
 devices``. Every rank computes; only rank 0 writes files and prints
 results. ``video --num-devices N`` shards the device stage and the device
 CRF over an N-rank mesh (0: every rank; parallel/mesh.py, one device a
-rank, so N must be the number of ranks). ``train`` and ``second`` refuse to
-run on more than one rank (exit 1): data-parallel training is not ported.
+rank, so N must be the number of ranks). ``train`` and ``second`` train
+data-parallel over every rank, with the global batch's BatchNorm and
+losses (train/step.py); every rank collects the same training set (and
+builds the same pseudo masks) from the same source.
 
 ``--quality`` expands into the JAX package's measured-best chain (LayerCAM,
 {id, mirror} x {0, +-2 px} TTA, the CAM-tuned CRF, threshold 64), a flag set
@@ -312,8 +318,9 @@ def _add_train(sub) -> None:
                    "frozen critic (LayerCAM + CAM-tuned CRF, pipelines/distill.py) and a "
                    "soft-Dice loss pushing the recon-diff signal into them; 0 = off")
     t.add_argument("--no-shard-dataset", action="store_true",
-                   help="accepted for the JAX package's command line; one card holds "
-                   "the whole dataset")
+                   help="replicate the device-resident dataset on every rank instead of "
+                   "sharding it over the ranks (sharding is automatic when dataset and "
+                   "batch divide by the number of ranks); changes the shuffle stream")
     t.add_argument("--film", action="store_true",
                    help="zero-initialised FiLM (gamma, beta) per decoder stage from the "
                    "critic value")
@@ -566,21 +573,6 @@ def cmd_video(args) -> int:
     return 0
 
 
-def _single_process(command: str) -> bool:
-    """False, after one line from the primary, when more than one rank runs:
-    ``command`` trains, and data-parallel training is not ported, so no rank
-    may train alone on a copy of the data."""
-    from critic_vae_tpu_torch.parallel.distributed import world_size
-
-    world = world_size()
-    if world == 1:
-        return True
-    if _primary():
-        print(f"error: {command} on {world} ranks: data-parallel training is not ported; "
-              f"run {command} in one process", file=sys.stderr)
-    return False
-
-
 def cmd_train(args) -> int:
     import time
 
@@ -590,21 +582,23 @@ def cmd_train(args) -> int:
     from critic_vae_tpu_torch.io import weights
     from critic_vae_tpu_torch.pipelines.train import save_final_weights, train
 
-    if not _single_process("train"):
-        return 1
     device = resolve_device(args.device)
     cfg = _cfg(args)
+    pri = _primary()  # every rank collects the same set and trains; only the primary writes
     critic = weights.critic_from_params(weights.load_critic(args.critic)).to(device)
-    print(f"collecting balanced training frames from {args.source!r}...")
-    dset = balanced_critic_sampler(open_source(args.source), critic,
-                                   total_images=args.total_images, device=device,
-                                   progress=lambda n: print(f"total images = {n}", end="\r"))
-    print(f"\ncollected {len(dset)} frames")
+    if pri:
+        print(f"collecting balanced training frames from {args.source!r}...")
+    dset = balanced_critic_sampler(
+        open_source(args.source), critic, total_images=args.total_images, device=device,
+        progress=(lambda n: print(f"total images = {n}", end="\r")) if pri else None)
+    if pri:
+        print(f"\ncollected {len(dset)} frames")
     pseudo_masks = None
     if args.mask_distill > 0.0:
         from critic_vae_tpu_torch.pipelines.distill import build_pseudo_masks
 
-        print("building pseudo-label masks (LayerCAM + CAM-tuned CRF)...")
+        if pri:
+            print("building pseudo-label masks (LayerCAM + CAM-tuned CRF)...")
         pseudo_masks = build_pseudo_masks(critic, dset, device=device)
     log_dir = args.log_dir or str(cfg.paths.resolve(f"logs/vae{str(time.time())[-5:]}"))
     state = train(critic, dset, epochs=args.epochs, batch_size=args.batch_size,
@@ -612,12 +606,14 @@ def cmd_train(args) -> int:
                   faithful_msssim=not args.correct_msssim, compute_dtype=args.dtype,
                   seed=args.seed, value_consistency=args.value_consistency,
                   mask_distill=args.mask_distill, pseudo_masks=pseudo_masks, film=args.film,
+                  shard_dataset=False if args.no_shard_dataset else "auto",
                   log_dir=log_dir, checkpoint_dir=str(cfg.paths.resolve("checkpoints")),
                   resume=not args.no_resume, log_images=args.log_images, device=device)
-    enc = str(cfg.paths.resolve(cfg.paths.encoder_path))
-    dec = str(cfg.paths.resolve(cfg.paths.decoder_path))
-    save_final_weights(state, enc, dec)
-    print(f"saved {enc} and {dec}")
+    if pri:  # the state is equal on every rank
+        enc = str(cfg.paths.resolve(cfg.paths.encoder_path))
+        dec = str(cfg.paths.resolve(cfg.paths.decoder_path))
+        save_final_weights(state, enc, dec)
+        print(f"saved {enc} and {dec}")
     return 0
 
 
@@ -692,21 +688,22 @@ def cmd_second(args) -> int:
     from critic_vae_tpu_torch.pipelines.dataset import load_dataset
     from critic_vae_tpu_torch.pipelines.train import save_final_weights, train
 
-    if not _single_process("second"):
-        return 1
     device = resolve_device(args.device)
     cfg = _cfg(args)
+    pri = _primary()  # every rank trains, only the primary writes
     critic = weights.critic_from_params(weights.load_critic(args.critic))
     path = args.dataset_path or str(cfg.paths.resolve(cfg.paths.save_dataset_path))
-    print("training second vae...")
+    if pri:
+        print("training second vae...")
     state = train(critic, load_dataset(path), epochs=args.epochs, batch_size=args.batch_size,
                   learning_rate=args.lr, faithful_msssim=not args.correct_msssim,
                   seed=args.seed, log_dir=None, checkpoint_dir=None, resume=False,
                   device=device)
-    enc = str(cfg.paths.resolve(cfg.paths.second_encoder_path))
-    dec = str(cfg.paths.resolve(cfg.paths.second_decoder_path))
-    save_final_weights(state, enc, dec)
-    print(f"saved {enc} and {dec}")
+    if pri:
+        enc = str(cfg.paths.resolve(cfg.paths.second_encoder_path))
+        dec = str(cfg.paths.resolve(cfg.paths.second_decoder_path))
+        save_final_weights(state, enc, dec)
+        print(f"saved {enc} and {dec}")
     return 0
 
 

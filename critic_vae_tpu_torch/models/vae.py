@@ -30,7 +30,11 @@ and W, normalised with the biased variance) and returns the new running
 stats (momentum 0.1, the unbiased variance) beside (mu, logvar) instead of
 writing them into the module: the train step commits them only when every
 gradient is finite, as the JAX step does. The serving options stay
-eval-only there, as in the JAX ``encode``.
+eval-only there, as in the JAX ``encode``. With ``mesh=`` (a data-parallel
+mesh of ranks, parallel/mesh.py) the statistics are the global batch's,
+as the JAX package's mean over axis 0 of a sharded batch: the float32 mean
+and biased variance of the global batch, combined from the ranks' own, and
+the running stats count the global n.
 """
 
 from __future__ import annotations
@@ -42,6 +46,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from critic_vae_tpu_torch.models.critic import conv, linear
+from critic_vae_tpu_torch.parallel.mesh import global_mean, grouped, shard_batch
 from critic_vae_tpu_torch.ops.poolconv import conv_pool2_phases, s2d_conv_pool2_phases
 from critic_vae_tpu_torch.ops.upconv import phase_weight, upsample2_conv5
 
@@ -76,19 +81,32 @@ def batchnorm_eval(bn: nn.BatchNorm2d, x: torch.Tensor,
     return (y + bn.bias[:, None, None]).to(x.dtype)
 
 
-def batchnorm_train(bn: nn.BatchNorm2d, x: torch.Tensor, bias: torch.Tensor | None = None):
+def batchnorm_train(bn: nn.BatchNorm2d, x: torch.Tensor, bias: torch.Tensor | None = None,
+                    mesh=None):
     """Train-mode BatchNorm of the JAX ``_batchnorm(train=True)`` over NCHW
     ``x`` (``bias`` as in :func:`batchnorm_eval`): the batch's float32 mean
     and biased variance over N, H and W normalise x, which is cast back to
     its dtype. Returns (y, (new_mean, new_var)): the running stats moved by
     momentum 0.1 toward the batch mean and the unbiased variance (n/(n−1)),
-    detached, and not written into ``bn``."""
+    detached, and not written into ``bn``. With a grouped ``mesh`` the
+    batch is the global one, each rank's ``x`` an equal share of it: the
+    global mean is the mean of the ranks' means, then the global variance
+    the mean over ranks of each rank's variance about its own mean plus its
+    mean's squared distance from the global one (the exact combination for
+    equal counts, with no E[x²] − E[x]² cancellation), and n counts every
+    rank's rows. On one rank both extra terms are exactly 0, so a one-rank
+    mesh computes what one process computes."""
     xf = x.float()
     if bias is not None:
         xf = xf + bias.to(x.dtype).float()[:, None, None]
+    n = xf.numel() // xf.shape[1]
     mean = xf.mean(dim=(0, 2, 3))
     var = xf.var(dim=(0, 2, 3), unbiased=False)
-    n = xf.numel() // xf.shape[1]
+    if grouped(mesh):
+        local_mean = mean
+        mean = global_mean(mesh, local_mean)
+        var = global_mean(mesh, var + (local_mean - mean) ** 2)
+        n *= mesh.size
     with torch.no_grad():
         new_mean = (1 - BN_MOMENTUM) * bn.running_mean + BN_MOMENTUM * mean
         new_var = (1 - BN_MOMENTUM) * bn.running_var + BN_MOMENTUM * var * (n / max(n - 1, 1))
@@ -131,10 +149,12 @@ class Encoder(nn.Module):
     def forward(self, x: torch.Tensor, *, fused_pool: bool | tuple = False,
                 fold_bn: bool = False, pool_impl: str = "reduce_window",
                 block0_f32: bool = False, start_block: int = 0,
-                downstream_dtype: torch.dtype | None = None, train: bool = False):
+                downstream_dtype: torch.dtype | None = None, train: bool = False, mesh=None):
         """x (B, 3, 64, 64) -> (mu, logvar), each (B, latent); with ``train``
         (mu, logvar, stats), ``stats`` a (new_mean, new_var) per block (a
-        skipped block's running stats as they are).
+        skipped block's running stats as they are). ``mesh``: train-mode
+        BatchNorm over the global batch of its ranks (:func:`batchnorm_train`);
+        eval mode needs no collective.
 
         ``fused_pool``: ``True`` is :data:`FUSED_POOL_SERVING`; a 4-tuple
         picks per block ``False``, ``True`` (phase-packed stride-2 conv) or
@@ -160,7 +180,7 @@ class Encoder(nn.Module):
         def norm(bn, y, bias=None):
             if not train:
                 return batchnorm_eval(bn, y, bias)
-            y, new = batchnorm_train(bn, y, bias)
+            y, new = batchnorm_train(bn, y, bias, mesh)
             stats.append(new)
             return y
 
@@ -278,11 +298,21 @@ class VAE(nn.Module):
         return self.decoder(z, value, apply_tanh, fused)
 
     def vae_apply(self, x: torch.Tensor, value: torch.Tensor, *,
-                  eps: torch.Tensor | None = None, generator: torch.Generator | None = None):
+                  eps: torch.Tensor | None = None, generator: torch.Generator | None = None,
+                  mesh=None):
         """The stochastic forward of training (reference: vae_nets.py:14-19):
         (recon, mu, logvar, stats), ``stats`` the new running stats of the
-        train-mode encode; ``eps`` and ``generator`` as :func:`reparametrize`."""
-        mu, logvar, stats = self.encode(x, train=True)
+        train-mode encode; ``eps`` and ``generator`` as :func:`reparametrize`.
+        With a grouped ``mesh`` x is this rank's share of the global batch:
+        BatchNorm takes the global statistics, and without ``eps`` the rank
+        draws the global batch's noise and takes its rows, so each frame
+        gets one process's draw and the generator moves alike on every
+        rank."""
+        mu, logvar, stats = self.encode(x, train=True, mesh=mesh)
+        if eps is None and grouped(mesh):
+            eps = shard_batch(mesh, torch.randn((mu.shape[0] * mesh.size, mu.shape[1]),
+                                                generator=generator, device=mu.device,
+                                                dtype=torch.float32))
         z = reparametrize(mu, logvar, eps, generator)
         return self.decode(z, value), mu, logvar, stats
 

@@ -28,6 +28,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from critic_vae_tpu_torch.parallel.mesh import global_mean, grouped
+
 WINDOW_SIZE = 11
 SIGMA = 1.5
 WEIGHTS = (0.0448, 0.2856, 0.3001, 0.2363, 0.1333)
@@ -76,13 +78,20 @@ def st_floor(x: torch.Tensor, eps: float = FLOOR) -> torch.Tensor:
     return x + (torch.clamp_min(x, eps) - x).detach()
 
 
-def msssim_loss(img1: torch.Tensor, img2: torch.Tensor, *, faithful: bool = True) -> torch.Tensor:
+def msssim_loss(img1: torch.Tensor, img2: torch.Tensor, *, faithful: bool = True,
+                mesh=None) -> torch.Tensor:
     """1 − MS-SSIM over 5 scales of NCHW images (reference: vae_nets.py:217-247).
 
     Each scale's SSIM and CS are floored at 1e-4 before the fractional powers
     (:func:`st_floor`). They can go negative early in training, where
     ``x**0.28`` is NaN; the floor changes values only where the reference's
-    objective is NaN."""
+    objective is NaN.
+
+    Each scale's SSIM and CS are means over the whole batch, so with a
+    grouped ``mesh`` (parallel/mesh.py; the images this rank's equal share
+    of the global batch) the 10 means are taken over the global batch, in
+    one reduction, before the floor and the powers: the loss of the global
+    batch on every rank, not a mean of the ranks' losses."""
     k = torch.from_numpy(window_1d(faithful)).to(device=img1.device, dtype=img1.dtype)
     weights = torch.tensor(WEIGHTS, dtype=img1.dtype, device=img1.device)
     mssim, mcs = [], []
@@ -92,6 +101,8 @@ def msssim_loss(img1: torch.Tensor, img2: torch.Tensor, *, faithful: bool = True
         mcs.append(cs)
         img1, img2 = F.avg_pool2d(img1, 2), F.avg_pool2d(img2, 2)
     mssim, mcs = torch.stack(mssim), torch.stack(mcs)
+    if grouped(mesh):
+        mssim, mcs = global_mean(mesh, torch.stack([mssim, mcs])).unbind()
     mssim, mcs = st_floor(mssim), st_floor(mcs)
     pow1 = mcs**weights
     pow2 = mssim**weights

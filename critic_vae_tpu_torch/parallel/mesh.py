@@ -9,6 +9,19 @@ identity; and :func:`fetch` all-gathers the rows so that every rank holds
 the whole value, as the JAX package's ``process_allgather(tiled=True)``.
 The serving path needs no other collective: its frames are independent.
 
+Training keeps the JAX mesh step's global-batch meaning, which XLA gives
+the JAX package for free, with two reductions. :func:`global_mean` turns
+per-rank means of equal counts into the global batch's (BatchNorm's
+statistics, each MS-SSIM scale's SSIM and CS, KLD, the value-consistency
+BCE, the soft Dice); it is an all-reduce SUM that autograd follows, and its
+backward is an all-reduce SUM of the incoming gradients, so the
+cross-rank terms of the gradient are kept. Each rank then backpropagates
+the (replicated) loss over the number of ranks, and :func:`sum_gradients`
+sums the parameter gradients over ranks in one flat bucket: the sum is the
+global loss's gradient. On gloo the values go through the host, as
+:func:`fetch`'s do; on NCCL they stay on the card. A mesh without a group
+runs no collective and leaves every value as it is.
+
 Deviation from the JAX package: a mesh spans every rank. ``make_mesh(N)``
 with N below the number of ranks raises instead of leaving ranks idle,
 since a rank outside the mesh would have no device stage to run.
@@ -17,7 +30,7 @@ since a rank outside the mesh would have no device stage to run.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Optional
+from typing import Any, List, Optional
 
 import torch
 import torch.distributed as dist
@@ -48,8 +61,8 @@ def make_mesh(num_devices: int = 0, device="cuda") -> Mesh:
     package's ValueError, fewer raise too (the module's note)."""
     from critic_vae_tpu_torch.device import resolve_device
 
-    grouped = dist.is_initialized()
-    world = dist.get_world_size() if grouped else 1
+    has_group = dist.is_initialized()
+    world = dist.get_world_size() if has_group else 1
     if num_devices and world < num_devices:
         raise ValueError(
             f"requested a {num_devices}-device mesh but only {world} rank(s) are "
@@ -63,11 +76,12 @@ def make_mesh(num_devices: int = 0, device="cuda") -> Mesh:
             f"every rank (one device a rank); pass --num-devices {world} or 0, or launch "
             f"{num_devices} processes"
         )
-    return Mesh(device=resolve_device(device), rank=dist.get_rank() if grouped else 0,
-                size=world, group=dist.group.WORLD if grouped else None)
+    return Mesh(device=resolve_device(device), rank=dist.get_rank() if has_group else 0,
+                size=world, group=dist.group.WORLD if has_group else None)
 
 
-def _rows(mesh: Mesh, n: int) -> slice:
+def row_slice(mesh: Mesh, n: int) -> slice:
+    """This rank's contiguous block of a batch of ``n`` rows."""
     if n % mesh.size:
         raise ValueError(f"a batch of {n} rows does not split over {mesh.size} ranks")
     k = n // mesh.size
@@ -77,12 +91,12 @@ def _rows(mesh: Mesh, n: int) -> slice:
 def shard_batch(mesh: Mesh, x):
     """This rank's contiguous block of rows of ``x`` (a batch that divides
     by ``mesh.size``)."""
-    return x[_rows(mesh, x.shape[0])]
+    return x[row_slice(mesh, x.shape[0])]
 
 
 def row_offset(mesh: Mesh, n: int) -> int:
     """The index of this rank's first row in a batch of ``n`` rows."""
-    return _rows(mesh, n).start
+    return row_slice(mesh, n).start
 
 
 def replicate(mesh: Mesh, tree: Any) -> Any:
@@ -109,3 +123,57 @@ def fetch(mesh: Mesh, x: torch.Tensor) -> torch.Tensor:
     if wire is not src:
         out = out.view(src.dtype)
     return out.to(x.device)
+
+
+def grouped(mesh: Optional[Mesh]) -> bool:
+    """Whether ``mesh`` runs collectives (it has a process group)."""
+    return mesh is not None and mesh.group is not None
+
+
+def _summed(mesh: Mesh, buf: torch.Tensor) -> torch.Tensor:
+    """The sum over ranks of ``buf``, a contiguous tensor no one else holds,
+    on its device: NCCL sums it in place, gloo a host copy."""
+    if dist.get_backend(mesh.group) == "nccl":
+        dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=mesh.group)
+        return buf
+    host = buf.cpu()
+    dist.all_reduce(host, op=dist.ReduceOp.SUM, group=mesh.group)
+    return host.to(buf.device)
+
+
+def _all_reduce_sum(mesh: Mesh, x: torch.Tensor) -> torch.Tensor:
+    """A new tensor: the sum over ranks of ``x``."""
+    return _summed(mesh, x.detach().clone(memory_format=torch.contiguous_format))
+
+
+class _AllSum(torch.autograd.Function):
+    """The sum over ranks; its backward sums the incoming gradients over
+    ranks (the rule of ``torch.distributed.nn.functional.all_reduce``)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        return _all_reduce_sum(mesh, x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _all_reduce_sum(ctx.mesh, grad), None
+
+
+def global_mean(mesh: Optional[Mesh], x: torch.Tensor) -> torch.Tensor:
+    """The mean over ranks of ``x``, each rank's mean of an equal share of
+    the global batch: the global batch's mean, on every rank. Autograd
+    follows it (the module's note). Without a group, ``x`` itself."""
+    if not grouped(mesh):
+        return x
+    return _AllSum.apply(x, mesh) / mesh.size
+
+
+def sum_gradients(mesh: Optional[Mesh], grads: List[torch.Tensor]) -> List[torch.Tensor]:
+    """The gradients summed over ranks by one all-reduce of one flat bucket,
+    as contiguous views of it in ``grads``' shapes. Without a group,
+    ``grads`` itself."""
+    if not grouped(mesh):
+        return grads
+    flat = _summed(mesh, torch.cat([g.reshape(-1) for g in grads]))
+    return [part.view_as(g) for part, g in zip(flat.split([g.numel() for g in grads]), grads)]

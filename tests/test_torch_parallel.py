@@ -3,8 +3,9 @@ meshed serving path: ``init_distributed``'s detection, ``make_mesh``'s
 errors, ``fetch``, and two gloo ranks on the CPU running ``eval_episode``
 (the diff source with the device CRF's ``xla`` build, the SmoothGrad
 source), ``threshold_sweep``'s device path, ``refine_masks_device``,
-``crf_param_search`` and the command line's rank guards, against one
-process and against the JAX package's meshed ``eval_episode``.
+``crf_param_search``, ``train``/``dataset``/``second`` and the command
+line's rank guards, against one process and against the JAX package's
+meshed ``eval_episode``.
 
 The two ranks split each chunk of 4 frames into rows of 2. oneDNN's CPU
 convs choose their blocking by batch size, which moves a float32 sum by
@@ -106,8 +107,16 @@ def rank_main(rank: int, outdir: str, address: str) -> None:
     assert torch.equal(pmesh.shard_batch(mesh, torch.arange(6)), torch.arange(3) + 3 * rank)
     np.savez(os.path.join(outdir, f"rank{rank}.npz"), **_cases(mesh))
     logs = {}
-    for command in ("train", "second"):
-        logs[command] = _command([command, "--device", "cpu", "--root", outdir])
+    # train, then the second VAE on its reconstructions, data-parallel at full
+    # width on 15 frames (synthetic:1:16 collects 15; 17 reconstructions):
+    # neither divides over the ranks, so both replicate their dataset
+    train_root = os.path.join(outdir, "train")
+    for command, args in (("train", ["--source", "synthetic:1:16", "--epochs", "1",
+                                     "--batch-size", "4"]),
+                          ("dataset", ["--source", "synthetic:1:16"]),
+                          ("second", ["--epochs", "1", "--batch-size", "4"])):
+        logs[command] = _command([command, *args, "--device", "cpu", "--root", train_root])
+        torch.distributed.barrier()  # the primary's files exist before the next command
     ep = os.path.join(outdir, "ep")
     if rank == 0:
         generate_episode(ep, num_frames=4, seed=6)
@@ -280,18 +289,37 @@ def test_meshed_eval_episode_matches_jax_meshed(ranks):
 
 
 @pytest.mark.parametrize("command", ["train", "second"])
-def test_training_refuses_two_ranks(ranks, command):
-    _, _, logs, _ = ranks
-    for rank, log in enumerate(logs):
-        rc, out, err = log[command]
-        assert rc == 1
-        lines = err.splitlines()
-        if rank == 0:
-            assert out == "multi-host: 2 processes, 2 devices\n"
-            assert lines == [f"error: {command} on 2 ranks: data-parallel training is not "
-                             f"ported; run {command} in one process"]
-        else:
-            assert out == "" and lines == []
+def test_training_runs_on_two_ranks(ranks, command):
+    """``train`` (then ``dataset``) and ``second`` on two ranks: exit 0 on
+    both, the primary alone prints and writes, and the artifacts load in
+    the JAX package's ``load_final_weights``."""
+    from critic_vae_tpu.pipelines.train import load_final_weights
+
+    _, _, logs, outdir = ranks
+    root = outdir / "train"
+    for log in logs:
+        assert log[command][0] == 0 and log["dataset"][0] == 0
+    out0 = logs[0][command][1].replace("\r", "\n").splitlines()
+    assert out0[0] == "multi-host: 2 processes, 2 devices"
+    assert logs[1][command][1] == "" and logs[1]["dataset"][1] == ""
+    replicating = [ln for ln in out0 if ln.startswith("dataset not shardable over 2 devices")]
+    assert replicating and replicating[0].endswith("; replicating")
+    if command == "train":
+        nets = root / "saved-networks"
+        enc, dec = nets / "vae_encoder.ckpt", nets / "vae_decoder.ckpt"
+        assert "collected 15 frames" in out0
+        assert sorted(os.listdir(root / "checkpoints")) == ["ckpt-3.meta.json", "ckpt-3.npz"]
+        (log_dir,) = (root / "logs").iterdir()  # one writer: one events file and one JSONL
+        assert sorted(p.name.split(".")[0] for p in log_dir.iterdir()) == ["events", "metrics"]
+        assert (root / "recon-dataset.npz").is_file()
+    else:
+        enc, dec = root / "vae2_encoder.ckpt", root / "vae2_decoder.ckpt"
+        assert "training second vae..." in out0
+    assert out0[-1] == f"saved {enc} and {dec}"
+    like = weights.numpy_vae_params(0)
+    params, bn_state = load_final_weights(str(enc), str(dec), *like)
+    assert params["decoder"]["conv4"]["w"].shape == (5, 5, 32, 3)
+    assert all(np.isfinite(np.asarray(v)).all() for v in bn_state["bn0"].values())
 
 
 def test_only_the_primary_writes(ranks):
