@@ -912,6 +912,20 @@ def _drive(name, fn, kernels, frames, phase="9 main"):
     return out, launches
 
 
+def _device_ops(prof, cuda_type=False):
+    """The profile's events with device time (with ``cuda_type``, those of
+    CUDA type: a profile that also records the host's operations gives
+    them their kernels' time), largest first. The port's spans
+    (utils/profiling.py::span) also leave device-side ranges in the trace
+    (``is_user_annotation``): they cover their operations rather than add
+    to them, and torch's own table leaves them out of its totals too."""
+    events = [e for e in prof.key_averages() if not e.is_user_annotation
+              and (str(e.device_type).endswith("CUDA") if cuda_type
+                   else e.self_device_time_total > 0)]
+    events.sort(key=lambda e: e.self_device_time_total, reverse=True)
+    return events
+
+
 def _profile(key, fn, top=6, phase="9 main"):
     """One more run of a path under torch.profiler: its largest kernels by
     device time."""
@@ -920,8 +934,7 @@ def _profile(key, fn, top=6, phase="9 main"):
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    events = [e for e in prof.key_averages() if e.self_device_time_total > 0]
-    events.sort(key=lambda e: e.self_device_time_total, reverse=True)
+    events = _device_ops(prof)
     total = sum(e.self_device_time_total for e in events)
     log(f"[{phase} {key}] profile of one more run: {total / 1e3:.3f} ms of kernels")
     for e in events[:top]:
@@ -1084,8 +1097,7 @@ def phase_front_end(dev, critic, vae):
         for _ in range(reps):
             episode_forward(vae, critic, fr, compute_dtype="bfloat16")
         torch.cuda.synchronize()
-    kernels = [e for e in prof.key_averages() if str(e.device_type).endswith("CUDA")]
-    kernels.sort(key=lambda e: e.self_device_time_total, reverse=True)
+    kernels = _device_ops(prof, cuda_type=True)
     total = sum(e.self_device_time_total for e in kernels)
     log(f"[10 front end] profile of the default stage (bf16, chunk {FRONT_FRAMES}): "
         f"{total / reps / 1e3:.4f} ms of kernels per chunk")
@@ -1342,7 +1354,7 @@ def _kernel_ms(fn, reps: int = 3):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    kernels = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+    kernels = _device_ops(prof)
     return (sum(e.self_device_time_total for e in kernels) / reps / 1e3,
             sum(e.count for e in kernels) / reps)
 
@@ -2079,8 +2091,7 @@ def _train_windows(dev, run, rng, frames: int, steps: int, chunk: int, batch: in
             run(prof_idx)
             torch.cuda.synchronize()
             wall = time.perf_counter() - w0
-    events = [e for e in prof.key_averages() if e.self_device_time_total > 0]
-    events.sort(key=lambda e: e.self_device_time_total, reverse=True)
+    events = _device_ops(prof)
     kernel_ms = sum(e.self_device_time_total for e in events) / 1e3
     step_ms = float(np.median(window_ms))
     return {"window_ms": window_ms, "step_ms": step_ms, "losses": losses, "peak_mem": peak_mem,
@@ -2823,7 +2834,7 @@ def _step_windows(dev, runs: dict, data, rng) -> dict:
             with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
                 run(w)
                 torch.cuda.synchronize()
-            events = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+            events = _device_ops(prof)
             with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as host:
                 run(w)
                 torch.cuda.synchronize()

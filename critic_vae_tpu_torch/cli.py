@@ -73,9 +73,15 @@ the JAX package, by ``CRITIC_VAE_TPU_CRF_BUILD``
 Every command takes the JAX package's ``--seed`` (where the JAX package
 only seeds the template its weights load into, it has no effect here) and
 ``--profile DIR``, which ``video`` honours: a ``torch.profiler`` trace of
-its run (the sweep, or the episode), kernels named, under DIR
-(utils/profiling.py). ``--device cpu`` runs on the CPU; the card is the
-default.
+its run (the sweep, or the episode) under DIR (utils/profiling.py), with
+the port's spans: an episode's ``video.episode`` holding ``video.upload``,
+``video.device_stage``, ``video.normalize``, ``video.crf``,
+``video.readback`` and ``video.score``; each device CRF chunk's
+``crf.build`` and ``crf.mean_field``; under ``--num-devices`` the mesh's
+``mesh.all_gather``; and each hand-written kernel's launch under its name
+(``diff_mask``, ``bilateral_build``, ``kernel_i8_build``, ``matvec_i8``,
+``mean_field_resident``). ``--device cpu`` runs on the CPU; the card is
+the default.
 
 Ranks: ``main`` forms the ``torch.distributed`` group first when a launcher
 set one up (parallel/distributed.py: ``python -m torch.distributed.run

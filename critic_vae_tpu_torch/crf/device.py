@@ -51,6 +51,7 @@ import torch
 import torch.nn.functional as F
 
 from critic_vae_tpu_torch.crf import REFERENCE_CRF_PARAMS
+from critic_vae_tpu_torch.utils.profiling import span
 
 _EPS_PROB = 1e-8   # unary clamp, as densecrf.cpp
 _EPS_NORM = 1e-20  # normalizer epsilon, as densecrf.cpp
@@ -198,10 +199,11 @@ def _mean_field_q(mb: torch.Tensor, probs: torch.Tensor, taps: torch.Tensor, w2,
     ns = _spatial_norm(taps, h, w)
     unary = -torch.log(torch.clamp_min(probs, _EPS_PROB))
     q = torch.softmax(-unary, dim=-1)
-    for _ in range(iters):
-        qf = q.reshape(c, n, t * L)
-        msg = _message(mb, qf) + w2 * _spatial_message(qf, ns, taps, h, w)
-        q = torch.softmax(msg.view(c, n, t, L) - unary, dim=-1)
+    with span("crf.mean_field"):
+        for _ in range(iters):
+            qf = q.reshape(c, n, t * L)
+            msg = _message(mb, qf) + w2 * _spatial_message(qf, ns, taps, h, w)
+            q = torch.softmax(msg.view(c, n, t, L) - unary, dim=-1)
     return q
 
 
@@ -261,7 +263,8 @@ def _chunk_mean_field(imgs_u8: torch.Tensor, probs: torch.Tensor, taps: torch.Te
 
     # pallas, and vmem at L != 2 (B5's pair softmax does not apply): B2
     build = build_bilateral_xla if fused == "xla" else build_bilateral
-    mb = build(imgs_u8, w1, alpha, beta, h=h, w=w, out_dtype=compute_dtype)
+    with span("crf.build"):
+        mb = build(imgs_u8, w1, alpha, beta, h=h, w=w, out_dtype=compute_dtype)
     q = _mean_field_q(mb, probs[:, :, None], taps, w2, h, w, iters)[:, :, 0]
     return q if soft else _labels(q)
 
@@ -298,7 +301,8 @@ def _crf_chunk_from_masks(imgs_u8: torch.Tensor, masks_u8: torch.Tensor,
 
     dt = "bfloat16" if fused == "int8" else compute_dtype
     build = build_bilateral_xla if fused == "xla" else build_bilateral
-    mb = build(imgs_u8, w1, alpha, beta, h=h, w=w, out_dtype=dt)
+    with span("crf.build"):
+        mb = build(imgs_u8, w1, alpha, beta, h=h, w=w, out_dtype=dt)
     return _labels(_mean_field_q(mb, probs, taps, w2, h, w, iters)).transpose(1, 2)
 
 

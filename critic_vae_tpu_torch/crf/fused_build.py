@@ -37,6 +37,7 @@ import torch
 
 from critic_vae_tpu_torch.crf.device import _EPS_NORM, _coords
 from critic_vae_tpu_torch.kernels import build as kb
+from critic_vae_tpu_torch.utils.profiling import span
 
 OUT_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 MAX_LAUNCH_FRAMES = 65535  # the kernels put frames on a grid's y or z axis
@@ -140,7 +141,7 @@ def build_bilateral(imgs_u8: torch.Tensor, w1, alpha, beta, *, h: int, w: int,
     dev = imgs_u8.device
     feat, part = build_scratch(c, n, B2_PLANES, dev)
     out = torch.empty((c, n, n), dtype=OUT_DTYPES[out_dtype], device=dev)
-    with torch.cuda.device(dev), kb.launch_span("bilateral_build"):
+    with torch.cuda.device(dev), span("bilateral_build"):
         status = lib.cvt_bilateral_build(
             imgs_u8.data_ptr(), c, n, w, float(w1), float(alpha), float(beta),
             feat.data_ptr(), part.data_ptr(), out.data_ptr(), int(out_dtype == "bfloat16"),
@@ -191,7 +192,7 @@ def build_kernel_i8(imgs_u8: torch.Tensor, alpha, beta, *, h: int, w: int):
     feat = feature_planes(c, n, B2_PLANES, dev)
     k8 = torch.empty((c * n, n), dtype=torch.int8, device=dev)
     rowsum = torch.empty((c * n, 1), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev), kb.launch_span("kernel_i8_build"):
+    with torch.cuda.device(dev), span("kernel_i8_build"):
         status = lib.cvt_kernel_i8_build(
             imgs_u8.data_ptr(), c, n, w, float(alpha), float(beta), feat.data_ptr(),
             k8.data_ptr(), rowsum.data_ptr(), torch.cuda.current_stream().cuda_stream,
@@ -235,7 +236,7 @@ def matvec_i8(k8: torch.Tensor, y: torch.Tensor, *, n: int) -> torch.Tensor:
     cn, lanes = yb.shape
     lib = kb.library()
     out = torch.empty((cn, lanes), dtype=torch.float32, device=k8.device)
-    with torch.cuda.device(k8.device), kb.launch_span("matvec_i8"):
+    with torch.cuda.device(k8.device), span("matvec_i8"):
         status = lib.cvt_matvec_i8(
             k8.data_ptr(), yb.data_ptr(), cn // n, n, lanes, out.data_ptr(),
             torch.cuda.current_stream().cuda_stream,

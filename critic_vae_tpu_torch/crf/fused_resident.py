@@ -42,6 +42,7 @@ from critic_vae_tpu_torch.crf.fused_build import (
     row_sum_slots,
 )
 from critic_vae_tpu_torch.kernels import build as kb
+from critic_vae_tpu_torch.utils.profiling import span
 
 # The JAX kernel keeps the whole (N, N) bf16 matrix in the 128 MiB VMEM of a
 # TPU v5e core, which holds it up to N = 4096 (64x64). The port's workspace
@@ -179,7 +180,7 @@ def mean_field_resident(imgs_u8, probs_pairs, taps, w1, w2, alpha, beta, gamma, 
     ns = _spatial_norm(taps.to(dev), h, w).reshape(-1)
     ws = _workspace(c, n, p, dev)
     lib = kb.library()
-    with torch.cuda.device(dev), kb.launch_span("mean_field_resident"):
+    with torch.cuda.device(dev), span("mean_field_resident"):
         status = lib.cvt_mean_field_resident(
             imgs_u8.data_ptr(), probs.data_ptr(), ns.data_ptr(), c, n, w, p, float(w1),
             float(w2), float(alpha), float(beta), float(gamma), int(iters),

@@ -15,14 +15,13 @@ towards the 1e-20 floor) and the diff maps' tanh — both are parity surfaces
 against the JAX package.
 
 Each kernel wrapper counts its launches in :data:`LAUNCHES`, so a run can
-show that its main path went through the kernels, and while a
-``torch.profiler`` trace is taken it names its launch there
-(:func:`launch_span`).
+show that its main path went through the kernels, and opens a span named
+after the kernel around its launch (utils/profiling.py::span), so a
+``torch.profiler`` trace names each launch.
 """
 
 from __future__ import annotations
 
-import contextlib
 import ctypes
 import hashlib
 import os
@@ -51,17 +50,6 @@ _LIB: ctypes.CDLL | None = None
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
-
-
-def launch_span(name: str):
-    """A ``torch.profiler`` span named ``name`` (the kernel's name in
-    :data:`LAUNCHES`) around a launch while a trace is being taken, so the
-    trace of ``--profile`` names each kernel; nothing otherwise."""
-    import torch
-
-    if torch.autograd._profiler_enabled():
-        return torch.profiler.record_function(name)
-    return contextlib.nullcontext()
 
 
 def sources() -> list[Path]:

@@ -20,6 +20,7 @@ import contextlib
 import torch
 
 from critic_vae_tpu_torch.kernels import build as kb
+from critic_vae_tpu_torch.utils.profiling import span
 
 REC601 = (0.2989, 0.5870, 0.1140)
 
@@ -60,7 +61,7 @@ def diff_mask(pre: torch.Tensor):
     # the raw stream handle skips building a torch.cuda.Stream each call
     on = (contextlib.nullcontext() if index == torch.cuda.current_device()
           else torch.cuda.device(index))
-    with on, kb.launch_span("diff_mask"):
+    with on, span("diff_mask"):
         status = lib.cvt_diff_mask(
             pre.data_ptr(), int(pre.dtype == torch.bfloat16), b2 // 2, h * w,
             grey.data_ptr(), maxv.data_ptr(), torch._C._cuda_getCurrentRawStream(index),

@@ -20,7 +20,10 @@ the (replicated) loss over the number of ranks, and :func:`sum_gradients`
 sums the parameter gradients over ranks in one flat bucket: the sum is the
 global loss's gradient. On gloo the values go through the host, as
 :func:`fetch`'s do; on NCCL they stay on the card. A mesh without a group
-runs no collective and leaves every value as it is.
+runs no collective and leaves every value as it is. :func:`fetch`'s gather
+opens a span (``mesh.all_gather``; utils/profiling.py::span), so a trace of
+a meshed episode shows the time a rank waits on the others apart from the
+transfer.
 
 Deviation from the JAX package: a mesh spans every rank. ``make_mesh(N)``
 with N below the number of ranks raises instead of leaving ranks idle,
@@ -34,6 +37,8 @@ from typing import Any, List, Optional
 
 import torch
 import torch.distributed as dist
+
+from critic_vae_tpu_torch.utils.profiling import span
 
 # what gloo's all_gather takes as it is; other dtypes go as bytes
 _GLOO_DTYPES = (torch.float32, torch.float64, torch.float16, torch.uint8, torch.int8,
@@ -118,7 +123,8 @@ def fetch(mesh: Mesh, x: torch.Tensor) -> torch.Tensor:
     if src.dtype == torch.bool or (not nccl and src.dtype not in _GLOO_DTYPES):
         wire = src.view(torch.uint8)
     parts = [torch.empty_like(wire) for _ in range(mesh.size)]
-    dist.all_gather(parts, wire, group=mesh.group)
+    with span("mesh.all_gather"):
+        dist.all_gather(parts, wire, group=mesh.group)
     out = torch.cat(parts)
     if wire is not src:
         out = out.view(src.dtype)

@@ -15,7 +15,10 @@ runs the device stage and the device CRF on its rows of every chunk and
 the rows are gathered, so every rank holds the whole result, as the JAX
 package's meshed runs. ``bin_diagnostics``/``write_bin_info`` write the
 reference's bin_info file, ``compose_frames`` the annotated strips of the
-GIF (Pillow, imported only there).
+GIF (Pillow, imported only there). Under a profiler each ``eval_episode``
+is a ``video.episode`` span holding its stages' spans (upload, device
+stage, normalise and threshold, CRF, read-backs, scoring;
+utils/profiling.py::span).
 """
 
 from __future__ import annotations
@@ -37,6 +40,7 @@ from critic_vae_tpu_torch.ops.mask import (
     normalize_diffs_given_mean,
     threshold_masks,
 )
+from critic_vae_tpu_torch.utils.profiling import span
 
 # the reference's -thresh sweep (vae.py:121-123): 0..120 step 10
 DEFAULT_SWEEP = tuple(range(0, 130, 10))
@@ -208,57 +212,70 @@ def eval_episode(vae: VAE, critic: Critic, frames_u8: np.ndarray,
         the same (rounded) batch size. ``auto`` takes the host CRF when
         more than one process runs (crf/policy.py), as in the JAX package.
     """
-    backend = None
-    if run_crf:
-        from critic_vae_tpu_torch.crf.policy import resolve_crf_backend
+    with span("video.episode"):
+        backend = None
+        if run_crf:
+            from critic_vae_tpu_torch.crf.policy import resolve_crf_backend
 
-        backend = resolve_crf_backend(crf_backend, frames_u8.shape[1], frames_u8.shape[2],
-                                      device=device)
-    frames = torch.from_numpy(np.ascontiguousarray(frames_u8, dtype=np.uint8)).to(device)
-    preds, max_value, diff_chunks, valids, recons = episode_device_stage(
-        vae, critic, frames, batch_size, compute_dtype=compute_dtype,
-        with_recons=with_recons, recons_u8=recons_u8, mask_source=mask_source,
-        saliency_opts=saliency_opts, mesh=mesh,
-    )
-    # global two-pass normalisation: the mean of the trimmed per-frame maxima
-    mean_max = torch.mean(max_value)
-    t = torch.tensor([threshold], dtype=torch.int32, device=device)
-    u8_parts, thr_parts = [], []
-    for diff, valid in zip(diff_chunks, valids):
-        u8 = normalize_diffs_given_mean(diff, mean_max)[:valid]
-        u8_parts.append(u8)
-        thr_parts.append(threshold_masks(u8, t)[0])
+            backend = resolve_crf_backend(crf_backend, frames_u8.shape[1], frames_u8.shape[2],
+                                          device=device)
+        with span("video.upload"):
+            frames = torch.from_numpy(np.ascontiguousarray(frames_u8, dtype=np.uint8)).to(device)
+        with span("video.device_stage"):
+            preds, max_value, diff_chunks, valids, recons = episode_device_stage(
+                vae, critic, frames, batch_size, compute_dtype=compute_dtype,
+                with_recons=with_recons, recons_u8=recons_u8, mask_source=mask_source,
+                saliency_opts=saliency_opts, mesh=mesh,
+            )
+        with span("video.normalize"):
+            # global two-pass normalisation: the mean of the trimmed per-frame maxima
+            mean_max = torch.mean(max_value)
+            t = torch.tensor([threshold], dtype=torch.int32, device=device)
+            u8_parts, thr_parts = [], []
+            for diff, valid in zip(diff_chunks, valids):
+                u8 = normalize_diffs_given_mean(diff, mean_max)[:valid]
+                u8_parts.append(u8)
+                thr_parts.append(threshold_masks(u8, t)[0])
 
-    crf = None
-    if backend == "device":
-        # every rank holds every mask: under a mesh the device CRF splits
-        # them again (the JAX package's multi-process branch refines them
-        # after its fetch, which the gathered masks are here)
-        crf = _refine(frames, torch.cat(thr_parts), crf_params, "device", mesh=mesh)
-    diff_u8 = torch.cat(u8_parts).cpu().numpy()
-    if backend == "host":
-        # each chunk's masks to the host, refined there while the next come
-        with concurrent.futures.ThreadPoolExecutor(max_workers=1) as pool:
-            futures, host_thr, off = [], [], 0
-            for thr_c in thr_parts:
-                host_thr.append(thr_c.cpu().numpy())
-                futures.append(pool.submit(_refine, frames_u8[off : off + len(host_thr[-1])],
-                                           host_thr[-1], crf_params, "host", num_threads))
-                off += len(host_thr[-1])
-            thr_masks = np.concatenate(host_thr)
-            crf_masks = np.concatenate([f.result() for f in futures])
-    else:
-        thr_masks = torch.cat(thr_parts).cpu().numpy()
-        crf_masks = crf.cpu().numpy() if crf is not None else None
+        crf = None
+        if backend == "device":
+            # every rank holds every mask: under a mesh the device CRF splits
+            # them again (the JAX package's multi-process branch refines them
+            # after its fetch, which the gathered masks are here)
+            with span("video.crf"):
+                crf = _refine(frames, torch.cat(thr_parts), crf_params, "device", mesh=mesh)
+        with span("video.readback"):
+            diff_u8 = torch.cat(u8_parts).cpu().numpy()
+        if backend == "host":
+            # each chunk's masks to the host, refined there while the next come
+            with span("video.crf"), concurrent.futures.ThreadPoolExecutor(max_workers=1) as pool:
+                futures, host_thr, off = [], [], 0
+                for thr_c in thr_parts:
+                    with span("video.readback"):
+                        host_thr.append(thr_c.cpu().numpy())
+                    futures.append(pool.submit(_refine, frames_u8[off : off + len(host_thr[-1])],
+                                               host_thr[-1], crf_params, "host", num_threads))
+                    off += len(host_thr[-1])
+                thr_masks = np.concatenate(host_thr)
+                crf_masks = np.concatenate([f.result() for f in futures])
+        else:
+            with span("video.readback"):
+                thr_masks = torch.cat(thr_parts).cpu().numpy()
+                crf_masks = crf.cpu().numpy() if crf is not None else None
+        with span("video.readback"):
+            preds_host = preds.cpu().numpy()
+        with span("video.score"):
+            thr_iou = iou(gt, thr_masks) if gt is not None else None
+            crf_iou = iou(gt, crf_masks) if gt is not None and crf_masks is not None else None
     return EpisodeResult(
-        preds=preds.cpu().numpy(),
+        preds=preds_host,
         recon_one=recons[0] if recons else None,
         recon_zero=recons[1] if recons else None,
         diff_u8=diff_u8,
         thr_masks=thr_masks,
         crf_masks=crf_masks,
-        thr_iou=iou(gt, thr_masks) if gt is not None else None,
-        crf_iou=iou(gt, crf_masks) if gt is not None and crf_masks is not None else None,
+        thr_iou=thr_iou,
+        crf_iou=crf_iou,
     )
 
 

@@ -16,7 +16,10 @@ the noise generator advances either way.
 
 No step reads anything back to the host: the finite flag is a device
 tensor, the skip is the fused Adam's ``found_inf`` and the BN commit a
-``torch.where``. State is updated in place.
+``torch.where``. State is updated in place. Under a profiler the step
+opens four spans in turn: ``train.forward`` (normalisation, labels, the
+VAE), ``train.loss``, ``train.backward`` and ``train.update`` (the gradient
+sum, the guard, Adam, the BN commit; utils/profiling.py::span).
 
 ``mesh=`` (parallel/mesh.py: one rank a device) trains data-parallel with
 the JAX mesh step's meaning: each rank takes its equal share of the global
@@ -55,6 +58,7 @@ from critic_vae_tpu_torch.models.vae import VAE
 from critic_vae_tpu_torch.ops.losses import vae_loss
 from critic_vae_tpu_torch.parallel.mesh import (Mesh, global_mean, grouped, row_slice,
                                                 shard_batch, sum_gradients)
+from critic_vae_tpu_torch.utils.profiling import span
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 ADAM = dict(beta1=0.9, beta2=0.999, eps=1e-8)  # torch defaults, as the reference (vae.py:36)
@@ -161,54 +165,58 @@ def _make_local_step(critic: Critic, mesh: Optional[Mesh], *, learning_rate: flo
                    masks: Optional[torch.Tensor]) -> Dict[str, torch.Tensor]:
         if mask_distill > 0.0 and masks is None:
             raise ValueError("mask_distill > 0 requires the batch's pseudo-label masks")
-        if batch.dtype == torch.uint8:
-            batch = batch.to(cdt) / 255.0
-        x = batch.to(cdt).permute(0, 3, 1, 2).contiguous()
-        with torch.no_grad():
-            preds = critic(x)[:, 0]
-        vae = state.vae
-        params = state.params
-        recon, mu, logvar, stats = vae.vae_apply(x, preds, eps=eps, generator=state.generator,
-                                                 mesh=mesh)
-        losses = vae_loss(x.float(), mu.float(), logvar.float(), recon.float(),
-                          kld_weight=kld_weight, faithful=faithful_msssim, mesh=mesh)
-        if value_consistency > 0.0 or mask_distill > 0.0:
-            # the deterministic mu path, where the masks come from
-            recon_v = vae.decode(mu, preds)
-            recon_0 = vae.decode(mu, torch.zeros_like(preds))
-        if value_consistency > 0.0:
-            losses["vc_loss"] = value_consistency * _bce_terms(critic, recon_v, recon_0,
-                                                               preds.float(), mesh)
-            losses["total_loss"] = losses["total_loss"] + losses["vc_loss"]
-        if mask_distill > 0.0:
-            losses["md_loss"] = mask_distill * _dice_term(recon_v, recon_0, masks, mesh)
-            losses["total_loss"] = losses["total_loss"] + losses["md_loss"]
-        # each rank's share of the global loss: the reductions' backward and
-        # the gradient sum over ranks make up the rest
-        objective = losses["total_loss"] / mesh.size if meshed else losses["total_loss"]
-        # the fused Adam reads each gradient as flat memory in its parameter's
-        # order: a channels-last gradient would be applied to the wrong elements
-        grads = [g.contiguous() for g in torch.autograd.grad(objective, params)]
-        grads = sum_gradients(mesh, grads)
-        with torch.no_grad():
-            nonfinite = torch.zeros((), dtype=torch.float32, device=x.device)
-            torch._amp_foreach_non_finite_check_and_unscale_(
-                grads, nonfinite, torch.ones((), dtype=torch.float32, device=x.device))
-            finite = nonfinite == 0
-            state.notfinite_count = torch.where(
-                finite, 0, torch.clamp_max(state.notfinite_count + 1, _INT32_MAX))
-            apply = finite | (state.notfinite_count > MAX_CONSECUTIVE_ERRORS)
-            adam(params, grads, state.mu, state.nu, [], state.counts, fused=True,
-                 found_inf=(~apply).float(), amsgrad=False, lr=learning_rate,
-                 weight_decay=0.0, maximize=False, **ADAM)
-            for bn, (mean, var) in zip(vae.encoder.bns, stats):
-                bn.running_mean.copy_(torch.where(finite, mean, bn.running_mean))
-                bn.running_var.copy_(torch.where(finite, var, bn.running_var))
-            state.total_notfinite = torch.where(
-                finite, state.total_notfinite,
-                torch.clamp_max(state.total_notfinite + 1, _INT32_MAX))
-            state.last_finite = finite
-            state.step += 1
+        with span("train.forward"):
+            if batch.dtype == torch.uint8:
+                batch = batch.to(cdt) / 255.0
+            x = batch.to(cdt).permute(0, 3, 1, 2).contiguous()
+            with torch.no_grad():
+                preds = critic(x)[:, 0]
+            vae = state.vae
+            params = state.params
+            recon, mu, logvar, stats = vae.vae_apply(x, preds, eps=eps,
+                                                     generator=state.generator, mesh=mesh)
+        with span("train.loss"):
+            losses = vae_loss(x.float(), mu.float(), logvar.float(), recon.float(),
+                              kld_weight=kld_weight, faithful=faithful_msssim, mesh=mesh)
+            if value_consistency > 0.0 or mask_distill > 0.0:
+                # the deterministic mu path, where the masks come from
+                recon_v = vae.decode(mu, preds)
+                recon_0 = vae.decode(mu, torch.zeros_like(preds))
+            if value_consistency > 0.0:
+                losses["vc_loss"] = value_consistency * _bce_terms(critic, recon_v, recon_0,
+                                                                   preds.float(), mesh)
+                losses["total_loss"] = losses["total_loss"] + losses["vc_loss"]
+            if mask_distill > 0.0:
+                losses["md_loss"] = mask_distill * _dice_term(recon_v, recon_0, masks, mesh)
+                losses["total_loss"] = losses["total_loss"] + losses["md_loss"]
+            # each rank's share of the global loss: the reductions' backward and
+            # the gradient sum over ranks make up the rest
+            objective = losses["total_loss"] / mesh.size if meshed else losses["total_loss"]
+        with span("train.backward"):
+            # the fused Adam reads each gradient as flat memory in its parameter's
+            # order: a channels-last gradient would be applied to the wrong elements
+            grads = [g.contiguous() for g in torch.autograd.grad(objective, params)]
+        with span("train.update"):
+            grads = sum_gradients(mesh, grads)
+            with torch.no_grad():
+                nonfinite = torch.zeros((), dtype=torch.float32, device=x.device)
+                torch._amp_foreach_non_finite_check_and_unscale_(
+                    grads, nonfinite, torch.ones((), dtype=torch.float32, device=x.device))
+                finite = nonfinite == 0
+                state.notfinite_count = torch.where(
+                    finite, 0, torch.clamp_max(state.notfinite_count + 1, _INT32_MAX))
+                apply = finite | (state.notfinite_count > MAX_CONSECUTIVE_ERRORS)
+                adam(params, grads, state.mu, state.nu, [], state.counts, fused=True,
+                     found_inf=(~apply).float(), amsgrad=False, lr=learning_rate,
+                     weight_decay=0.0, maximize=False, **ADAM)
+                for bn, (mean, var) in zip(vae.encoder.bns, stats):
+                    bn.running_mean.copy_(torch.where(finite, mean, bn.running_mean))
+                    bn.running_var.copy_(torch.where(finite, var, bn.running_var))
+                state.total_notfinite = torch.where(
+                    finite, state.total_notfinite,
+                    torch.clamp_max(state.total_notfinite + 1, _INT32_MAX))
+                state.last_finite = finite
+                state.step += 1
         return {k: v.detach() for k, v in losses.items()}
 
     return local_step

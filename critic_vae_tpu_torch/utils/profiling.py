@@ -1,12 +1,23 @@
-"""Profiling and timing helpers (counterpart of
-critic_vae_tpu/utils/profiling.py): ``profile_trace`` takes a
-``torch.profiler`` trace where the JAX package takes an XLA one."""
+"""Profiling helpers (counterpart of critic_vae_tpu/utils/profiling.py):
+``profile_trace`` takes a ``torch.profiler`` trace where the JAX package
+takes an XLA one, and ``span`` names a stage of the port in that trace.
+
+Spans are named ``<layer>.<stage>`` and nest on the calling thread:
+``video.episode`` (``pipelines/video.py::eval_episode``) holds
+``video.upload``, ``video.device_stage``, ``video.normalize``,
+``video.crf``, ``video.readback`` and ``video.score``; the device CRF's
+chunks open ``crf.build`` and ``crf.mean_field`` (crf/device.py); a
+train step (train/step.py) opens ``train.forward``, ``train.loss``,
+``train.backward`` and ``train.update`` in turn; the mesh's gather opens
+``mesh.all_gather`` (parallel/mesh.py); each hand-written kernel's launch
+is a span named after it (``diff_mask``, ``bilateral_build``,
+``kernel_i8_build``, ``matvec_i8``, ``mean_field_resident``).
+"""
 
 from __future__ import annotations
 
 import contextlib
 import os
-import time
 from typing import Iterator, Optional
 
 import torch
@@ -17,7 +28,7 @@ def profile_trace(log_dir: Optional[str]) -> Iterator[None]:
     """Trace the block with ``torch.profiler`` (CPU activity, and CUDA's when
     a card is present) and write it under ``log_dir`` as a Chrome trace
     (``*.pt.trace.json``, readable by Perfetto and TensorBoard's profiler).
-    The kernel wrappers name their launches in it (kernels/build.py). No-op
+    The port's spans (:func:`span`) name its stages and kernels in it. No-op
     when ``log_dir`` is None, so a call site can take an optional
     ``--profile DIR`` unconditionally."""
     if not log_dir:
@@ -34,14 +45,17 @@ def profile_trace(log_dir: Optional[str]) -> Iterator[None]:
         yield
 
 
-@contextlib.contextmanager
-def timed(label: str, sink=print) -> Iterator[None]:
-    """Wall-clock a block; the sink receives ``f"{label}: {seconds:.3f}s"``."""
-    t0 = time.perf_counter()
-    try:
-        yield
-    finally:
-        sink(f"{label}: {time.perf_counter() - t0:.3f}s")
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A ``torch.profiler`` span named ``name`` around the block while a
+    profiler records, on the trace's clock (a ``user_annotation`` event of
+    the Kineto timeline, beside the card's activity); the one shared null
+    context otherwise, so a span costs one check when nothing records."""
+    if torch.autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return _OFF
 
 
 def device_barrier(x) -> None:

@@ -160,19 +160,21 @@ def test_video_profile_writes_a_trace(tmp_path, capsys):
     assert len(found) == 1 and found[0].stat().st_size > 0
     text = found[0].read_text()
     assert "aten::" in text and "traceEvents" in text
+    assert '"video.episode"' in text and '"video.device_stage"' in text
     assert tcli.main([*argv, "--sweep-range", "40:50", "--profile", str(trace_dir)]) == 0
     assert len(_traces(trace_dir)) == 2
     out = capsys.readouterr().out
     assert out.count("thr_iou=") == 4  # two episode runs, two thresholds of the sweep
 
 
-def test_profiling_helpers(capsys):
-    from critic_vae_tpu_torch.utils.profiling import device_barrier, profile_trace, timed
+def test_profiling_helpers(tmp_path):
+    from critic_vae_tpu_torch.utils.profiling import device_barrier, profile_trace, span
 
     with profile_trace(None):
         pass
-    lines = []
-    with timed("block", lines.append):
-        device_barrier(torch.zeros(2))
-    device_barrier(np.zeros(2))
-    assert len(lines) == 1 and lines[0].startswith("block: ") and lines[0].endswith("s")
+    with profile_trace(str(tmp_path / "trace")), span("unit.block"):
+        torch.zeros(2).add_(1)
+    found = _traces(tmp_path / "trace")
+    assert len(found) == 1 and '"unit.block"' in found[0].read_text()
+    assert device_barrier(torch.zeros(2)) is None
+    assert device_barrier(np.zeros(2)) is None
