@@ -51,6 +51,7 @@ import torch
 import torch.nn.functional as F
 
 from critic_vae_tpu_torch.crf import REFERENCE_CRF_PARAMS
+from critic_vae_tpu_torch.ops.mask import iou_counts, ious_from_counts
 from critic_vae_tpu_torch.utils.profiling import span
 
 _EPS_PROB = 1e-8   # unary clamp, as densecrf.cpp
@@ -493,13 +494,6 @@ def densecrf_device(imgs, probs, params: Tuple, *, frame_chunk: int = 64,
     return out[0] if single else out
 
 
-def _iou_counts(pred: torch.Tensor, gt: torch.Tensor) -> torch.Tensor:
-    """Whole-stack (tp, fn, fp) int64 counts on the masks' device; the
-    caller applies ops/iou.py's semantics (0/0 -> 1) to the three ints."""
-    p, g = pred.bool(), gt.bool()
-    return torch.stack([torch.sum(p & g), torch.sum(~p & g), torch.sum(p & ~g)])
-
-
 @torch.inference_mode()
 def crf_param_search(frames_u8, thr_masks, gt, param_grid: dict | None = None, *,
                      frame_chunk: int = 64, compute_dtype: str = "auto",
@@ -550,9 +544,7 @@ def crf_param_search(frames_u8, thr_masks, gt, param_grid: dict | None = None, *
         refined = refine_masks_device(frames, masks, params, frame_chunk=frame_chunk,
                                       compute_dtype=compute_dtype, build=build, fetch=False,
                                       mesh=mesh)[:n_frames]
-        tp, fn, fp = _iou_counts(refined, gt_dev).tolist()
-        union = tp + fn + fp
-        score = 1.0 if union == 0 else tp / union
+        score = ious_from_counts(iou_counts(gt_dev, refined), round_digits=None)[0]
         results.append((score, params))
         if best is None or score > best[0]:
             best = (score, refined)

@@ -29,6 +29,10 @@ torch's float -> uint8 cast alone gives none of them:
   truncates (its values lie in [0, 255]);
 * ``quantize_recons`` maps non-finite to 0, truncates, then wraps mod 256;
 * ``threshold_masks`` compares in int32, so t > 255 gives all False.
+
+The pipelines' whole-stack IoUs are counted on the masks' device
+(``iou_counts``) and divided on the host as ops/iou.py does
+(``ious_from_counts``).
 """
 
 from __future__ import annotations
@@ -118,6 +122,30 @@ def iou_stacked(gt: torch.Tensor, masks: torch.Tensor) -> torch.Tensor:
     union = tp + torch.sum(g & ~m, dim=(1, 2, 3)) + torch.sum(~g & m, dim=(1, 2, 3))
     ratio = tp.to(torch.float32) / torch.clamp_min(union, 1).to(torch.float32)
     return torch.where(union == 0, 1.0, ratio)
+
+
+def iou_counts(gt: torch.Tensor, masks: torch.Tensor) -> torch.Tensor:
+    """Whole-stack (tp, fn, fp) counts of ``masks`` (..., *gt.shape) against
+    the ground truth ``gt``, summed over gt's axes on the masks' device:
+    (..., 3) int64, one triple per leading index."""
+    g, m = gt.bool(), masks.bool()
+    axes = tuple(range(m.dim() - g.dim(), m.dim()))
+    tp = torch.sum(g & m, dim=axes)
+    return torch.stack([tp, torch.sum(g) - tp, torch.sum(m, dim=axes) - tp], dim=-1)
+
+
+def ious_from_counts(counts: torch.Tensor, round_digits: int | None = 3) -> list[float]:
+    """(..., 3) counts of :func:`iou_counts` -> one IoU a triple, in the
+    leading axes' order, read back in one copy. The arithmetic is
+    ops/iou.py::iou's on the same counts (Python ints, tp / (tp + fn + fp),
+    0/0 -> 1.0, rounded to ``round_digits``; None leaves it unrounded), so
+    each IoU is bitwise the one numpy gives for the same masks."""
+    out = []
+    for tp, fn, fp in counts.reshape(-1, 3).tolist():
+        union = tp + fn + fp
+        val = 1.0 if union == 0 else tp / union
+        out.append(round(val, round_digits) if round_digits is not None else val)
+    return out
 
 
 def resolve_front_end(front_end: str, *, fused_pool=False, fold_bn: bool = False,

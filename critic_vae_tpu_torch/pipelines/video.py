@@ -7,13 +7,13 @@ then the global mean-max normalisation to uint8, the threshold, the dense
 CRF and whole-stack IoU. The CRF is the exact device mean field (kernel B2,
 or the ``xla``/``int8``/``vmem`` builds) or the host C++ lattice, as
 crf/policy.py resolves it. ``eval_episode`` keeps everything up to the masks
-on the device and scores on the host; with the host CRF a worker thread
-refines each chunk's masks as they reach the host. ``threshold_sweep`` runs
-the device stage once and scores every threshold on the device (the host
-CRF refines per threshold). With ``mesh=`` (parallel/mesh.py) each rank
-runs the device stage and the device CRF on its rows of every chunk and
-the rows are gathered, so every rank holds the whole result, as the JAX
-package's meshed runs. ``bin_diagnostics``/``write_bin_info`` write the
+on the device, counts each IoU's (tp, fn, fp) there and divides the counts
+on the host; with the host CRF a worker thread refines each chunk's masks as
+they reach the host. ``threshold_sweep`` runs the device stage once and
+scores every threshold on the device (the host CRF refines per threshold).
+With ``mesh=`` (parallel/mesh.py) each rank runs the device stage and the
+device CRF on its rows of every chunk and the rows are gathered, so every
+rank holds the whole result, as the JAX package's meshed runs. ``bin_diagnostics``/``write_bin_info`` write the
 reference's bin_info file, ``compose_frames`` the annotated strips of the
 GIF (Pillow, imported only there). Under a profiler each ``eval_episode``
 is a ``video.episode`` span holding its stages' spans (upload, device
@@ -37,6 +37,8 @@ from critic_vae_tpu_torch.models.vae import VAE
 from critic_vae_tpu_torch.ops.iou import iou, iou_batch
 from critic_vae_tpu_torch.ops.mask import (
     episode_forward,
+    iou_counts,
+    ious_from_counts,
     normalize_diffs_given_mean,
     threshold_masks,
 )
@@ -52,15 +54,6 @@ def _normalize_threshold_chunk(diff: torch.Tensor, mean_max: torch.Tensor,
     masks for all thresholds at once."""
     u8 = normalize_diffs_given_mean(diff, mean_max)
     return u8, threshold_masks(u8, thresholds)
-
-
-def _sweep_chunk_stats(masks: torch.Tensor, gt: torch.Tensor):
-    """(tp, fn, fp) int64 counts per threshold of (T, B, H, W) masks
-    against (B, H, W) ground truth, on the masks' device."""
-    g = gt[None].bool()
-    m = masks.bool()
-    return (torch.sum(g & m, dim=(1, 2, 3)), torch.sum(g & ~m, dim=(1, 2, 3)),
-            torch.sum(~g & m, dim=(1, 2, 3)))
 
 
 def _refine(frames_u8, thr_masks, crf_params, backend: str, num_threads: int = 0,
@@ -192,7 +185,13 @@ def eval_episode(vae: VAE, critic: Critic, frames_u8: np.ndarray,
     Args:
       frames_u8: (N, H, W, 3) uint8 raw frames; they go to ``device`` once
         and feed both the nets (normalised there) and the CRF (raw).
-      gt: (N, H, W) bool ground truth, or None to skip IoU scoring.
+      gt: (N, H, W) bool ground truth, or None to skip IoU scoring. It goes
+        to ``device`` beside the frames; each whole-stack IoU is counted
+        there (ops/mask.py::iou_counts) and divided on the host
+        (``ious_from_counts``), bitwise ops/iou.py::iou of the returned
+        masks. The host CRF's masks go back to ``device`` to be counted the
+        same way. Under a ``mesh`` each rank counts the gathered masks
+        itself, with no collective.
       crf_backend: "auto", "device" or "host" (crf/policy.py). The device
         CRF's build is ``auto`` unless ``CRITIC_VAE_TPU_CRF_BUILD`` names
         another (crf/device.py::_resolve_build), as in the JAX package. The
@@ -221,6 +220,8 @@ def eval_episode(vae: VAE, critic: Critic, frames_u8: np.ndarray,
                                           device=device)
         with span("video.upload"):
             frames = torch.from_numpy(np.ascontiguousarray(frames_u8, dtype=np.uint8)).to(device)
+            gt_dev = (torch.from_numpy(np.ascontiguousarray(gt, dtype=bool)).to(device)
+                      if gt is not None else None)
         with span("video.device_stage"):
             preds, max_value, diff_chunks, valids, recons = episode_device_stage(
                 vae, critic, frames, batch_size, compute_dtype=compute_dtype,
@@ -236,6 +237,7 @@ def eval_episode(vae: VAE, critic: Critic, frames_u8: np.ndarray,
                 u8 = normalize_diffs_given_mean(diff, mean_max)[:valid]
                 u8_parts.append(u8)
                 thr_parts.append(threshold_masks(u8, t)[0])
+            thr_all = torch.cat(thr_parts)
 
         crf = None
         if backend == "device":
@@ -243,7 +245,14 @@ def eval_episode(vae: VAE, critic: Critic, frames_u8: np.ndarray,
             # them again (the JAX package's multi-process branch refines them
             # after its fetch, which the gathered masks are here)
             with span("video.crf"):
-                crf = _refine(frames, torch.cat(thr_parts), crf_params, "device", mesh=mesh)
+                crf = _refine(frames, thr_all, crf_params, "device", mesh=mesh)
+        # the IoUs' counts, queued behind the CRF: the read-backs below wait
+        # for them, so reading them in video.score waits on nothing more
+        counts = []
+        if gt_dev is not None:
+            counts.append(iou_counts(gt_dev, thr_all))
+            if crf is not None:
+                counts.append(iou_counts(gt_dev, crf))
         with span("video.readback"):
             diff_u8 = torch.cat(u8_parts).cpu().numpy()
         if backend == "host":
@@ -260,13 +269,17 @@ def eval_episode(vae: VAE, critic: Critic, frames_u8: np.ndarray,
                 crf_masks = np.concatenate([f.result() for f in futures])
         else:
             with span("video.readback"):
-                thr_masks = torch.cat(thr_parts).cpu().numpy()
+                thr_masks = thr_all.cpu().numpy()
                 crf_masks = crf.cpu().numpy() if crf is not None else None
         with span("video.readback"):
             preds_host = preds.cpu().numpy()
         with span("video.score"):
-            thr_iou = iou(gt, thr_masks) if gt is not None else None
-            crf_iou = iou(gt, crf_masks) if gt is not None and crf_masks is not None else None
+            if backend == "host" and gt_dev is not None:
+                counts.append(iou_counts(gt_dev, torch.from_numpy(crf_masks).to(device)))
+            thr_iou = crf_iou = None
+            if counts:
+                ious = ious_from_counts(torch.stack(counts))
+                thr_iou, crf_iou = ious[0], ious[1] if len(ious) > 1 else None
     return EpisodeResult(
         preds=preds_host,
         recon_one=recons[0] if recons else None,
@@ -312,16 +325,16 @@ def threshold_sweep(vae: VAE, critic: Critic, frames_u8: np.ndarray, gt: np.ndar
     )
     mean_max = torch.mean(max_value)
     t = torch.tensor(list(thresholds), dtype=torch.int32, device=device)
-    counts = torch.zeros((3, len(t)), dtype=torch.int64, device=device)
+    counts = torch.zeros((len(t), 3), dtype=torch.int64, device=device)
     mask_parts = []
     offset = 0
     for diff, valid in zip(diff_chunks, valids):
         masks = _normalize_threshold_chunk(diff, mean_max, t)[1][:, :valid]
-        counts += torch.stack(_sweep_chunk_stats(masks, gt_dev[offset : offset + valid]))
+        counts += iou_counts(gt_dev[offset : offset + valid], masks)
         if run_crf:
             mask_parts.append(masks)
         offset += valid
-    thr_ious = _ious(counts)
+    thr_ious = ious_from_counts(counts)
 
     crf_ious = [None] * len(t)
     if backend == "device":
@@ -329,20 +342,13 @@ def threshold_sweep(vae: VAE, critic: Critic, frames_u8: np.ndarray, gt: np.ndar
 
         refined = refine_masks_multi_device(frames, torch.cat(mask_parts, dim=1), crf_params,
                                             fetch=False, mesh=mesh)
-        crf_ious = [round(v, 3) for v in _ious(torch.stack(_sweep_chunk_stats(refined, gt_dev)))]
+        crf_ious = ious_from_counts(iou_counts(gt_dev, refined))
     elif backend == "host":
         masks = torch.cat(mask_parts, dim=1).cpu().numpy()
         crf_ious = [iou(gt, _refine(frames_u8, m, crf_params, "host", num_threads))
                     for m in masks]
-    return [{"threshold": int(th), "thr_iou": round(thr_ious[i], 3), "crf_iou": crf_ious[i]}
+    return [{"threshold": int(th), "thr_iou": thr_ious[i], "crf_iou": crf_ious[i]}
             for i, th in enumerate(thresholds)]
-
-
-def _ious(counts: torch.Tensor) -> List[float]:
-    """(3, T) (tp, fn, fp) counts -> T IoUs with ops/iou.py semantics:
-    Python-int counts, float64 division, 0/0 -> 1."""
-    tp, fn, fp = counts.cpu().tolist()
-    return [1.0 if a + b + c == 0 else a / (a + b + c) for a, b, c in zip(tp, fn, fp)]
 
 
 def bin_diagnostics(preds: np.ndarray, gt: np.ndarray, thr_masks: np.ndarray) -> Dict:

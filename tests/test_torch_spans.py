@@ -104,6 +104,10 @@ def test_eval_episode_emits_the_video_and_crf_spans_nested(episodes):
     # one chunk of 3 frames: one build and one mean field; the maps, the
     # masks and the scores read back in three spans; two IoUs in one span
     assert counts == {**{name: 1 for name in VIDEO_PARENTS}, "video.readback": 3}
+    # the frames and the ground truth go to the device inside video.upload
+    uploads = [e for e in events if e.name == "aten::to" and e.cpu_parent is not None
+               and e.cpu_parent.name == "video.upload"]
+    assert len(uploads) == 2
 
 
 def test_train_step_emits_its_four_phases(steps):
