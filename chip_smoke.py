@@ -46,6 +46,19 @@ exits non-zero:
    (iters=0) timed, the iteration's time taken as the difference over 10,
    and beside it torch.bmm of a (64, 4096, 4096) bf16 M by 2T bf16 lanes
    with f32 sums (library_ms: the product each iteration computes);
+7b. kernel mean_field_step (one mean-field iteration on a bf16 M) at the
+   main path's C=64, N=4096 on B2's M, at P = 2 (one mask), 3 (three
+   classes) and 26 (the sweep): one step against its plain version (float32
+   with TF32 off: max abs error <= 1e-4, the bar's reason at STEP_ATOL), 10
+   steps (<= 1e-2), labels >= 99.9% identical to the plain version's and to
+   the library's composition (bmm, cuDNN's TF32 conv, softmax), two runs
+   bitwise identical; the device time a launch beside its 0.641 ms bound,
+   torch.bmm of the same M as library_ms, the composition's iteration and
+   the plain version's time; then one and 10 steps at P = 2 on 20x20, 16x32
+   and 32x512 frames (a random bf16 M; 32x512 stages its rows in windows).
+   Phase 7 also holds B5's C=2 marginals bitwise to their digests from
+   before B5's product loop became csrc/row_block_product.cuh, which both
+   share;
 8. golden: the port in float32 with TF32 off on the 16-frame episode of
    tests/golden/torch_slice_golden.npz, which the JAX package computed on
    the CPU — preds <= 1e-4 abs, uint8 diff maps >= 99.9% within one level,
@@ -277,20 +290,23 @@ their rates.
 and 17 alone, driving the critic_vae_tpu_torch package in DIR (for example
 an older checkout) against this checkout's goldens.
 
-The second-to-last line is a JSON object with, for each of the seven kernels
-(B1-B5, P1, P2), its launches on the paths that run it (phases 9, 11, 12,
-20-22, 25, 26 and 29), its error against
+The second-to-last line is a JSON object with, for each of the eight kernels
+(B1-B5, mean_field_step, P1, P2), its launches on the paths that run it
+(phases 9, 11, 12, 20-22, 25, 26 and 29), its error against
 its plain version, its times, its bound (the larger of its bytes over the
 HBM rate and its operations over the peak rate of their type, from this
 run's shapes) and the time of one PyTorch call computing the same function
 where there is one (for B5, of its iteration's product; its row also has
 build_ms and iter_ms, and each time again at T=13 as *_t13; B4's row has its
-3-lane error and time at C=64 as *_l3, its error the larger). B1's and P1's
+3-lane error and time at C=64 as *_l3, its error the larger;
+mean_field_step's ``ms`` is its device time a launch at P=2, call_ms an iteration by
+CUDA events, library_iter_ms the composition's iteration, and ms and
+library_ms at P=3 and 26 as *_p3, *_p26). B1's and P1's
 ``ms`` is device time (B1 in bf16, the mask path's dtype) and their
 ``call_ms`` the time of a call through the
 Python wrapper (P1's rows sum the three questions, with ``empty_ms`` the
 empty kernel's device time); the other kernels' ``ms`` are CUDA-event times
-of calls, which their device time dominates. The last line is {"ok": true,
+of calls, which their device time dominates (mean_field_step's aside). The last line is {"ok": true,
 "device": {...}}. Without CUDA the script fails and prints no result. About
 six minutes on an H100, the build (~10 s) included (328.5-383 s on an
 NVIDIA H100 80GB HBM3 at 700 W, phases 26-28 about a minute of it, phase
@@ -301,6 +317,7 @@ NVIDIA H100 80GB HBM3 at 700 W, phases 26-28 about a minute of it, phase
 from __future__ import annotations
 
 import contextlib
+import hashlib
 import json
 import os
 import subprocess
@@ -729,6 +746,13 @@ def _check_b5(q, qr, c, t, iters, n=NPIX):
     return err
 
 
+# sha256 (first 16 hex digits) of B5's float32 marginals at C=2, seed 5, T=1
+# and T=13 (phase 7's inputs) from the kernel before its product loop moved to
+# csrc/row_block_product.cuh (NVIDIA H100 80GB HBM3, CUDA 12.8): the shared
+# loop must leave them bitwise as they were
+B5_DIGESTS = {1: "fa800f8870f8438e", SWEEP_T: "7cc8896d671fc00c"}
+
+
 def phase_b5(dev):
     import torch
 
@@ -768,6 +792,10 @@ def phase_b5(dev):
         q, qr = kern(), plain()
         torch.cuda.synchronize()
         err = max(small_err, _check_b5(q, qr, 2, t, iters))
+        digest = hashlib.sha256(q.cpu().numpy().tobytes()).hexdigest()[:16]
+        log(f"[7 B5 mean_field_resident] C=2 T={t}: marginals' digest {digest}, before the "
+            f"product loop moved to row_block_product.cuh {B5_DIGESTS[t]}")
+        require(digest == B5_DIGESTS[t], f"B5 T={t}: marginals differ from before the move")
         imgs, probs = _crf_imgs(CRF_CHUNK, 6, dev), _sweep_probs(CRF_CHUNK, t, 6, dev)
         kern, plain = both(imgs, probs, H)
         build_only, _ = both(imgs, probs, H, n_iter=0)
@@ -798,6 +826,151 @@ def phase_b5(dev):
     return {**rows[1], "max_abs_err": max(r["max_abs_err"] for r in rows.values()),
             **{f"{k}_t13": rows[SWEEP_T][k] for k in ("ms", "plain_ms", "build_ms", "iter_ms",
                                                       "library_ms")}}
+
+
+# kernel mean_field_step's bars. One step from the same q: z = M @ bf16(q) +
+# w2 s - U lies in about [-30, 30]; the tensor cores sum the 4,096 products
+# in their own order with their own float32 adds, cuBLAS's float32 GEMM (TF32
+# off) in another, ~1e-6 of |z| apart, and the spatial conv's 31 taps differ
+# by a few ulps; the softmax's slope (at most 1/2) carries that to q: 1e-4.
+# Ten steps: a q that float32 rounding moves across a bf16 rounding boundary
+# changes bf16(q) by 2^-8, as in B5's bar: 1e-2; labels >= 99.9% equal to the
+# library's composition (bmm, cuDNN's TF32 conv, softmax), as the bf16 M's
+# own bar against float32.
+STEP_ATOL = 1e-4
+STEP_ATOL_ITERS = 1e-2
+STEP_LABELS = 0.999
+STEP_LANES = ((2, 2), (3, 3), (26, 2))  # (P, L): one mask, three classes, the sweep
+
+
+def _step_case(lanes, classes, seed, dev):
+    """B2's bf16 M of CRF_CHUNK seeded 64x64 frames with the (C, N, T, L)
+    q0 and unaries of mask-derived probabilities, as the cell's chunks have
+    them (P = 3: the classes (1 - m, 0.6 m, 0.4 m), as phase 22)."""
+    import torch
+
+    from critic_vae_tpu_torch.crf import REFERENCE_CRF_PARAMS
+    from critic_vae_tpu_torch.crf.fused_build import build_bilateral
+
+    w1, alpha, beta = REFERENCE_CRF_PARAMS[:3]
+    imgs = _crf_imgs(CRF_CHUNK, seed, dev)
+    if classes == 3:
+        m = _sweep_probs(CRF_CHUNK, 1, seed, dev)[..., 1]
+        probs = torch.stack([1.0 - m, 0.6 * m, 0.4 * m], dim=-1)
+    else:
+        probs = _sweep_probs(CRF_CHUNK, lanes // 2, seed, dev)
+    probs = probs.view(CRF_CHUNK, NPIX, lanes // classes, classes)
+    unary = -torch.log(torch.clamp_min(probs, 1e-8))
+    mb = build_bilateral(imgs, w1, alpha, beta, h=H, w=W)
+    return mb, torch.softmax(-unary, dim=-1), unary
+
+
+def phase_mean_field_step(dev):
+    """(7b) kernel mean_field_step against its plain version and the
+    library's composition; B5's bitwise check is in phase 7."""
+    import torch
+
+    from critic_vae_tpu_torch.crf import REFERENCE_CRF_PARAMS
+    from critic_vae_tpu_torch.crf.device import _mean_field_loop, _spatial_norm, _spatial_taps
+    from critic_vae_tpu_torch.crf.mean_field_step import (
+        mean_field_step_reference,
+        mean_field_steps,
+    )
+    from critic_vae_tpu_torch.device import cuda_ms, device_ms
+
+    w1, w2, gamma, iters = REFERENCE_CRF_PARAMS[0], *REFERENCE_CRF_PARAMS[3:]
+    taps = torch.from_numpy(_spatial_taps(gamma, H, W)).to(dev)
+    ns = _spatial_norm(taps, H, W)
+    tag = "[7b mean_field_step]"
+    rows = {}
+    for lanes, classes in STEP_LANES:
+        mb, q0, unary = _step_case(lanes, classes, 30 + lanes, dev)
+        qf, uf = q0.reshape(CRF_CHUNK, NPIX, lanes), unary.reshape(CRF_CHUNK, NPIX, lanes)
+
+        def kern(n_iter=iters):
+            return mean_field_steps(mb, qf, uf, ns, taps, w2, h=H, w=W, classes=classes,
+                                    iters=n_iter)
+
+        def plain():
+            return mean_field_step_reference(mb, qf, uf, ns, taps, w2, h=H, w=W,
+                                             classes=classes)
+
+        def library():  # today's path for a bf16 M: bmm, cuDNN's conv in TF32, softmax
+            return _mean_field_loop(mb, q0, unary, ns, taps, w2, H, W, iters)
+
+        with no_tf32():
+            step_err = (kern(1) - plain()).abs().max().item()
+            q = qf
+            for _ in range(iters):
+                q = mean_field_step_reference(mb, q, uf, ns, taps, w2, h=H, w=W,
+                                              classes=classes)
+            plain_ms = cuda_ms(plain, iters=1, warmup=1)
+        got = kern()
+        iter_err = (got - q).abs().max().item()
+        same = torch.equal(got, kern())
+        want = library().reshape(CRF_CHUNK, NPIX, lanes)
+
+        def labels(x):
+            return x.unflatten(-1, (-1, classes)).argmax(-1)
+
+        agree = (labels(got) == labels(want)).double().mean().item()
+        agree_plain = (labels(got) == labels(q)).double().mean().item()
+        ms = device_ms(lambda: kern(1), "mean_field_step", iters=20)
+        call_ms = cuda_ms(kern, iters=5) / iters
+        qb = qf.to(torch.bfloat16)
+        library_ms = cuda_ms(lambda: torch.bmm(mb, qb, torch.float32), iters=20)
+        library_iter_ms = cuda_ms(library, iters=3) / iters
+        log(f"{tag} C={CRF_CHUNK} N={NPIX} P={lanes} L={classes}: one step against the plain "
+            f"version max_abs_err {step_err:.3e} (bar {STEP_ATOL:g}); {iters} steps "
+            f"{iter_err:.3e} (bar {STEP_ATOL_ITERS:g}), labels identical to the plain "
+            f"version's {agree_plain:.6f} and to the library's composition {agree:.6f} (bar "
+            f"{STEP_LABELS}); two runs bitwise identical {same}")
+        log(f"{tag} P={lanes}: kernel {ms:.4f} ms a launch (device time; bound 0.641, "
+            f"{100 * 0.641 / ms:.1f}%), {call_ms:.4f} ms an iteration by CUDA events over "
+            f"{iters}; library: torch.bmm of the same M by {lanes} bf16 lanes, f32 out, "
+            f"{library_ms:.4f} ms, the composition's iteration {library_iter_ms:.4f} ms; plain "
+            f"{plain_ms:.3f} ms")
+        require(step_err <= STEP_ATOL, f"mean_field_step P={lanes}: one step off by {step_err}")
+        require(iter_err <= STEP_ATOL_ITERS, f"mean_field_step P={lanes}: {iters} steps off by "
+                f"{iter_err}")
+        require(min(agree, agree_plain) >= STEP_LABELS,
+                f"mean_field_step P={lanes}: labels {agree_plain}, {agree}")
+        require(same, f"mean_field_step P={lanes}: two runs differ")
+        rows[lanes] = {"max_abs_err": max(step_err, iter_err), "ms": ms, "call_ms": call_ms,
+                       "plain_ms": plain_ms, "library_ms": library_ms,
+                       "library_iter_ms": library_iter_ms}
+        del mb, q0, unary, qf, uf, got, want, q, qb
+    # other frames, on a random bf16 M of B2's scale (row sums ~ w1) with P = 2:
+    # a block's 128 pixels over part of a row and 7 rows (20x20), over 4 rows
+    # with the taps clamped to 16 (16x32), and rows too wide for a lane's 31
+    # at once (32x512: its rows staged in windows)
+    g = torch.Generator(device=dev).manual_seed(7)
+    frame_err = 0.0
+    for h, w in ((20, 20), (16, 32), (32, 512)):
+        n = h * w
+        mb = (torch.rand((2, n, n), generator=g, device=dev) * (2.0 * w1 / n)).to(torch.bfloat16)
+        unary = -torch.log(torch.clamp_min(torch.rand((2, n, 2), generator=g, device=dev), 1e-8))
+        q0 = torch.softmax(-unary, dim=-1)
+        taps_hw = torch.from_numpy(_spatial_taps(gamma, h, w)).to(dev)
+        ns_hw = _spatial_norm(taps_hw, h, w)
+        args = (mb, q0, unary, ns_hw, taps_hw, w2)
+        with no_tf32():
+            q = mean_field_step_reference(*args, h=h, w=w, classes=2)
+            step_err = (mean_field_steps(*args, h=h, w=w, classes=2, iters=1) - q).abs().max()
+            for _ in range(iters - 1):
+                q = mean_field_step_reference(mb, q, unary, ns_hw, taps_hw, w2, h=h, w=w,
+                                              classes=2)
+        iter_err = (mean_field_steps(*args, h=h, w=w, classes=2, iters=iters) - q).abs().max()
+        log(f"{tag} C=2 {h}x{w} P=2: one step against the plain version max_abs_err "
+            f"{step_err.item():.3e} (bar {STEP_ATOL:g}); {iters} steps {iter_err.item():.3e} "
+            f"(bar {STEP_ATOL_ITERS:g})")
+        require(step_err <= STEP_ATOL and iter_err <= STEP_ATOL_ITERS,
+                f"mean_field_step {h}x{w}: off by {step_err}, {iter_err}")
+        frame_err = max(frame_err, step_err.item(), iter_err.item())
+        del mb
+    # P = 2 (one mask, the cell's) as the row's times; the error the largest
+    return {**rows[2], "max_abs_err": max(frame_err, *(r["max_abs_err"] for r in rows.values())),
+            **{f"{k}_p{p}": rows[p][k] for p in (3, 26) for k in ("ms", "library_ms")}}
 
 
 def phase_golden(dev, critic, vae):
@@ -976,7 +1149,7 @@ def phase_main(dev, critic, vae):
     torch.cuda.reset_peak_memory_stats(dev)
     res, la = _drive("a eval_episode auto",
                      lambda: eval_episode(vae, critic, frames, gt, threshold=50, **kw),
-                     ("diff_mask", "bilateral_build"), MAIN_FRAMES)
+                     ("diff_mask", "bilateral_build", "mean_field_step"), MAIN_FRAMES)
     peak = torch.cuda.max_memory_allocated(dev)
     _profile("a", lambda: eval_episode(vae, critic, frames, gt, threshold=50, **kw))
     log(f"[9 main a] bf16, chunk {MAIN_BATCH}, threshold 50, device CRF (B2 bf16): thr_iou "
@@ -991,7 +1164,8 @@ def phase_main(dev, critic, vae):
     threshold_sweep(vae, critic, *warm, **kw)  # warm-up
     sweep, paths["b"] = _drive("b threshold_sweep auto",
                                lambda: threshold_sweep(vae, critic, frames, gt, **kw),
-                               ("diff_mask", "bilateral_build"), MAIN_FRAMES)
+                               ("diff_mask", "bilateral_build", "mean_field_step"),
+                               MAIN_FRAMES)
     _profile("b", lambda: threshold_sweep(vae, critic, frames, gt, **kw))
     log(f"[9 main b] {len(sweep)} thresholds: {sweep}")
     require(len(sweep) == SWEEP_T and all(0.0 <= r["thr_iou"] <= 1.0 and 0.0 <= r["crf_iou"]
@@ -1677,7 +1851,8 @@ def phase_quality_main(dev, critic, vae, scratch: Path):
     eval_episode(vae, critic, frames[:MAIN_BATCH], gt[:MAIN_BATCH], **kw)  # warm-up
     res, launches = _drive("f eval_episode --quality",
                            lambda: eval_episode(vae, critic, frames, gt, **kw),
-                           ("bilateral_build",), MAIN_FRAMES, phase="20 quality")
+                           ("bilateral_build", "mean_field_step"), MAIN_FRAMES,
+                           phase="20 quality")
     _profile("f", lambda: eval_episode(vae, critic, frames, gt, **kw), phase="20 quality")
     log(f"[20 quality f] float32 saliency stage, chunk {MAIN_BATCH}, threshold "
         f"{QUALITY_THRESHOLD}, device CRF (B2 bf16): thr_iou {res.thr_iou}, crf_iou "
@@ -1717,7 +1892,7 @@ def phase_search(dev, frames, gt, thr_gold, res_main, frames_main, gt_main):
     n = len(frames)
     (best, results), la = _drive("g crf_param_search 2x2",
                                  lambda: crf_param_search(frames, thr_gold, gt, grid, device=dev),
-                                 ("bilateral_build",), n, phase="21 search")
+                                 ("bilateral_build", "mean_field_step"), n, phase="21 search")
     for score, params in results:
         i = gold_params.index(params)
         want = np.unpackbits(gold["search_bits"][i], axis=-1).astype(bool)
@@ -1737,7 +1912,8 @@ def phase_search(dev, frames, gt, thr_gold, res_main, frames_main, gt_main):
     args = (frames_main[:nt], res_main.thr_masks[:nt], gt_main[:nt], grid27)
     (_, results27), l27 = _drive(f"h crf_param_search default grid ({combos} combinations)",
                                  lambda: crf_param_search(*args, device=dev),
-                                 ("bilateral_build",), nt * combos, phase="21 search")
+                                 ("bilateral_build", "mean_field_step"), nt * combos,
+                                 phase="21 search")
     t0 = time.perf_counter()
     crf_param_search(*args, device=dev)
     per = (time.perf_counter() - t0) / combos
@@ -2287,7 +2463,8 @@ def phase_distill(dev, critic, smi: str, scratch: Path, baseline=None):
     many = generate_frames(DISTILL_FRAMES, seed=26)[0]
     build_pseudo_masks(critic, many[:MAIN_BATCH], device=dev)  # warm-up
     masks, launches = _drive("build_pseudo_masks", lambda: build_pseudo_masks(
-        critic, many, device=dev), ("bilateral_build",), DISTILL_FRAMES, phase="26 distill")
+        critic, many, device=dev), ("bilateral_build", "mean_field_step"), DISTILL_FRAMES,
+        phase="26 distill")
     require(launches["bilateral_build"] == DISTILL_FRAMES // CRF_CHUNK,
             f"B2 launches {launches['bilateral_build']}, not one a {CRF_CHUNK}-frame chunk")
     require(launches["diff_mask"] == 0, "build_pseudo_masks launched B1")
@@ -2656,7 +2833,7 @@ def phase_parallel(dev, critic, vae, smi: str, scratch: Path):
         eval_episode(vae, critic, frames[:MAIN_BATCH], gt[:MAIN_BATCH], **kw)  # warm-ups
         res, launches = _drive("g eval_episode 1-rank NCCL mesh",
                                lambda: eval_episode(vae, critic, frames, gt, mesh=mesh, **kw),
-                               ("diff_mask", "bilateral_build"), MAIN_FRAMES,
+                               ("diff_mask", "bilateral_build", "mean_field_step"), MAIN_FRAMES,
                                phase="29 parallel")
         plain = eval_episode(vae, critic, frames, gt, **kw)
         same = (np.array_equal(res.preds, plain.preds) and np.array_equal(res.diff_u8, plain.diff_u8)
@@ -3030,9 +3207,10 @@ def b1_bound(itemsize: int) -> dict:
 
 
 def crf_bounds():
-    """Bounds of B1-B5 at the shapes their phases time: B1 at (512, 3, 64,
-    64) bf16; B2-B5 at C=64 frames of N=4096 pixels; B4 with L=2; B5 with 10
-    iterations at T=1 and T=13."""
+    """Bounds of B1-B5 and mean_field_step at the shapes their phases time:
+    B1 at (512, 3, 64, 64) bf16; the others at C=64 frames of N=4096 pixels;
+    B4 with L=2; B5 with 10 iterations at T=1 and T=13; mean_field_step one
+    launch at P=2."""
     c, n = CRF_CHUNK, NPIX
     b1 = b1_bound(2)
     # the n(n - 1)/2 distinct entries of the symmetric K, each one exp
@@ -3046,8 +3224,11 @@ def crf_bounds():
                      [build, (iters * 2 * c * n * n * 2 * t, BF16_FLOPS)])
 
     t13 = b5(SWEEP_T)
+    # one step at P = 2: M read once (q, y and the unaries ~0.3% more, left
+    # out) and 2 P8 bf16 operations an entry
+    step = bound(c * n * n * 2, [(2 * c * n * n * 8, BF16_FLOPS)])
     return b1, b2, b3, b4, {**b5(1), "bound_ms_t13": t13["bound_ms"],
-                            "bound_by_t13": t13["bound_by"]}
+                            "bound_by_t13": t13["bound_by"]}, step
 
 
 def main(argv=None) -> int:
@@ -3118,6 +3299,7 @@ def main(argv=None) -> int:
     b3 = phase_b3(dev)
     b4 = phase_b4(dev)
     b5 = phase_b5(dev)
+    step = phase_mean_field_step(dev)
     from critic_vae_tpu_torch.io.weights import synthetic_models
 
     critic, vae = synthetic_models(dev)
@@ -3159,7 +3341,7 @@ def main(argv=None) -> int:
                 for k in launches}
     b1 = {**b1, "max_abs_err": max(b1["max_abs_err"], b1_eval_err)}
     b4 = {**b4, **b4_l3, "max_abs_err": max(b4["max_abs_err"], b4_l3["max_abs_err_l3"])}
-    bounds = dict(zip(("b1", "b2", "b3", "b4", "b5"), crf_bounds()))
+    bounds = dict(zip(("b1", "b2", "b3", "b4", "b5", "step"), crf_bounds()))
 
     kernels = [
         {"name": "diff_mask", "route": "cuda",
@@ -3182,6 +3364,10 @@ def main(argv=None) -> int:
          "source": "critic_vae_tpu_torch/csrc/mean_field_resident.cu",
          "replaces": "critic_vae_tpu/crf/fused_resident.py:226",
          "launches": launches["mean_field_resident"], **bounds["b5"], **b5},
+        {"name": "mean_field_step", "route": "cuda",
+         "source": "critic_vae_tpu_torch/csrc/mean_field_step.cu",
+         "replaces": "the mean field's bmm, conv and softmax (critic_vae_tpu/crf/device.py)",
+         "launches": launches["mean_field_step"], **bounds["step"], **step},
         {"name": "caps_probe", "route": "cuda",
          "source": "critic_vae_tpu_torch/csrc/caps_probe.cu",
          "replaces": "examples/mosaic_caps_probe.py:33", **p1},

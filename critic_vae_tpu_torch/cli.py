@@ -80,8 +80,8 @@ the port's spans: an episode's ``video.episode`` holding ``video.upload``,
 ``crf.build`` and ``crf.mean_field``; under ``--num-devices`` the mesh's
 ``mesh.all_gather``; and each hand-written kernel's launch under its name
 (``diff_mask``, ``bilateral_build``, ``kernel_i8_build``, ``matvec_i8``,
-``mean_field_resident``). ``--device cpu`` runs on the CPU; the card is
-the default.
+``mean_field_resident``, ``mean_field_step``). ``--device cpu`` runs on the
+CPU; the card is the default.
 
 Ranks: ``main`` forms the ``torch.distributed`` group first when a launcher
 set one up (parallel/distributed.py: ``python -m torch.distributed.run

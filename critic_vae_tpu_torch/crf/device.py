@@ -33,12 +33,16 @@ collective but the gather), and the rows are gathered so that every rank
 holds the whole result.
 
 The M @ Q message accumulates in float32 whatever M's storage dtype, as the
-JAX package's ``preferred_element_type=f32`` does. For a bf16 M on CUDA that
-is ``torch.bmm(M, Q_bf16, torch.float32)`` — the ``out_dtype`` overload of
-``bmm``, which PyTorch documents for float32 output from bf16 operands on
-CUDA only. A plain bf16 ``bmm`` would round the messages to bf16. On the CPU
-the same product is ``bmm`` of the bf16 values widened to float32 (bf16
-products are exact in float32).
+JAX package's ``preferred_element_type=f32`` does. For a bf16 M on CUDA each
+iteration is one launch of kernel ``mean_field_step``
+(crf/mean_field_step.py): the product on the tensor cores, the spatial
+message in float32 and the softmax in its epilogue. Elsewhere it is the
+composition :func:`_mean_field_loop`: for a float32 M ``torch.bmm``; for a
+bf16 M on the CPU ``bmm`` of the bf16 values widened to float32 (bf16
+products are exact in float32), and on CUDA, where a ragged N leaves the
+kernel, ``torch.bmm(M, Q_bf16, torch.float32)``, the ``out_dtype`` overload
+that PyTorch documents for float32 output from bf16 operands on CUDA only
+(a plain bf16 ``bmm`` would round the messages to bf16).
 """
 
 from __future__ import annotations
@@ -191,21 +195,47 @@ def _message(mb: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
     return torch.bmm(mb.float(), qm.float())
 
 
+def _fused_step(mb: torch.Tensor) -> bool:
+    """Whether the mean field over ``mb`` runs as kernel ``mean_field_step``:
+    a bf16 M on the card whose rows are whole 16-byte chunks (N % 8 == 0, as
+    the kernel's copies want; the ``pallas`` build's M, at H*W % 128 == 0,
+    always is). CPU tensors and a float32 M run :func:`_mean_field_loop`."""
+    return mb.is_cuda and mb.dtype == torch.bfloat16 and mb.shape[-1] % 8 == 0
+
+
+def _mean_field_loop(mb: torch.Tensor, q: torch.Tensor, unary: torch.Tensor,
+                     ns: torch.Tensor, taps: torch.Tensor, w2, h: int, w: int,
+                     iters: int) -> torch.Tensor:
+    """The mean field as the composition of :func:`_message`,
+    :func:`_spatial_message` and the softmax: (C, N, T, L) q and unaries ->
+    (C, N, T, L) float32 marginals."""
+    c, n, t, L = q.shape
+    for _ in range(iters):
+        qf = q.reshape(c, n, t * L)
+        msg = _message(mb, qf) + w2 * _spatial_message(qf, ns, taps, h, w)
+        q = torch.softmax(msg.view(c, n, t, L) - unary, dim=-1)
+    return q
+
+
 def _mean_field_q(mb: torch.Tensor, probs: torch.Tensor, taps: torch.Tensor, w2, h: int,
                   w: int, iters: int) -> torch.Tensor:
     """T independent mean fields over the chunk's bilateral matrices ``mb``
     (C, N, N), packed into the lanes of Q: (C, N, T, L) probabilities ->
-    (C, N, T, L) float32 marginals. M is read once an iteration for all T."""
+    (C, N, T, L) float32 marginals. M is read once an iteration for all T:
+    by kernel ``mean_field_step`` where :func:`_fused_step` says so, else by
+    :func:`_mean_field_loop`."""
     c, n, t, L = probs.shape
     ns = _spatial_norm(taps, h, w)
     unary = -torch.log(torch.clamp_min(probs, _EPS_PROB))
     q = torch.softmax(-unary, dim=-1)
     with span("crf.mean_field"):
-        for _ in range(iters):
-            qf = q.reshape(c, n, t * L)
-            msg = _message(mb, qf) + w2 * _spatial_message(qf, ns, taps, h, w)
-            q = torch.softmax(msg.view(c, n, t, L) - unary, dim=-1)
-    return q
+        if not _fused_step(mb):
+            return _mean_field_loop(mb, q, unary, ns, taps, w2, h, w, iters)
+        from critic_vae_tpu_torch.crf.mean_field_step import mean_field_steps
+
+        out = mean_field_steps(mb, q.reshape(c, n, t * L), unary.reshape(c, n, t * L), ns,
+                               taps, w2, h=h, w=w, classes=L, iters=iters)
+        return out.view(c, n, t, L)
 
 
 def _labels(q: torch.Tensor) -> torch.Tensor:

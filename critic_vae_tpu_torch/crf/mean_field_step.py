@@ -1,0 +1,161 @@
+"""Kernel ``mean_field_step``: one iteration of the device CRF's mean field
+on a bf16 bilateral matrix in one launch.
+
+Every caller of ``crf/device.py::_mean_field_q`` whose M is bf16 on the
+card runs its iterations here (``refine_masks_device`` and
+``refine_masks_multi_device`` on ``auto``/``pallas``, ``crf_param_search``,
+``densecrf_device``, ``build_pseudo_masks``, ``vmem`` at L != 2). Per frame
+of N = h*w pixels, with q's P = T*L lanes (T sets of L classes):
+
+    y  = n_s * q
+    z  = M @ bf16(q) + w2 * n_s * (sepconv(y) - y) - U
+    q' = softmax(z) over each group of L lanes
+
+which is ``_message(M, q) + w2 * _spatial_message(q, ...)``, less the
+unaries, through the softmax: the same bf16 M and bf16 q in the product,
+the separable conv of the taps along H and then W with zero outside the
+frame, in float32 (the composition runs cuDNN's TF32 on the card).
+
+The CUDA kernel is ``csrc/mean_field_step.cu``;
+:func:`mean_field_step_reference` is the plain version of one launch, lane
+group by lane group as the kernel takes them (:func:`lane_groups`).
+"""
+
+from __future__ import annotations
+
+from typing import List, Tuple
+
+import torch
+
+from critic_vae_tpu_torch.crf.fused_build import MAX_LAUNCH_FRAMES
+from critic_vae_tpu_torch.kernels import build as kb
+from critic_vae_tpu_torch.utils.profiling import span
+
+# A softmax group lies in one block's 64 lanes, and the kernel's spatial pass
+# holds, for a lane, the image rows of a block's 128 pixels (at most 2 w + 126
+# f32 words) and a row of y in its 16,256 words (csrc/mean_field_step.cu).
+MAX_CLASSES = 64
+MAX_WIDTH = 5376
+
+
+def lane_groups(lanes: int, classes: int) -> List[Tuple[int, int]]:
+    """The [l0, l1) lane groups of a launch: at most 64 lanes each, a whole
+    number of softmax groups of ``classes`` lanes (2 -> 64, 3 -> 63); each
+    reads M once."""
+    step = MAX_CLASSES // classes * classes
+    return [(l0, min(lanes, l0 + step)) for l0 in range(0, lanes, step)]
+
+
+def _tap_sum(x: torch.Tensor, taps: torch.Tensor, dim: int) -> torch.Tensor:
+    """sum_k taps[k] x[i + k - r] along ``dim``, zero outside it, tap by tap
+    in float32 (r = len(taps) // 2)."""
+    size, r = x.shape[dim], taps.shape[0] // 2
+    out = torch.zeros_like(x)
+    for k in range(taps.shape[0]):
+        d = k - r
+        if abs(d) >= size:
+            continue
+        lo, length = max(0, -d), size - abs(d)
+        out.narrow(dim, lo, length).add_(x.narrow(dim, lo + d, length) * taps[k])
+    return out
+
+
+def spatial_message_reference(y: torch.Tensor, ns: torch.Tensor, taps: torch.Tensor, h: int,
+                              w: int) -> torch.Tensor:
+    """n_s * (sepconv(y) - y) of the (C, P, N) lane-major y = n_s * q: the
+    taps along H, then along W, in float32."""
+    c, p, n = y.shape
+    img = y.reshape(c, p, h, w)
+    conv = _tap_sum(_tap_sum(img, taps.float(), 2), taps.float(), 3).reshape(c, p, n)
+    return ns.reshape(1, 1, n) * (conv - y)
+
+
+def mean_field_step_reference(mb: torch.Tensor, q: torch.Tensor, unary: torch.Tensor,
+                              ns: torch.Tensor, taps: torch.Tensor, w2, *, h: int, w: int,
+                              classes: int) -> torch.Tensor:
+    """Plain version of one launch: (C, N, N) M, (C, N, P) float32 q and
+    unaries, the (N, 1) n_s and the taps -> the (C, N, P) float32 q of the
+    next iteration."""
+    c, n, p = q.shape
+    y = (ns.reshape(1, n, 1) * q).transpose(1, 2)
+    sp = spatial_message_reference(y, ns, taps, h, w).transpose(1, 2)
+    m, qb = mb.float(), q.to(torch.bfloat16).float()
+    out = torch.empty_like(q)
+    for l0, l1 in lane_groups(p, classes):
+        z = torch.bmm(m, qb[..., l0:l1]) + w2 * sp[..., l0:l1] - unary[..., l0:l1]
+        out[..., l0:l1] = torch.softmax(z.unflatten(-1, (-1, classes)), dim=-1).flatten(-2)
+    return out
+
+
+def _check(mb, q, unary, ns, h, w, classes):
+    c, n, p = q.shape
+    if mb.dim() != 3 or tuple(mb.shape) != (c, n, n) or n != h * w:
+        raise ValueError(f"mean_field_step: want a (C={c}, N={n}, N) M of {h}x{w} frames, got "
+                         f"{tuple(mb.shape)}")
+    if tuple(unary.shape) != (c, n, p) or ns.numel() != n:
+        raise ValueError(f"mean_field_step: unary {tuple(unary.shape)} or n_s "
+                         f"{tuple(ns.shape)} does not match q {tuple(q.shape)}")
+    if not 0 < classes <= MAX_CLASSES or p % classes:
+        raise ValueError(f"mean_field_step: {p} lanes are no whole groups of 1 to "
+                         f"{MAX_CLASSES} classes, got {classes}")
+    if any(t.device != mb.device for t in (q, unary, ns)):
+        raise ValueError(f"mean_field_step: M on {mb.device}, q on {q.device}, unary on "
+                         f"{unary.device}, n_s on {ns.device}")
+
+
+def mean_field_steps(mb: torch.Tensor, q: torch.Tensor, unary: torch.Tensor, ns: torch.Tensor,
+                     taps: torch.Tensor, w2, *, h: int, w: int, classes: int,
+                     iters: int) -> torch.Tensor:
+    """``iters`` mean-field iterations from q.
+
+    Args:
+      mb: (C, N, N) bilateral matrices.
+      q: (C, N, P) float32, the first iteration's q.
+      unary: (C, N, P) float32 unaries.
+      ns: the (N, 1) spatial normalizer of ``taps`` (device.py::_spatial_norm).
+      classes: L, the lanes of one softmax group.
+
+    Returns the (C, N, P) float32 marginals. CUDA tensors launch the kernel
+    once an iteration (a contiguous bf16 M with N % 8 == 0, w <= MAX_WIDTH
+    and C <= 65535) or raise; CPU tensors take the plain version."""
+    _check(mb, q, unary, ns, h, w, classes)
+    if iters < 0:
+        raise ValueError(f"mean_field_step: iters={iters} < 0")
+    if not mb.is_cuda:
+        for _ in range(iters):
+            q = mean_field_step_reference(mb, q, unary, ns, taps, w2, h=h, w=w,
+                                          classes=classes)
+        return q
+    c, n, p = q.shape
+    if mb.dtype != torch.bfloat16 or not mb.is_contiguous():
+        raise ValueError(f"mean_field_step: M must be contiguous bf16, got {mb.dtype}")
+    if n % 8 or w > MAX_WIDTH or c > MAX_LAUNCH_FRAMES:
+        raise ValueError(f"mean_field_step: N={n} must divide by 8, w={w} be at most "
+                         f"{MAX_WIDTH} and C={c} at most {MAX_LAUNCH_FRAMES} on CUDA")
+    if iters == 0:
+        return q
+    dev = mb.device
+    unary = unary.float().contiguous()
+    ns_flat = ns.float().reshape(n).contiguous()
+    taps = taps.to(dev, torch.float32).contiguous()
+    qb = torch.empty((2, c, p, n), dtype=torch.bfloat16, device=dev)
+    y = torch.empty((2, c, p, n), dtype=torch.float32, device=dev)
+    out = torch.empty((c, n, p), dtype=torch.float32, device=dev)
+    qt = q.transpose(1, 2)
+    qb[0].copy_(qt)
+    torch.mul(ns_flat.reshape(1, 1, n), qt, out=y[0])
+    lib = kb.library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        for it in range(iters):
+            src, dst = it % 2, 1 - it % 2
+            with span("mean_field_step"):
+                status = lib.cvt_mean_field_step(
+                    mb.data_ptr(), qb[src].data_ptr(), y[src].data_ptr(), unary.data_ptr(),
+                    ns_flat.data_ptr(), taps.data_ptr(), taps.shape[0] // 2, c, n, w, p,
+                    classes, float(w2), int(it == iters - 1), qb[dst].data_ptr(),
+                    y[dst].data_ptr(), out.data_ptr(), stream,
+                )
+            kb.check(status, "mean_field_step")
+            kb.LAUNCHES["mean_field_step"] += 1
+    return out

@@ -42,7 +42,9 @@
 //   double-buffered across iterations, so it is the B operand of
 //   mma.sync.m16n8k16 as it stands.
 // * One product kernel for all P8 <= 64 lanes (8 n-tiles; wider q runs in
-//   groups of 64): a block owns 128 rows of one frame, 8 warps of 16 rows,
+//   groups of 64), its loop row_block_product.cuh (shared with the
+//   mean-field step, mean_field_step.cu): a block owns 128 rows of one
+//   frame, 8 warps of 16 rows,
 //   and walks all N columns in 128-column stages. M and q stream through two
 //   cp.async stages in shared memory (16-byte chunks, XOR-swizzled so
 //   ldmatrix is conflict-free; with two blocks an SM, 3-4 stages of 64 or
@@ -63,17 +65,15 @@
 #include <stdint.h>
 
 #include "bilateral_tile.cuh"  // includes mma_bf16.cuh
+#include "row_block_product.cuh"
 
 namespace {
 
 constexpr float kEpsProb = 1e-8f;
-constexpr int kWarps = 8;
-constexpr int kThreads = 32 * kWarps;
-constexpr int kBM = 16 * kWarps;  // rows a block
-constexpr int kBK = 128;          // columns a stage: 256 bytes a row
-constexpr int kChunks = kBK / 8;  // 16-byte chunks a row of a stage
-constexpr int kStages = 2;
-constexpr int kMaxTiles = 8;      // n-tiles of 8 lanes a launch
+using cvt::rows::kBM;
+using cvt::rows::kMaxTiles;  // n-tiles of 8 lanes a launch
+using cvt::rows::kThreads;
+namespace rows = cvt::rows;
 
 __device__ __forceinline__ float sigmoid(float x) { return 1.0f / (1.0f + expf(-x)); }
 
@@ -127,8 +127,6 @@ __global__ void init_kernel(const float* __restrict__ probs, int n, int p, int l
   if (write_out) out[pe] = q;
 }
 
-__host__ __device__ constexpr int stage_elems(int nt) { return (kBM + 8 * nt) * kBK; }
-
 // grid (ceil(N / kBM), C): lanes [l0, l0 + 8 NT) of one iteration,
 // q = pair_softmax(M @ qb_in - U) -> qb_out (bf16) and, if last, out (f32).
 // qb_*: (C, ldq, N) bf16; unary, out: (C, N, p) f32.
@@ -138,76 +136,12 @@ product_kernel(const __nv_bfloat16* __restrict__ m, const __nv_bfloat16* __restr
                const float* __restrict__ unary, int n, int p, int ldq, int l0, int last,
                __nv_bfloat16* __restrict__ qb_out, float* __restrict__ out) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* smem = reinterpret_cast<__nv_bfloat16*>(smem_raw);
   const long long f = blockIdx.y;
   const int row0 = blockIdx.x * kBM;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const __nv_bfloat16* mf = m + f * n * n;
-  const __nv_bfloat16* qf = qb_in + (f * ldq + l0) * n;
-  const int ktiles = (n + kBK - 1) / kBK;
-
-  // stage s <- columns [kt kBK, (kt + 1) kBK) of the block's M rows and of
-  // q's lanes; 16-byte chunk c of row r lands at chunk c ^ (r % 8)
-  auto load = [&](int s, int kt) {
-    __nv_bfloat16* sa = smem + s * stage_elems(NT);
-    __nv_bfloat16* sb = sa + kBM * kBK;
-    const int j0 = kt * kBK;
-    for (int e = tid; e < kBM * kChunks; e += kThreads) {
-      const int r = e / kChunks, ch = e % kChunks;
-      const int row = row0 + r, col = j0 + ch * 8;
-      const bool ok = row < n && col < n;  // N % 8 == 0: a chunk is whole or absent
-      cvt::cp_async16(sa + r * kBK + ((ch ^ (r & 7)) * 8),
-                      ok ? mf + static_cast<long long>(row) * n + col : mf, ok);
-    }
-    for (int e = tid; e < 8 * NT * kChunks; e += kThreads) {
-      const int l = e / kChunks, ch = e % kChunks;
-      const int col = j0 + ch * 8;
-      const bool ok = col < n;
-      cvt::cp_async16(sb + l * kBK + ((ch ^ (l & 7)) * 8),
-                      ok ? qf + static_cast<long long>(l) * n + col : qf, ok);
-    }
-  };
-
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   float acc[NT][4];
-#pragma unroll
-  for (int t = 0; t < NT; ++t)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) acc[t][c] = 0.0f;
-
-#pragma unroll
-  for (int s = 0; s < kStages - 1; ++s) {
-    if (s < ktiles) load(s, s);
-    cvt::cp_async_commit();
-  }
-  const int ar = warp * 16 + (lane & 15);  // this lane's ldmatrix row of A
-  for (int kt = 0; kt < ktiles; ++kt) {
-    cvt::cp_async_wait<kStages - 2>();
-    __syncthreads();  // stage kt is in; every warp is done with stage kt - 1
-    if (kt + kStages - 1 < ktiles) load((kt + kStages - 1) % kStages, kt + kStages - 1);
-    cvt::cp_async_commit();
-    const __nv_bfloat16* sa = smem + (kt % kStages) * stage_elems(NT);
-    const __nv_bfloat16* sb = sa + kBM * kBK;
-#pragma unroll
-    for (int kp = 0; kp < kBK / 32; ++kp) {
-      // B fragments of two k-steps: matrices = 16-byte chunks 4 kp .. 4 kp + 3
-      uint32_t b[NT][4];
-#pragma unroll
-      for (int t = 0; t < NT; ++t) {
-        const int br = t * 8 + (lane & 7);
-        cvt::ldmatrix_x4(b[t], sb + br * kBK + (((4 * kp + (lane >> 3)) ^ (br & 7)) * 8));
-      }
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int ks = 2 * kp + h;
-        uint32_t a[4];
-        cvt::ldmatrix_x4(a, sa + ar * kBK + (((2 * ks + (lane >> 4)) ^ (ar & 7)) * 8));
-#pragma unroll
-        for (int t = 0; t < NT; ++t)
-          cvt::mma_bf16_16816(acc[t], a[0], a[1], a[2], a[3], b[t][2 * h], b[t][2 * h + 1]);
-      }
-    }
-  }
-  cvt::cp_async_wait<0>();
+  rows::product<NT>(m + f * n * n, qb_in + (f * ldq + l0) * n, n, row0, ldq - l0,
+                    reinterpret_cast<__nv_bfloat16*>(smem_raw), acc);
 
   // acc[t]: rows g and g + 8 of the warp's 16, lanes 8t + 2q and 8t + 2q + 1,
   // one (neg, pos) pair
@@ -238,7 +172,7 @@ template <int NT>
 void launch_product(const __nv_bfloat16* m, const __nv_bfloat16* qb_in, const float* unary,
                     int frames, int n, int p, int ldq, int l0, int last,
                     __nv_bfloat16* qb_out, float* out, cudaStream_t s) {
-  constexpr int smem = kStages * stage_elems(NT) * static_cast<int>(sizeof(__nv_bfloat16));
+  constexpr int smem = rows::smem_bytes(NT);
   cudaFuncSetAttribute(product_kernel<NT>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   product_kernel<NT><<<dim3((n + kBM - 1) / kBM, frames), kThreads, smem, s>>>(
       m, qb_in, unary, n, p, ldq, l0, last, qb_out, out);

@@ -1,6 +1,7 @@
 // Warp-level bf16 tensor-core product and its operand loads, shared by the
-// probe kernels (caps_probe.cu, front_end_probe.cu) and kernel B5's
-// iteration (mean_field_resident.cu).
+// probe kernels (caps_probe.cu, front_end_probe.cu) and the mean field's
+// row-block product (row_block_product.cuh: kernel B5's iteration and the
+// mean-field step).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -47,6 +48,12 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool ok
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem),
                "r"(ok ? 16 : 0)
                : "memory");
+}
+
+// 4 bytes global -> shared without registers (cp.async.ca, the 4-byte form)
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(gmem) : "memory");
 }
 
 __device__ __forceinline__ void cp_async_commit() {

@@ -12,7 +12,8 @@ train step (train/step.py) opens ``train.forward``, ``train.loss``,
 when it replays as CUDA graphs; the mesh's gather opens
 ``mesh.all_gather`` (parallel/mesh.py); each hand-written kernel's launch
 is a span named after it (``diff_mask``, ``bilateral_build``,
-``kernel_i8_build``, ``matvec_i8``, ``mean_field_resident``).
+``kernel_i8_build``, ``matvec_i8``, ``mean_field_resident``,
+``mean_field_step``).
 """
 
 from __future__ import annotations

@@ -20,7 +20,8 @@ from bench_torch.tracing import Trace  # noqa: E402
 SPAN_METRICS = ["device_stage_ms_per_kframe", "crf_ms_per_kframe", "mean_field_roofline_pct",
                 "upload_idle_pct.video", "readback_idle_pct.video", "score_idle_pct.video",
                 "launches_per_step.forward", "launches_per_step.loss",
-                "launches_per_step.backward", "launches_per_step.update", "graph_replay_pct.train"]
+                "launches_per_step.backward", "launches_per_step.update", "graph_replay_pct.train",
+                "mean_field_fused_pct"]
 
 
 def _span(name, ts, dur, tid=1):
@@ -117,6 +118,39 @@ def test_mean_field_bound_at_the_video_configuration():
                    _launch(2 * chunk + 1, t0 + 20), _kernel(2 * chunk + 1, t0 + 10200, 2820.0)]
     t = _traced(events, cell="video-crf")
     assert reader.read(t) == pytest.approx(100.0 * reader.bound_s(cfg) / 12.82e-3)
+
+
+def _mean_field_chunks(kernel_names):
+    """Two crf.mean_field spans, each launching ``kernel_names`` in turn."""
+    events, corr = [], 0
+    for chunk in range(2):
+        t0 = 20000.0 * chunk
+        events.append(_span("crf.mean_field", t0, 1000.0))
+        for k, name in enumerate(kernel_names):
+            corr += 1
+            events += [_launch(corr, t0 + 10 + 50 * k),
+                       _kernel(corr, t0 + 20 + 900 * k, 800.0, name=name)]
+    return events
+
+
+STEP = "void (anonymous namespace)::mean_field_step_kernel<1>(__nv_bfloat16 const*)"
+
+
+@pytest.mark.parametrize("kernel_names, want", [
+    ([STEP] * 10, 100.0),                                     # one launch an iteration
+    (["cutlass_80_tensorop_s16816gemm_bf16_64x256", "sm90_xmma_fprop_implicit_gemm_tf32",
+      "softmax_warp_forward"] * 10, 0.0),                     # the library's mean field
+    ([STEP] * 5 + ["Memcpy"], 50.0),                          # half the iterations
+])
+def test_mean_field_fused_pct_counts_the_kernels_launches(kernel_names, want):
+    t = _traced(_mean_field_chunks(kernel_names), cell="video-crf")
+    assert core.metric_reader("mean_field_fused_pct").read(t) == pytest.approx(want)
+
+
+def test_mean_field_fused_pct_is_silent_without_the_span():
+    events = [e for e in _mean_field_chunks([STEP] * 10) if e["name"] != "crf.mean_field"]
+    t = _traced(events, cell="video-crf")
+    assert core.metric_reader("mean_field_fused_pct").read(t) is None
 
 
 def _graph_launch(corr, ts, tid=1):

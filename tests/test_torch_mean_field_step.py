@@ -1,0 +1,191 @@
+"""Kernel ``mean_field_step`` (crf/mean_field_step.py) on the CPU: its
+plain version of one launch against the composition it replaces on a bf16 M
+(crf/device.py::_mean_field_loop: ``_message`` + w2 ``_spatial_message`` -
+the unaries, then the softmax), its lane groups, the dispatch rule of
+``_mean_field_q``, and the labels of the entry points when their mean
+fields take the kernel's arithmetic. No JAX: the composition is the port's
+own, held to the JAX package by tests/test_torch_crf*.py."""
+
+import types
+
+import numpy as np
+import pytest
+import torch
+
+from critic_vae_tpu_torch.crf import REFERENCE_CRF_PARAMS
+from critic_vae_tpu_torch.crf import device as crf_device
+from critic_vae_tpu_torch.crf.device import (
+    BUILD_ENV,
+    _fused_step,
+    _mean_field_loop,
+    _mean_field_q,
+    _spatial_norm,
+    _spatial_taps,
+    densecrf_device,
+    refine_masks_device,
+    refine_masks_multi_device,
+)
+from critic_vae_tpu_torch.crf.mean_field_step import (
+    MAX_CLASSES,
+    lane_groups,
+    mean_field_step_reference,
+    mean_field_steps,
+)
+from critic_vae_tpu_torch.data.synthetic import generate_frames
+from critic_vae_tpu_torch.kernels import build as kb
+
+torch.set_num_threads(1)  # one intra-op thread a test process: xdist runs several at once
+
+W1, ALPHA, BETA, W2, GAMMA, ITERS = REFERENCE_CRF_PARAMS
+C = 2
+# q lies in [0, 1] and z = M @ q + w2 s - U in about [-30, 30] at these
+# weights: float32 rounds z to ~2e-6, two summation orders of the 4,096-term
+# product and of the 31-tap conv differ by a few such ulps, and the
+# softmax's slope (at most 1/2) carries that to q
+STEP_ATOL = 5e-6
+
+
+@pytest.fixture(autouse=True)
+def no_build_override(monkeypatch):
+    monkeypatch.delenv(BUILD_ENV, raising=False)
+
+
+def _inputs(lanes, classes, h, w, seed):
+    """A seeded bf16 M of B2's scale (row sums ~ w1) and (C, N, T, L) q and
+    unaries of random probabilities."""
+    g = torch.Generator().manual_seed(seed)
+    n = h * w
+    mb = (torch.rand((C, n, n), generator=g) * (2.0 * W1 / n)).to(torch.bfloat16)
+    probs = torch.rand((C, n, lanes // classes, classes), generator=g)
+    unary = -torch.log(torch.clamp_min(probs, 1e-8))
+    taps = torch.from_numpy(_spatial_taps(GAMMA, h, w))
+    return mb, torch.softmax(-unary, dim=-1), unary, _spatial_norm(taps, h, w), taps
+
+
+@pytest.mark.parametrize("h, w", [(64, 64), (16, 32), (8, 8)])
+@pytest.mark.parametrize("lanes, classes", [(2, 2), (3, 3), (26, 2), (130, 2)])
+def test_plain_step_is_the_composition(lanes, classes, h, w):
+    """One launch's plain version against one iteration of the composition
+    on the same bf16 M and q: 64x64 (the cell's frames), 16x32 (31 taps
+    clamped to the 16 rows) and 8x8 (the taps cut to the frame); 130 lanes
+    take three lane groups."""
+    mb, q, unary, ns, taps = _inputs(lanes, classes, h, w, seed=lanes + h)
+    n = h * w
+    want = _mean_field_loop(mb, q, unary, ns, taps, W2, h, w, 1).reshape(C, n, lanes)
+    got = mean_field_step_reference(mb, q.reshape(C, n, lanes), unary.reshape(C, n, lanes), ns,
+                                    taps, W2, h=h, w=w, classes=classes)
+    torch.testing.assert_close(got, want, rtol=0.0, atol=STEP_ATOL)
+    assert not torch.equal(q.reshape(C, n, lanes), got)  # the step moved q
+
+
+@pytest.mark.parametrize("lanes, classes, groups", [
+    (2, 2, [(0, 2)]),
+    (3, 3, [(0, 3)]),
+    (26, 2, [(0, 26)]),
+    (130, 2, [(0, 64), (64, 128), (128, 130)]),
+    (129, 3, [(0, 63), (63, 126), (126, 129)]),
+    (128, 64, [(0, 64), (64, 128)]),
+])
+def test_lane_groups_hold_whole_softmax_groups(lanes, classes, groups):
+    assert lane_groups(lanes, classes) == groups
+    assert all((l1 - l0) % classes == 0 and l1 - l0 <= MAX_CLASSES for l0, l1 in groups)
+
+
+def test_ten_plain_steps_follow_the_composition():
+    """The whole mean field on the CPU through mean_field_steps (the plain
+    version, no launch) against ten iterations of the composition: the
+    same labels, marginals within a few float32 roundings a step."""
+    h = w = 16
+    mb, q, unary, ns, taps = _inputs(26, 2, h, w, seed=5)
+    want = _mean_field_loop(mb, q, unary, ns, taps, W2, h, w, ITERS).reshape(C, h * w, 26)
+    kb.reset_launches()
+    got = mean_field_steps(mb, q.reshape(C, h * w, 26), unary.reshape(C, h * w, 26), ns, taps,
+                           W2, h=h, w=w, classes=2, iters=ITERS)
+    assert kb.LAUNCHES["mean_field_step"] == 0
+    torch.testing.assert_close(got, want, rtol=0.0, atol=ITERS * STEP_ATOL)
+    torch.testing.assert_close(got.unflatten(-1, (13, 2)).argmax(-1),
+                               want.unflatten(-1, (13, 2)).argmax(-1), rtol=0, atol=0)
+
+
+def test_dispatch_follows_m_and_its_device():
+    """A bf16 M on the card takes the kernel; a CPU tensor or a float32 M
+    the composition (bmm), as does a bf16 M whose rows are no whole 16-byte
+    chunks (N % 8 != 0)."""
+    cpu = torch.zeros((1, 8, 8), dtype=torch.bfloat16)
+    assert not _fused_step(cpu) and not _fused_step(cpu.float())
+
+    def card(dtype, n):
+        return types.SimpleNamespace(is_cuda=True, dtype=dtype, shape=(1, n, n))
+
+    assert _fused_step(card(torch.bfloat16, 4096))
+    assert not _fused_step(card(torch.float32, 4096))
+    assert not _fused_step(card(torch.bfloat16, 625))
+    assert kb.LAUNCHES.get("mean_field_step") is not None
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_cpu_mean_field_is_the_composition(dtype):
+    h = w = 16
+    mb, _, probs, ns, taps = _inputs(6, 3, h, w, seed=9)
+    unary = -torch.log(torch.clamp_min(probs, 1e-8))
+    q = torch.softmax(-unary, dim=-1)
+    kb.reset_launches()
+    got = _mean_field_q(mb.to(dtype), probs, taps, W2, h, w, ITERS)
+    assert torch.equal(got, _mean_field_loop(mb.to(dtype), q, unary, ns, taps, W2, h, w, ITERS))
+    assert kb.LAUNCHES["mean_field_step"] == 0
+
+
+def test_mean_field_steps_validates():
+    h = w = 8
+    mb, q, unary, ns, taps = _inputs(4, 2, h, w, seed=1)
+    q, unary = q.reshape(C, 64, 4), unary.reshape(C, 64, 4)
+    with pytest.raises(ValueError, match="whole groups"):
+        mean_field_steps(mb, q, unary, ns, taps, W2, h=h, w=w, classes=3, iters=1)
+    with pytest.raises(ValueError, match="whole groups"):
+        mean_field_steps(mb, q, unary, ns, taps, W2, h=h, w=w, classes=0, iters=1)
+    with pytest.raises(ValueError, match="frames"):
+        mean_field_steps(mb, q, unary, ns, taps, W2, h=h, w=4, classes=2, iters=1)
+    with pytest.raises(ValueError, match="iters"):
+        mean_field_steps(mb, q, unary, ns, taps, W2, h=h, w=w, classes=2, iters=-1)
+    with pytest.raises(ValueError, match="q on meta"):
+        mean_field_steps(mb, q.to("meta"), unary, ns, taps, W2, h=h, w=w, classes=2, iters=1)
+    assert mean_field_steps(mb, q, unary, ns, taps, W2, h=h, w=w, classes=2, iters=0) is q
+
+
+def _episode():
+    frames, gt = generate_frames(5, size=16, seed=11)
+    rng = np.random.default_rng(4)
+    noisy = gt ^ (rng.random(gt.shape) < 0.1)
+    return frames, gt, noisy
+
+
+def _refine(frames, gt, noisy):
+    return refine_masks_device(frames, noisy, build="pallas", frame_chunk=2, device="cpu")
+
+
+def _multi(frames, gt, noisy):
+    return refine_masks_multi_device(frames, np.stack([noisy, gt, noisy ^ gt]), build="pallas",
+                                     frame_chunk=4, device="cpu")
+
+
+def _densecrf(frames, gt, noisy):
+    rng = np.random.default_rng(6)
+    logits = rng.normal(size=(*gt.shape, 3)) + 2.0 * np.stack([~noisy, noisy, gt], axis=-1)
+    probs = np.exp(logits) / np.exp(logits).sum(-1, keepdims=True)
+    return densecrf_device(frames, probs.astype(np.float32), REFERENCE_CRF_PARAMS,
+                           build="pallas", compute_dtype="bfloat16", device="cpu")
+
+
+@pytest.mark.parametrize("entry", [_refine, _multi, _densecrf])
+def test_entry_point_labels_unchanged_by_the_kernels_arithmetic(entry, monkeypatch):
+    """refine_masks_device, refine_masks_multi_device (3 mask sets) and
+    densecrf_device (L = 3) on the CPU with B2's bf16 M: their labels, and
+    the same with every mean field sent down the kernel's path (its plain
+    version on the CPU), are equal."""
+    episode = _episode()
+    want = entry(*episode)
+    monkeypatch.setattr(crf_device, "_fused_step", lambda mb: True)
+    kb.reset_launches()
+    got = entry(*episode)
+    assert kb.LAUNCHES["mean_field_step"] == 0
+    np.testing.assert_array_equal(got, want)
