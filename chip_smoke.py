@@ -757,12 +757,12 @@ def phase_b5(dev):
     import torch
 
     from critic_vae_tpu_torch.crf import REFERENCE_CRF_PARAMS
-    from critic_vae_tpu_torch.crf.device import _spatial_taps
     from critic_vae_tpu_torch.crf.fused_build import build_bilateral
     from critic_vae_tpu_torch.crf.fused_resident import (
         mean_field_resident,
         mean_field_resident_reference,
     )
+    from critic_vae_tpu_torch.crf.terms import _spatial_taps
     from critic_vae_tpu_torch.data.synthetic import generate_frames
     from critic_vae_tpu_torch.device import cuda_ms
 
@@ -871,11 +871,12 @@ def phase_mean_field_step(dev):
     import torch
 
     from critic_vae_tpu_torch.crf import REFERENCE_CRF_PARAMS
-    from critic_vae_tpu_torch.crf.device import _mean_field_loop, _spatial_norm, _spatial_taps
+    from critic_vae_tpu_torch.crf.device import _matrix_message, _mean_field_loop
     from critic_vae_tpu_torch.crf.mean_field_step import (
         mean_field_step_reference,
         mean_field_steps,
     )
+    from critic_vae_tpu_torch.crf.terms import _spatial_norm, _spatial_taps
     from critic_vae_tpu_torch.device import cuda_ms, device_ms
 
     w1, w2, gamma, iters = REFERENCE_CRF_PARAMS[0], *REFERENCE_CRF_PARAMS[3:]
@@ -896,7 +897,7 @@ def phase_mean_field_step(dev):
                                              classes=classes)
 
         def library():  # today's path for a bf16 M: bmm, cuDNN's conv in TF32, softmax
-            return _mean_field_loop(mb, q0, unary, ns, taps, w2, H, W, iters)
+            return _mean_field_loop(_matrix_message(mb), q0, unary, ns, taps, w2, H, W, iters)
 
         with no_tf32():
             step_err = (kern(1) - plain()).abs().max().item()

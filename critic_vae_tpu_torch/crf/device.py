@@ -1,84 +1,102 @@
 """Exact dense-CRF mean-field on the device (counterpart of
 critic_vae_tpu/crf/device.py).
 
-Per frame of N = H*W pixels the bilateral term is the full N x N matrix M
-built by kernel B2 (crf/fused_build.py) or by the Gram form (``xla``); the
-spatial term
-exp(-(dx^2+dy^2)/2 gamma^2) is exactly separable, so its message is a
-truncated separable Gaussian depthwise conv. Messages run over j != i:
+Per frame of N = H*W pixels the bilateral term is an N x N matrix M; the
+spatial term exp(-(dx^2+dy^2)/2 gamma^2) is exactly separable, so its
+message is a truncated separable Gaussian depthwise conv. Messages run
+over j != i:
 
     Q <- softmax(-U + M @ Q + w2 * n_s * (K_s @ (n_s * Q)))   x iters
     seg = argmax Q
 
-with U = -log(clamp(prob, 1e-8)) and Q0 = softmax(-U). Frames go in padded
-fixed-size chunks; the chunk's M stack is the only N^2 temporary.
+with U = -log(clamp(prob, 1e-8)) and Q0 = softmax(-U) (crf/terms.py, which
+holds the terms every build shares).
 
-Builds (``_resolve_build``): ``pallas`` is B2 as above; ``xla`` builds M
-from Gram products in float32 with plain ops (:func:`_normalized_kernel`);
-``int8`` stores the unnormalized kernel as int8 (B3) and runs each
-iteration's bilateral message as an int8 matvec (B4); ``vmem`` runs the
-whole mean field, spatial term folded into one bf16 matrix, in kernel B5
-(crf/fused_resident.py). ``auto`` is ``pallas`` on a CUDA tensor when H*W
-divides by 128, else ``xla``, as the JAX package resolves it with the TPU
-in the card's place. ``refine_masks_multi_device`` refines T mask sets
-of the same frames against one matrix, packed as T*L lanes of Q (the
-threshold sweep). ``densecrf_device`` refines any (n, H, W, L)
-probabilities, returning labels or with ``soft`` the marginals, through
-every build; ``crf_param_search`` refines the same masks once for each
-combination of a parameter grid and scores each by IoU counted on the card.
-Each takes ``mesh=`` (parallel/mesh.py): the chunk is rounded up to a
-multiple of the mesh's ranks, each rank refines its rows of every chunk
-(the JAX package's ``_meshed_dispatch``: frames are independent, so no
-collective but the gather), and the rows are gathered so that every rank
-holds the whole result.
+Each decision is taken in one place:
+
+* :func:`_resolve_build` names the build: ``xla`` (M from Gram products in
+  float32, :func:`build_bilateral_xla`), ``pallas`` (kernel B2,
+  crf/fused_build.py), ``int8`` (B3 stores K as int8, B4's int8 matvec is
+  the message) or ``vmem`` (B5 runs the whole mean field, the spatial term
+  folded into one bf16 matrix, crf/fused_resident.py), as the JAX package;
+* :func:`_plan` says what the name means for the second operand (one mask,
+  T mask sets or L probabilities) and ``compute_dtype``: what runs, M's
+  dtype, a frame's bytes. No other code compares a build's name;
+* :func:`_run_chunked` cuts the frames into padded fixed-size chunks, gives
+  each chunk (C, N, T, L) probabilities (masks as (1 - m, m)), runs it
+  through the one chunk body :func:`_chunk_marginals` and keeps its labels,
+  or with ``soft`` its marginals, which the entry points reshape;
+* :func:`_mean_field_q` iterates on every bilateral term but B5's: one
+  launch of kernel ``mean_field_step`` (crf/mean_field_step.py) an
+  iteration for a bf16 M on the card with N % 8 == 0, else the one loop
+  :func:`_mean_field_loop` with the message as a function of q.
+
+``refine_masks_multi_device`` refines T mask sets of the same frames
+against one matrix, packed as T*L lanes of Q (the threshold sweep);
+``densecrf_device`` refines any (n, H, W, L) probabilities, returning
+labels or with ``soft`` the marginals; ``crf_param_search`` refines the
+same masks once for each combination of a parameter grid and scores each by
+IoU counted on the card. Each takes ``mesh=`` (parallel/mesh.py): the chunk
+is rounded up to a multiple of the mesh's ranks, each rank refines its rows
+of every chunk (the JAX package's ``_meshed_dispatch``: frames are
+independent, so no collective but the gather), and the rows are gathered
+so that every rank holds the whole result.
 
 The M @ Q message accumulates in float32 whatever M's storage dtype, as the
-JAX package's ``preferred_element_type=f32`` does. For a bf16 M on CUDA each
-iteration is one launch of kernel ``mean_field_step``
-(crf/mean_field_step.py): the product on the tensor cores, the spatial
-message in float32 and the softmax in its epilogue. Elsewhere it is the
-composition :func:`_mean_field_loop`: for a float32 M ``torch.bmm``; for a
-bf16 M on the CPU ``bmm`` of the bf16 values widened to float32 (bf16
-products are exact in float32), and on CUDA, where a ragged N leaves the
-kernel, ``torch.bmm(M, Q_bf16, torch.float32)``, the ``out_dtype`` overload
-that PyTorch documents for float32 output from bf16 operands on CUDA only
-(a plain bf16 ``bmm`` would round the messages to bf16).
+JAX package's ``preferred_element_type=f32`` does: outside the kernel, for
+a float32 M ``torch.bmm``; for a bf16 M on the CPU ``bmm`` of the bf16
+values widened to float32 (bf16 products are exact in float32), and on
+CUDA, where a ragged N leaves the kernel, ``torch.bmm(M, Q_bf16,
+torch.float32)``, the ``out_dtype`` overload that PyTorch documents for
+float32 output from bf16 operands on CUDA only (a plain bf16 ``bmm`` would
+round the messages to bf16).
 """
 
 from __future__ import annotations
 
+import itertools
 import os
-from typing import Tuple
+from typing import Callable, NamedTuple, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-from critic_vae_tpu_torch.crf import REFERENCE_CRF_PARAMS
+from critic_vae_tpu_torch.crf import DEFAULT_PARAM_GRID, REFERENCE_CRF_PARAMS
+from critic_vae_tpu_torch.crf.fused_build import (
+    QUANT_SCALE,
+    build_bilateral,
+    build_kernel_i8,
+    matvec_i8,
+)
+from critic_vae_tpu_torch.crf.fused_resident import (
+    MAX_RESIDENT_N,
+    mean_field_resident,
+    workspace_bytes,
+)
+from critic_vae_tpu_torch.crf.mean_field_step import mean_field_steps
+from critic_vae_tpu_torch.crf.terms import (
+    _EPS_NORM,
+    _coords,
+    _prologue,
+    _spatial_norm,
+    _spatial_taps,
+)
+from critic_vae_tpu_torch.device import resolve_device
 from critic_vae_tpu_torch.ops.mask import iou_counts, ious_from_counts
+from critic_vae_tpu_torch.parallel.mesh import fetch as mesh_fetch, shard_batch
 from critic_vae_tpu_torch.utils.profiling import span
-
-_EPS_PROB = 1e-8   # unary clamp, as densecrf.cpp
-_EPS_NORM = 1e-20  # normalizer epsilon, as densecrf.cpp
 
 # Per-chunk budget for the N^2 workspaces, in bytes; MEM_ENV overrides it,
 # as in the JAX package (its crf/device.py _run_chunked). The JAX package
 # sized the default for a 16 GB TPU chip; kept as is until it is measured on
-# the 80 GB H100 (ROADMAP A.7). At 64x64 it allows 95 f32, 190 bf16 or 381
+# the 80 GB H100 (ROADMAP G.1). At 64x64 it allows 95 f32, 190 bf16 or 381
 # int8 frames, above the default chunk of 64.
 _MEM_BUDGET = 6 * 1024**3
 MEM_ENV = "CRITIC_VAE_TPU_CRF_MEM"
 
 # the JAX package's build override (its crf/device.py _resolve_build)
 BUILD_ENV = "CRITIC_VAE_TPU_CRF_BUILD"
-
-
-def _coords(h: int, w: int, device) -> torch.Tensor:
-    """(N, 2) pixel coordinates in (x, y) order, float32."""
-    y, x = torch.meshgrid(torch.arange(h, dtype=torch.float32, device=device),
-                          torch.arange(w, dtype=torch.float32, device=device),
-                          indexing="ij")
-    return torch.stack([x.reshape(-1), y.reshape(-1)], dim=-1)
 
 
 def _fma_products(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -139,39 +157,12 @@ def build_bilateral_xla(imgs_u8: torch.Tensor, w1, alpha, beta, *, h: int, w: in
     return out
 
 
-def _spatial_taps(gamma: float, h: int, w: int) -> np.ndarray:
-    """1-D taps of the separable spatial Gaussian, truncated where it is
-    numerically zero (>= 8 gamma) and clamped to the frame, so the length is
-    odd and SAME padding is symmetric."""
-    radius = min(int(np.ceil(8.0 * gamma)), max(h, w) - 1)
-    k = np.arange(-radius, radius + 1, dtype=np.float32)
-    return np.exp(-0.5 * (k / np.float32(gamma)) ** 2).astype(np.float32)
-
-
 def _sep_conv(x: torch.Tensor, taps: torch.Tensor) -> torch.Tensor:
     """Depthwise (B, C, H, W) conv with outer(taps, taps): along H, then W."""
     c, k = x.shape[1], taps.shape[0]
     r = k // 2
     x = F.conv2d(x, taps.view(1, 1, k, 1).repeat(c, 1, 1, 1), padding=(r, 0), groups=c)
     return F.conv2d(x, taps.view(1, 1, 1, k).repeat(c, 1, 1, 1), padding=(0, r), groups=c)
-
-
-def _spatial_norm(taps: torch.Tensor, h: int, w: int) -> torch.Tensor:
-    """(N, 1) n_s = rsqrt(sum_{j != i} K_s[i, j] + 1e-20) on ``taps``'
-    device, in float32. The separable conv of ones at (y, x) is the sum of
-    the taps inside the frame along y times that along x, taken here in
-    closed form (no conv, so no TF32 on a card); it includes the centre tap
-    (weight 1), which the -1 takes back out. The same for every frame."""
-    taps = taps.float()
-    r = taps.shape[0] // 2
-    offs = torch.arange(-r, r + 1, device=taps.device)
-
-    def inside(size):
-        pos = torch.arange(size, device=taps.device)[:, None] + offs[None, :]
-        return torch.where((pos >= 0) & (pos < size), taps, 0.0).sum(dim=1)
-
-    ones_conv = inside(h)[:, None] * inside(w)[None, :]
-    return torch.rsqrt(ones_conv.reshape(h * w, 1) - 1.0 + _EPS_NORM)
 
 
 def _spatial_message(q: torch.Tensor, ns: torch.Tensor, taps: torch.Tensor, h: int,
@@ -185,156 +176,83 @@ def _spatial_message(q: torch.Tensor, ns: torch.Tensor, taps: torch.Tensor, h: i
     return ns * sp
 
 
-def _message(mb: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
-    """M @ Q with float32 accumulation and output (see the module note)."""
+def _matrix_message(mb: torch.Tensor) -> Callable:
+    """q -> M @ q with float32 accumulation and output (see the module note)."""
     if mb.dtype == torch.float32:
-        return torch.bmm(mb, q)
-    qm = q.to(mb.dtype)
+        return lambda q: torch.bmm(mb, q)
     if mb.is_cuda:
-        return torch.bmm(mb, qm, torch.float32)
-    return torch.bmm(mb.float(), qm.float())
+        return lambda q: torch.bmm(mb, q.to(mb.dtype), torch.float32)
+    return lambda q: torch.bmm(mb.float(), q.to(mb.dtype).float())
 
 
-def _fused_step(mb: torch.Tensor) -> bool:
-    """Whether the mean field over ``mb`` runs as kernel ``mean_field_step``:
-    a bf16 M on the card whose rows are whole 16-byte chunks (N % 8 == 0, as
-    the kernel's copies want; the ``pallas`` build's M, at H*W % 128 == 0,
-    always is). CPU tensors and a float32 M run :func:`_mean_field_loop`."""
-    return mb.is_cuda and mb.dtype == torch.bfloat16 and mb.shape[-1] % 8 == 0
+def _i8_message(imgs_u8: torch.Tensor, w1, alpha, beta, *, h: int, w: int,
+                out_dtype: str = "int8") -> Callable:
+    """The ``int8`` build's bilateral term: kernel B3 stores the
+    unnormalized kernel as int8 (scale 127) with the row sums of the stored
+    values, and the message is kernel B4's int8 matvec with the normalizers
+    folded into the vector,
+
+        M @ q = g * (K_i8 @ (g * q)),  g = sqrt(w1/127) rsqrt(rowsum/127 + eps)
+
+    the exactly normalized 8-bit model. Returns the message as a function of
+    (C, N, P) q; ``out_dtype`` is the plan's, int8 being B3's only storage."""
+    c, n, _ = imgs_u8.shape
+    k8, rowsum = build_kernel_i8(imgs_u8, alpha, beta, h=h, w=w)
+    w1_t = torch.tensor(w1, dtype=torch.float32, device=imgs_u8.device)
+    g = (torch.sqrt(w1_t / QUANT_SCALE)
+         * torch.rsqrt(rowsum / QUANT_SCALE + _EPS_NORM)).view(c, n, 1)
+    return lambda q: g * matvec_i8(k8, (g * q).view(c * n, -1), n=n).view(c, n, -1)
 
 
-def _mean_field_loop(mb: torch.Tensor, q: torch.Tensor, unary: torch.Tensor,
+def _fused_step(bilateral) -> bool:
+    """Whether the mean field over a chunk's bilateral term runs as kernel
+    ``mean_field_step``: a bf16 M on the card whose rows are whole 16-byte
+    chunks (N % 8 == 0, as the kernel's copies want; the ``pallas`` build's
+    M, at H*W % 128 == 0, always is). CPU tensors, a float32 M and B3's
+    message (a function) run :func:`_mean_field_loop`."""
+    return (not callable(bilateral) and bilateral.is_cuda
+            and bilateral.dtype == torch.bfloat16 and bilateral.shape[-1] % 8 == 0)
+
+
+def _mean_field_loop(message: Callable, q: torch.Tensor, unary: torch.Tensor,
                      ns: torch.Tensor, taps: torch.Tensor, w2, h: int, w: int,
                      iters: int) -> torch.Tensor:
-    """The mean field as the composition of :func:`_message`,
+    """The mean field as the composition of ``message`` (a function of the
+    (C, N, P) q: :func:`_matrix_message` or :func:`_i8_message`),
     :func:`_spatial_message` and the softmax: (C, N, T, L) q and unaries ->
     (C, N, T, L) float32 marginals."""
     c, n, t, L = q.shape
     for _ in range(iters):
         qf = q.reshape(c, n, t * L)
-        msg = _message(mb, qf) + w2 * _spatial_message(qf, ns, taps, h, w)
+        msg = message(qf) + w2 * _spatial_message(qf, ns, taps, h, w)
         q = torch.softmax(msg.view(c, n, t, L) - unary, dim=-1)
     return q
 
 
-def _mean_field_q(mb: torch.Tensor, probs: torch.Tensor, taps: torch.Tensor, w2, h: int,
-                  w: int, iters: int) -> torch.Tensor:
-    """T independent mean fields over the chunk's bilateral matrices ``mb``
-    (C, N, N), packed into the lanes of Q: (C, N, T, L) probabilities ->
-    (C, N, T, L) float32 marginals. M is read once an iteration for all T:
-    by kernel ``mean_field_step`` where :func:`_fused_step` says so, else by
-    :func:`_mean_field_loop`."""
+def _mean_field_q(bilateral, probs: torch.Tensor, taps: torch.Tensor, w2, h: int, w: int,
+                  iters: int) -> torch.Tensor:
+    """T independent mean fields over a chunk's bilateral term, packed into
+    the lanes of Q: (C, N, T, L) probabilities -> (C, N, T, L) float32
+    marginals. ``bilateral`` is the (C, N, N) M, read once an iteration for
+    all T, by kernel ``mean_field_step`` where :func:`_fused_step` says so
+    and else by :func:`_mean_field_loop`; or B3's message
+    (:func:`_i8_message`). The prologue stays outside ``crf.mean_field``."""
     c, n, t, L = probs.shape
     ns = _spatial_norm(taps, h, w)
-    unary = -torch.log(torch.clamp_min(probs, _EPS_PROB))
-    q = torch.softmax(-unary, dim=-1)
+    unary, q = _prologue(probs)
     with span("crf.mean_field"):
-        if not _fused_step(mb):
-            return _mean_field_loop(mb, q, unary, ns, taps, w2, h, w, iters)
-        from critic_vae_tpu_torch.crf.mean_field_step import mean_field_steps
-
-        out = mean_field_steps(mb, q.reshape(c, n, t * L), unary.reshape(c, n, t * L), ns,
-                               taps, w2, h=h, w=w, classes=L, iters=iters)
+        if not _fused_step(bilateral):
+            message = bilateral if callable(bilateral) else _matrix_message(bilateral)
+            return _mean_field_loop(message, q, unary, ns, taps, w2, h, w, iters)
+        out = mean_field_steps(bilateral, q.reshape(c, n, t * L), unary.reshape(c, n, t * L),
+                               ns, taps, w2, h=h, w=w, classes=L, iters=iters)
         return out.view(c, n, t, L)
 
 
 def _labels(q: torch.Tensor) -> torch.Tensor:
-    """Argmax labels of marginals along the last axis, uint8."""
+    """Argmax labels of marginals along the last axis, uint8 (the first
+    class on a tie, so at L = 2 the label is q_1 > q_0, B5's own rule)."""
     return torch.argmax(q, dim=-1).to(torch.uint8)
-
-
-def _chunk_mean_field_i8(imgs_u8: torch.Tensor, probs: torch.Tensor, taps: torch.Tensor,
-                         w1, w2, alpha, beta, h: int, w: int, iters: int,
-                         soft: bool = False) -> torch.Tensor:
-    """The int8 chunk body: kernel B3 stores the unnormalized kernel as
-    int8 (scale 127) with the row sums of the stored values, and each
-    iteration's bilateral message is kernel B4's int8 matvec with the
-    normalizers folded into the vector,
-
-        M @ q = g * (K_i8 @ (g * q)),  g = sqrt(w1/127) rsqrt(rowsum/127 + eps)
-
-    the exactly normalized 8-bit model. (C, N, L) probabilities, any L ->
-    (C, N) uint8 labels, or the (C, N, L) marginals with ``soft``."""
-    from critic_vae_tpu_torch.crf.fused_build import QUANT_SCALE, build_kernel_i8, matvec_i8
-
-    c, n, L = probs.shape
-    k8, rowsum = build_kernel_i8(imgs_u8, alpha, beta, h=h, w=w)
-    w1_t = torch.tensor(w1, dtype=torch.float32, device=probs.device)
-    g = (torch.sqrt(w1_t / QUANT_SCALE)
-         * torch.rsqrt(rowsum / QUANT_SCALE + _EPS_NORM)).view(c, n, 1)
-    ns = _spatial_norm(taps, h, w)
-    unary = -torch.log(torch.clamp_min(probs, _EPS_PROB))
-    q = torch.softmax(-unary, dim=-1)
-    for _ in range(iters):
-        msg = g * matvec_i8(k8, (g * q).view(c * n, L), n=n).view(c, n, L)
-        msg = msg + w2 * _spatial_message(q, ns, taps, h, w)
-        q = torch.softmax(msg - unary, dim=-1)
-    return q if soft else _labels(q)
-
-
-def _chunk_mean_field(imgs_u8: torch.Tensor, probs: torch.Tensor, taps: torch.Tensor, w1,
-                      w2, alpha, beta, gamma, *, h: int, w: int, iters: int,
-                      compute_dtype: str, soft: bool, fused: str) -> torch.Tensor:
-    """The chunk body of one set of probabilities, as the JAX package's
-    ``_chunk_mean_field``: (C, N, 3) uint8 frames and (C, N, L) float32
-    probabilities -> (C, N) uint8 labels, or the (C, N, L) float32 marginals
-    with ``soft``, through the resolved build ``fused``: ``vmem`` (B5) at L
-    = 2 and ``pallas`` otherwise, ``int8`` (B3 + B4, any L), ``pallas`` (B2
-    in ``compute_dtype``) or ``xla``."""
-    if fused == "vmem" and probs.shape[-1] == 2:
-        from critic_vae_tpu_torch.crf.fused_resident import mean_field_resident
-
-        q = mean_field_resident(imgs_u8, probs, taps, w1, w2, alpha, beta, gamma, h=h, w=w,
-                                iters=iters)
-        return q if soft else (q[..., 1] > q[..., 0]).to(torch.uint8)
-    if fused == "int8":
-        return _chunk_mean_field_i8(imgs_u8, probs, taps, w1, w2, alpha, beta, h, w, iters,
-                                    soft)
-    from critic_vae_tpu_torch.crf.fused_build import build_bilateral
-
-    # pallas, and vmem at L != 2 (B5's pair softmax does not apply): B2
-    build = build_bilateral_xla if fused == "xla" else build_bilateral
-    with span("crf.build"):
-        mb = build(imgs_u8, w1, alpha, beta, h=h, w=w, out_dtype=compute_dtype)
-    q = _mean_field_q(mb, probs[:, :, None], taps, w2, h, w, iters)[:, :, 0]
-    return q if soft else _labels(q)
-
-
-def _mask_probs(masks_u8: torch.Tensor) -> torch.Tensor:
-    """0/1 masks -> the stacked (1 - mask, mask) class planes, last axis."""
-    m = masks_u8.float()
-    return torch.stack([1.0 - m, m], dim=-1)
-
-
-def _crf_chunk_from_masks(imgs_u8: torch.Tensor, masks_u8: torch.Tensor,
-                          taps: torch.Tensor, w1, w2, alpha, beta, gamma, *, h: int,
-                          w: int, iters: int, compute_dtype: str,
-                          fused: str) -> torch.Tensor:
-    """One chunk of masks through the resolved build ``fused``: (C, N, 3)
-    uint8 frames and (C, N) 0/1 masks -> (C, N) uint8 labels by
-    :func:`_chunk_mean_field` on the (1 - mask, mask) probabilities; or
-    (C, N, T) mask sets -> (C, T, N) labels, all T against one bilateral
-    build, where ``int8`` takes B2 in bf16, as the JAX package does: the
-    lane-packed product wants a plain M operand."""
-    if masks_u8.dim() == 2:
-        return _chunk_mean_field(imgs_u8, _mask_probs(masks_u8), taps, w1, w2, alpha, beta,
-                                 gamma, h=h, w=w, iters=iters, compute_dtype=compute_dtype,
-                                 soft=False, fused=fused)
-    probs = _mask_probs(masks_u8)  # (C, N, T, 2)
-    c, n, t, _ = probs.shape
-    if fused == "vmem":
-        from critic_vae_tpu_torch.crf.fused_resident import mean_field_resident
-
-        q = mean_field_resident(imgs_u8, probs.reshape(c, n, 2 * t), taps, w1, w2, alpha,
-                                beta, gamma, h=h, w=w, iters=iters).view(c, n, t, 2)
-        return (q[..., 1] > q[..., 0]).to(torch.uint8).transpose(1, 2)
-    from critic_vae_tpu_torch.crf.fused_build import build_bilateral
-
-    dt = "bfloat16" if fused == "int8" else compute_dtype
-    build = build_bilateral_xla if fused == "xla" else build_bilateral
-    with span("crf.build"):
-        mb = build(imgs_u8, w1, alpha, beta, h=h, w=w, out_dtype=dt)
-    return _labels(_mean_field_q(mb, probs, taps, w2, h, w, iters)).transpose(1, 2)
 
 
 def _resolve_build(build: str, h: int, w: int, device) -> str:
@@ -351,12 +269,10 @@ def _resolve_build(build: str, h: int, w: int, device) -> str:
       ``xla`` (the CPU included, as the JAX package's CPU runs ``xla``).
 
     ``CRITIC_VAE_TPU_CRF_BUILD`` overrides ``build``. ``pallas``, ``int8``
-    and ``vmem`` keep the JAX package's TPU limits for parity (ROADMAP C):
+    and ``vmem`` keep the JAX package's TPU limits for parity (ROADMAP G.1):
     H*W divisible by 128, and for ``vmem`` H*W <= MAX_RESIDENT_N; each
     routes to its kernel on a CUDA tensor (the plain versions run only for
     CPU tensors)."""
-    from critic_vae_tpu_torch.crf.fused_resident import MAX_RESIDENT_N
-
     build = os.environ.get(BUILD_ENV, build)
     if build == "xla":
         return "xla"
@@ -374,33 +290,75 @@ def _resolve_build(build: str, h: int, w: int, device) -> str:
     raise ValueError(f"unknown build {build!r} (auto|xla|pallas|int8|vmem)")
 
 
-def _auto_dtype(fused: str, multi: bool) -> str:
-    """``compute_dtype="auto"``, as the JAX package: bf16 M for the kernel
-    builds (``int8`` too when many masks share its bf16 B2 matrix),
-    float32 for ``xla``."""
-    bf16 = ("pallas", "int8", "vmem") if multi else ("pallas", "vmem")
-    return "bfloat16" if fused in bf16 else "float32"
+class _Plan(NamedTuple):
+    """What a resolved build runs for one second operand (:func:`_plan`)."""
+
+    build: Callable   # B5's mean_field_resident, or the builder of the bilateral term
+    m_dtype: str      # the matrix's storage: "float32", "bfloat16" or "int8" (B3's K)
+    frame_bytes: int  # a frame's N^2 workspace, against the chunk budget
 
 
-def _chunk_frames(frame_chunk: int, fused: str, multi: bool, compute_dtype: str,
-                  npix: int, lanes: int) -> int:
-    """Frames per chunk: at most ``frame_chunk`` (and at least 1) whose N^2
-    workspace fits the budget (``CRITIC_VAE_TPU_CRF_MEM`` bytes, default 6
-    GiB). Per frame that is the int8 K (``int8``, one mask), M in bf16
-    (``int8`` with many masks) or in ``compute_dtype``, or for ``vmem``
-    kernel B5's workspace (fused_resident.workspace_bytes)."""
-    if fused == "vmem":
-        from critic_vae_tpu_torch.crf.fused_resident import workspace_bytes
+def _plan(build: str, second: torch.Tensor, compute_dtype: str) -> _Plan:
+    """What the resolved ``build`` means for :func:`_run_chunked`'s second
+    operand ``second`` ((n, N) 0/1 masks, (n, N, T) mask sets or (n, N, L)
+    float probabilities) and ``compute_dtype``, as the JAX package decides:
 
-        frame_bytes = workspace_bytes(1, npix, lanes)
-    elif fused == "int8" and not multi:
-        frame_bytes = npix * npix
-    elif fused == "int8" or compute_dtype == "bfloat16":
-        frame_bytes = 2 * npix * npix
-    else:
-        frame_bytes = 4 * npix * npix
-    budget = int(os.environ.get(MEM_ENV, _MEM_BUDGET))
-    return max(1, min(frame_chunk, budget // frame_bytes))
+    * ``vmem``: B5 on the T*L lanes, but ``pallas`` for probabilities at L
+      != 2 (B5's pair softmax wants L = 2); its workspace is
+      fused_resident.workspace_bytes;
+    * ``int8``: B3 + B4 on one mask set or on probabilities, its K at one
+      byte an entry; many mask sets take B2 in bf16 (the lane-packed
+      product wants a plain M operand);
+    * ``pallas`` (B2) and ``xla``: M in ``compute_dtype``, ``auto`` being
+      bf16 for B2 and float32 for ``xla``; 2 bytes an entry in bf16, else 4.
+    """
+    npix = second.shape[1]
+    probs = second.is_floating_point()
+    multi = not probs and second.dim() == 3
+    lanes = second.shape[2] if probs else 2 * (second.shape[2] if multi else 1)
+    if build == "vmem" and probs and lanes != 2:
+        build = "pallas"
+    if build == "vmem":
+        return _Plan(mean_field_resident, "bfloat16", workspace_bytes(1, npix, lanes))
+    if build == "int8" and multi:
+        build, compute_dtype = "pallas", "bfloat16"
+    if build == "int8":
+        return _Plan(_i8_message, "int8", npix * npix)
+    if compute_dtype == "auto":
+        compute_dtype = "float32" if build == "xla" else "bfloat16"
+    builder = build_bilateral_xla if build == "xla" else build_bilateral
+    entry = 2 if compute_dtype == "bfloat16" else 4
+    return _Plan(builder, compute_dtype, entry * npix * npix)
+
+
+def _as_probs(second: torch.Tensor) -> torch.Tensor:
+    """A chunk's second operand as (C, N, T, L) probabilities: (C, N, L)
+    probabilities as T = 1, (C, N) 0/1 masks as the (1 - m, m) planes of T =
+    1 and (C, N, T) mask sets as T such pairs."""
+    if second.is_floating_point():
+        return second[:, :, None]
+    m = second.float()
+    if m.dim() == 2:
+        m = m[:, :, None]
+    return torch.stack([1.0 - m, m], dim=-1)
+
+
+def _chunk_marginals(plan: _Plan, imgs_u8: torch.Tensor, probs: torch.Tensor,
+                     taps: torch.Tensor, params, h: int, w: int) -> torch.Tensor:
+    """The chunk body of every build: (C, N, 3) uint8 frames and (C, N, T, L)
+    float32 probabilities -> (C, N, T, L) float32 marginals through
+    ``plan``. B5 runs the whole mean field on the T*L lanes; any other
+    build makes the bilateral term inside ``crf.build`` and
+    :func:`_mean_field_q` iterates on it."""
+    w1, alpha, beta, w2, gamma, iters = params
+    c, n, t, L = probs.shape
+    if plan.build is mean_field_resident:
+        q = mean_field_resident(imgs_u8, probs.reshape(c, n, t * L), taps, w1, w2, alpha,
+                                beta, gamma, h=h, w=w, iters=int(iters))
+        return q.view(c, n, t, L)
+    with span("crf.build"):
+        bilateral = plan.build(imgs_u8, w1, alpha, beta, h=h, w=w, out_dtype=plan.m_dtype)
+    return _mean_field_q(bilateral, probs, taps, w2, h, w, int(iters))
 
 
 def _run_chunked(flat_imgs: torch.Tensor, flat_second: torch.Tensor, params, h: int,
@@ -408,40 +366,24 @@ def _run_chunked(flat_imgs: torch.Tensor, flat_second: torch.Tensor, params, h: 
                  fetch: bool = True, soft: bool = False, mesh=None):
     """Refine (n, N, 3) frames with (n, N) 0/1 masks, (n, N, T) mask sets or
     (n, N, L) float probabilities, in fixed-size chunks padded by repeating
-    the last frame. Returns (n, N) or (n, T, N) uint8 labels, or for
-    probabilities with ``soft`` the (n, N, L) float32 marginals; as numpy
-    with ``fetch`` or as a device tensor without. With a ``mesh`` the chunk
-    is rounded up to a multiple of its ranks, each rank runs the chunk body
-    on its rows (the JAX package's ``_meshed_dispatch``) and the rows are
-    gathered (parallel/mesh.py::fetch)."""
-    w1, alpha, beta, w2, gamma, iters = params
-    fused = _resolve_build(build, h, w, flat_imgs.device)
-    probs = flat_second.is_floating_point()
-    multi = not probs and flat_second.dim() == 3
-    if probs and fused == "vmem" and flat_second.shape[2] != 2:
-        fused = "pallas"  # as the chunk body falls back: B5's pair softmax wants L = 2
-    if compute_dtype == "auto":
-        compute_dtype = _auto_dtype(fused, multi)
-    n, npix = flat_imgs.shape[0], h * w
+    the last frame. Returns the (n, N, T) uint8 labels (T = 1 but for mask
+    sets), or with ``soft`` the (n, N, T, L) float32 marginals; as numpy
+    with ``fetch`` or as a device tensor without. A chunk holds at most
+    ``frame_chunk`` frames (and at least 1) whose workspace fits the budget
+    (``CRITIC_VAE_TPU_CRF_MEM`` bytes, default 6 GiB). With a ``mesh`` the
+    chunk is rounded up to a multiple of its ranks, each rank runs the chunk
+    body on its rows (the JAX package's ``_meshed_dispatch``) and the rows
+    are gathered (parallel/mesh.py::fetch)."""
+    plan = _plan(_resolve_build(build, h, w, flat_imgs.device), flat_second, compute_dtype)
+    n = flat_imgs.shape[0]
     if n == 0:
-        if probs and soft:
-            out = torch.empty((0, npix, flat_second.shape[2]), dtype=torch.float32,
-                              device=flat_imgs.device)
-        else:
-            shape = (0, flat_second.shape[2], npix) if multi else (0, npix)
-            out = torch.empty(shape, dtype=torch.uint8, device=flat_imgs.device)
+        out = _as_probs(flat_second) if soft else _labels(_as_probs(flat_second))
         return out.cpu().numpy() if fetch else out
-    taps = torch.from_numpy(_spatial_taps(float(gamma), h, w)).to(flat_imgs.device)
-    if probs:
-        lanes = flat_second.shape[2]
-    else:
-        lanes = 2 * (flat_second.shape[2] if multi else 1)
-    frame_chunk = _chunk_frames(min(frame_chunk, n), fused, multi, compute_dtype, npix, lanes)
+    taps = torch.from_numpy(_spatial_taps(float(params[4]), h, w)).to(flat_imgs.device)
+    budget = int(os.environ.get(MEM_ENV, _MEM_BUDGET))
+    frame_chunk = max(1, min(frame_chunk, n, budget // plan.frame_bytes))
     if mesh is not None:
-        from critic_vae_tpu_torch.parallel.mesh import fetch as mesh_fetch, shard_batch
-
         frame_chunk += (-frame_chunk) % mesh.size
-    kw = dict(h=h, w=w, iters=int(iters), compute_dtype=compute_dtype, fused=fused)
     segs = []
     for i in range(0, n, frame_chunk):
         imgs = flat_imgs[i : i + frame_chunk]
@@ -453,11 +395,9 @@ def _run_chunked(flat_imgs: torch.Tensor, flat_second: torch.Tensor, params, h: 
             second = torch.cat([second, second[-1:].expand(pad, *second.shape[1:])])
         if mesh is not None:
             imgs, second = shard_batch(mesh, imgs), shard_batch(mesh, second)
-        args = (imgs.contiguous(), second, taps, w1, w2, alpha, beta, gamma)
-        if probs:
-            seg = _chunk_mean_field(*args, soft=soft, **kw)
-        else:
-            seg = _crf_chunk_from_masks(*args, **kw)
+        seg = _chunk_marginals(plan, imgs.contiguous(), _as_probs(second), taps, params, h, w)
+        if not soft:
+            seg = _labels(seg)
         if mesh is not None:
             seg = mesh_fetch(mesh, seg)
         segs.append(seg[:valid])
@@ -472,8 +412,6 @@ def _frames_on(frames_u8, device, name: str):
         if isinstance(frames_u8, torch.Tensor):
             device = frames_u8.device
         else:
-            from critic_vae_tpu_torch.device import resolve_device
-
             device = resolve_device("cuda")
     device = torch.device(device)
     frames = torch.as_tensor(frames_u8, device=device)
@@ -544,10 +482,6 @@ def crf_param_search(frames_u8, thr_masks, gt, param_grid: dict | None = None, *
     combination in descending IoU (ties in grid order), ``best_masks`` the
     (n, H, W) bool numpy refinement of the first combination with the
     highest IoU."""
-    import itertools
-
-    from critic_vae_tpu_torch.crf import DEFAULT_PARAM_GRID
-
     keys = ("w1", "alpha", "beta", "w2", "gamma", "iters")
     if param_grid:
         bad = set(param_grid) - set(keys)
@@ -641,7 +575,7 @@ def refine_masks_multi_device(frames_u8, thr_masks_multi,
     out = _run_chunked(
         frames.reshape(f, h * w_, 3), masks, params, h, w_, frame_chunk,
         compute_dtype, build=build, fetch=fetch, mesh=mesh,
-    )  # (F, T, N)
+    )  # (F, N, T)
     if fetch:
-        return out.transpose(1, 0, 2).reshape(t, f, h, w_).astype(bool)
-    return out.transpose(0, 1).reshape(t, f, h, w_).bool()
+        return out.transpose(2, 0, 1).reshape(t, f, h, w_).astype(bool)
+    return out.permute(2, 0, 1).reshape(t, f, h, w_).bool()

@@ -35,7 +35,7 @@ from __future__ import annotations
 
 import torch
 
-from critic_vae_tpu_torch.crf.device import _EPS_NORM, _coords
+from critic_vae_tpu_torch.crf.terms import _EPS_NORM, _coords
 from critic_vae_tpu_torch.kernels import build as kb
 from critic_vae_tpu_torch.utils.profiling import span
 

@@ -32,7 +32,6 @@ from __future__ import annotations
 
 import torch
 
-from critic_vae_tpu_torch.crf.device import _EPS_NORM, _EPS_PROB, _coords, _spatial_norm
 from critic_vae_tpu_torch.crf.fused_build import (
     TILE,
     _check_frames,
@@ -41,6 +40,7 @@ from critic_vae_tpu_torch.crf.fused_build import (
     build_scratch,
     row_sum_slots,
 )
+from critic_vae_tpu_torch.crf.terms import _EPS_NORM, _EPS_PROB, _coords, _spatial_norm
 from critic_vae_tpu_torch.kernels import build as kb
 from critic_vae_tpu_torch.utils.profiling import span
 
@@ -48,7 +48,7 @@ from critic_vae_tpu_torch.utils.profiling import span
 # TPU v5e core, which holds it up to N = 4096 (64x64). The port's workspace
 # lives in device memory and has no such bound; the limit is kept, as the
 # JAX package's ``_resolve_build`` enforces it, until the H100 design is
-# measured beyond 64x64 (ROADMAP C).
+# measured beyond 64x64 (ROADMAP G.1).
 MAX_RESIDENT_N = 4096
 
 

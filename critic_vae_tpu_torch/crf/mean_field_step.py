@@ -1,17 +1,17 @@
 """Kernel ``mean_field_step``: one iteration of the device CRF's mean field
 on a bf16 bilateral matrix in one launch.
 
-Every caller of ``crf/device.py::_mean_field_q`` whose M is bf16 on the
-card runs its iterations here (``refine_masks_device`` and
-``refine_masks_multi_device`` on ``auto``/``pallas``, ``crf_param_search``,
-``densecrf_device``, ``build_pseudo_masks``, ``vmem`` at L != 2). Per frame
-of N = h*w pixels, with q's P = T*L lanes (T sets of L classes):
+The device CRF's one chunk body (``crf/device.py::_chunk_marginals``)
+runs its iterations here whenever its plan builds a bf16 M on the card with
+N % 8 == 0 (B2's, or the ``xla`` build's in bf16), whatever the entry point
+or the lanes. Per frame of N = h*w pixels, with q's P = T*L lanes (T sets
+of L classes):
 
     y  = n_s * q
     z  = M @ bf16(q) + w2 * n_s * (sepconv(y) - y) - U
     q' = softmax(z) over each group of L lanes
 
-which is ``_message(M, q) + w2 * _spatial_message(q, ...)``, less the
+which is ``_matrix_message(M)(q) + w2 * _spatial_message(q, ...)``, less the
 unaries, through the softmax: the same bf16 M and bf16 q in the product,
 the separable conv of the taps along H and then W with zero outside the
 frame, in float32 (the composition runs cuDNN's TF32 on the card).
@@ -112,7 +112,7 @@ def mean_field_steps(mb: torch.Tensor, q: torch.Tensor, unary: torch.Tensor, ns:
       mb: (C, N, N) bilateral matrices.
       q: (C, N, P) float32, the first iteration's q.
       unary: (C, N, P) float32 unaries.
-      ns: the (N, 1) spatial normalizer of ``taps`` (device.py::_spatial_norm).
+      ns: the (N, 1) spatial normalizer of ``taps`` (terms.py::_spatial_norm).
       classes: L, the lanes of one softmax group.
 
     Returns the (C, N, P) float32 marginals. CUDA tensors launch the kernel

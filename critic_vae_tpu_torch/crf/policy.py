@@ -9,7 +9,7 @@ Two backends compute the same dense-CRF mean field:
   and 8.6 GB at 256x256).
 
 The two pixel limits are the JAX package's TPU measurements, kept as they
-are until the H100 crossover is measured (ROADMAP A.7).
+are until the H100 crossover is measured (ROADMAP G.1).
 """
 
 from __future__ import annotations

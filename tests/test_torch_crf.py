@@ -143,17 +143,17 @@ def test_mem_env_caps_the_chunk_without_changing_masks(monkeypatch):
     frames, gt = generate_frames(3, seed=5)
     noisy = gt ^ (np.random.default_rng(4).random(gt.shape) < 0.08)
     chunks = []
-    chunk_frames = crf_device._chunk_frames
+    body = crf_device._chunk_marginals
 
-    def spy(*args):
-        chunks.append(chunk_frames(*args))
-        return chunks[-1]
+    def spy(plan, imgs_u8, *args):
+        chunks.append(imgs_u8.shape[0])
+        return body(plan, imgs_u8, *args)
 
-    monkeypatch.setattr(crf_device, "_chunk_frames", spy)
+    monkeypatch.setattr(crf_device, "_chunk_marginals", spy)
     whole = refine_masks_device(frames, noisy, device="cpu")
     monkeypatch.setenv(MEM_ENV, str((64 * 64) ** 2 * 4))
     capped = refine_masks_device(frames, noisy, device="cpu")
-    assert chunks == [3, 1]
+    assert chunks == [3, 1, 1, 1]
     np.testing.assert_array_equal(capped, whole)
 
 

@@ -21,15 +21,14 @@ from critic_vae_tpu_torch.crf import REFERENCE_CRF_PARAMS
 from critic_vae_tpu_torch.crf import device as crf_device
 from critic_vae_tpu_torch.crf.device import (
     BUILD_ENV,
-    _chunk_frames,
+    _plan,
     _resolve_build,
-    _spatial_norm,
-    _spatial_taps,
     refine_masks_device,
     refine_masks_multi_device,
 )
 from critic_vae_tpu_torch.crf.fused_build import (
     QUANT_SCALE,
+    build_bilateral,
     build_kernel_i8,
     build_kernel_i8_reference,
     matvec_i8,
@@ -39,6 +38,7 @@ from critic_vae_tpu_torch.crf.fused_resident import (
     mean_field_resident,
     workspace_bytes,
 )
+from critic_vae_tpu_torch.crf.terms import _spatial_norm, _spatial_taps
 from critic_vae_tpu_torch.kernels import build as kb
 
 torch.set_num_threads(1)  # one intra-op thread a test process: xdist runs several at once
@@ -239,18 +239,30 @@ def test_new_kernels_never_launch_on_cpu(episode):
     assert kb.LAUNCHES == dict.fromkeys(kb.LAUNCHES, 0)
 
 
-def test_chunk_caps_follow_the_workspace(monkeypatch):
+def test_chunk_caps_follow_the_workspace(episode, monkeypatch):
     n = 64 * 64
+    mask = torch.zeros((1, n), dtype=torch.uint8)
+    sets = torch.zeros((1, n, 13), dtype=torch.uint8)
     # the 6 GiB budget leaves the default chunk of 64 alone at 64x64
-    for fused, multi, dt in [("pallas", False, "float32"), ("int8", False, "float32"),
-                             ("int8", True, "float32"), ("vmem", True, "float32")]:
-        assert _chunk_frames(64, fused, multi, dt, n, 26) == 64
-    monkeypatch.setattr(crf_device, "_MEM_BUDGET", 12 * n * n)
-    assert _chunk_frames(64, "pallas", False, "float32", n, 2) == 3
-    assert _chunk_frames(64, "pallas", False, "bfloat16", n, 2) == 6
-    assert _chunk_frames(64, "int8", False, "float32", n, 2) == 12  # 1 byte an entry
-    assert _chunk_frames(64, "int8", True, "float32", n, 26) == 6   # B2 in bf16
-    vmem = _chunk_frames(64, "vmem", False, "float32", n, 2)
-    assert workspace_bytes(vmem, n, 2) <= 12 * n * n < workspace_bytes(vmem + 1, n, 2)
+    for build, second in [("pallas", mask), ("int8", mask), ("int8", sets), ("vmem", sets)]:
+        assert crf_device._MEM_BUDGET // _plan(build, second, "float32").frame_bytes >= 64
+    assert _plan("pallas", mask, "float32").frame_bytes == 4 * n * n
+    assert _plan("pallas", mask, "bfloat16").frame_bytes == 2 * n * n
+    assert _plan("int8", mask, "float32").frame_bytes == n * n  # 1 byte an entry
+    # many mask sets take B2 in bf16
+    assert _plan("int8", sets, "float32") == (build_bilateral, "bfloat16", 2 * n * n)
+    assert _plan("vmem", mask, "float32").frame_bytes == workspace_bytes(1, n, 2)
+    assert _plan("vmem", sets, "float32").frame_bytes == workspace_bytes(1, n, 26)
+    # a budget below one frame still runs chunks of one frame, with the same masks
+    frames, _, noisy = episode
+    chunks, body = [], crf_device._chunk_marginals
+
+    def spy(plan, imgs_u8, *args):
+        chunks.append(imgs_u8.shape[0])
+        return body(plan, imgs_u8, *args)
+
+    whole = refine_masks_device(frames, noisy, device="cpu")
     monkeypatch.setattr(crf_device, "_MEM_BUDGET", 0)
-    assert _chunk_frames(64, "pallas", False, "float32", n, 2) == 1
+    monkeypatch.setattr(crf_device, "_chunk_marginals", spy)
+    np.testing.assert_array_equal(refine_masks_device(frames, noisy, device="cpu"), whole)
+    assert chunks == [1] * len(frames)

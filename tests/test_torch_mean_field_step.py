@@ -1,9 +1,9 @@
 """Kernel ``mean_field_step`` (crf/mean_field_step.py) on the CPU: its
 plain version of one launch against the composition it replaces on a bf16 M
-(crf/device.py::_mean_field_loop: ``_message`` + w2 ``_spatial_message`` -
-the unaries, then the softmax), its lane groups, the dispatch rule of
-``_mean_field_q``, and the labels of the entry points when their mean
-fields take the kernel's arithmetic. No JAX: the composition is the port's
+(crf/device.py::_mean_field_loop with ``_matrix_message``: M @ q + w2
+``_spatial_message`` - the unaries, then the softmax), its lane groups, the
+dispatch rule of ``_mean_field_q``, and the labels of the entry points when
+their mean fields take the kernel's arithmetic. No JAX: the composition is the port's
 own, held to the JAX package by tests/test_torch_crf*.py."""
 
 import types
@@ -17,10 +17,9 @@ from critic_vae_tpu_torch.crf import device as crf_device
 from critic_vae_tpu_torch.crf.device import (
     BUILD_ENV,
     _fused_step,
+    _matrix_message,
     _mean_field_loop,
     _mean_field_q,
-    _spatial_norm,
-    _spatial_taps,
     densecrf_device,
     refine_masks_device,
     refine_masks_multi_device,
@@ -31,6 +30,7 @@ from critic_vae_tpu_torch.crf.mean_field_step import (
     mean_field_step_reference,
     mean_field_steps,
 )
+from critic_vae_tpu_torch.crf.terms import _prologue, _spatial_norm, _spatial_taps
 from critic_vae_tpu_torch.data.synthetic import generate_frames
 from critic_vae_tpu_torch.kernels import build as kb
 
@@ -56,10 +56,9 @@ def _inputs(lanes, classes, h, w, seed):
     g = torch.Generator().manual_seed(seed)
     n = h * w
     mb = (torch.rand((C, n, n), generator=g) * (2.0 * W1 / n)).to(torch.bfloat16)
-    probs = torch.rand((C, n, lanes // classes, classes), generator=g)
-    unary = -torch.log(torch.clamp_min(probs, 1e-8))
+    unary, q = _prologue(torch.rand((C, n, lanes // classes, classes), generator=g))
     taps = torch.from_numpy(_spatial_taps(GAMMA, h, w))
-    return mb, torch.softmax(-unary, dim=-1), unary, _spatial_norm(taps, h, w), taps
+    return mb, q, unary, _spatial_norm(taps, h, w), taps
 
 
 @pytest.mark.parametrize("h, w", [(64, 64), (16, 32), (8, 8)])
@@ -71,7 +70,8 @@ def test_plain_step_is_the_composition(lanes, classes, h, w):
     take three lane groups."""
     mb, q, unary, ns, taps = _inputs(lanes, classes, h, w, seed=lanes + h)
     n = h * w
-    want = _mean_field_loop(mb, q, unary, ns, taps, W2, h, w, 1).reshape(C, n, lanes)
+    want = _mean_field_loop(_matrix_message(mb), q, unary, ns, taps, W2, h, w, 1)
+    want = want.reshape(C, n, lanes)
     got = mean_field_step_reference(mb, q.reshape(C, n, lanes), unary.reshape(C, n, lanes), ns,
                                     taps, W2, h=h, w=w, classes=classes)
     torch.testing.assert_close(got, want, rtol=0.0, atol=STEP_ATOL)
@@ -97,7 +97,8 @@ def test_ten_plain_steps_follow_the_composition():
     same labels, marginals within a few float32 roundings a step."""
     h = w = 16
     mb, q, unary, ns, taps = _inputs(26, 2, h, w, seed=5)
-    want = _mean_field_loop(mb, q, unary, ns, taps, W2, h, w, ITERS).reshape(C, h * w, 26)
+    want = _mean_field_loop(_matrix_message(mb), q, unary, ns, taps, W2, h, w, ITERS)
+    want = want.reshape(C, h * w, 26)
     kb.reset_launches()
     got = mean_field_steps(mb, q.reshape(C, h * w, 26), unary.reshape(C, h * w, 26), ns, taps,
                            W2, h=h, w=w, classes=2, iters=ITERS)
@@ -110,9 +111,10 @@ def test_ten_plain_steps_follow_the_composition():
 def test_dispatch_follows_m_and_its_device():
     """A bf16 M on the card takes the kernel; a CPU tensor or a float32 M
     the composition (bmm), as does a bf16 M whose rows are no whole 16-byte
-    chunks (N % 8 != 0)."""
+    chunks (N % 8 != 0), and B3's message, a function of q."""
     cpu = torch.zeros((1, 8, 8), dtype=torch.bfloat16)
     assert not _fused_step(cpu) and not _fused_step(cpu.float())
+    assert not _fused_step(_matrix_message(cpu))
 
     def card(dtype, n):
         return types.SimpleNamespace(is_cuda=True, dtype=dtype, shape=(1, n, n))
@@ -123,15 +125,18 @@ def test_dispatch_follows_m_and_its_device():
     assert kb.LAUNCHES.get("mean_field_step") is not None
 
 
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32, "message"])
 def test_cpu_mean_field_is_the_composition(dtype):
+    """On the CPU a bf16 or float32 M, or a message given as a function of q
+    (as B3's is), runs the one loop from the prologue's q0."""
     h = w = 16
     mb, _, probs, ns, taps = _inputs(6, 3, h, w, seed=9)
-    unary = -torch.log(torch.clamp_min(probs, 1e-8))
-    q = torch.softmax(-unary, dim=-1)
+    unary, q = _prologue(probs)
+    bilateral = _matrix_message(mb) if dtype == "message" else mb.to(dtype)
+    message = _matrix_message(mb if dtype == "message" else mb.to(dtype))
     kb.reset_launches()
-    got = _mean_field_q(mb.to(dtype), probs, taps, W2, h, w, ITERS)
-    assert torch.equal(got, _mean_field_loop(mb.to(dtype), q, unary, ns, taps, W2, h, w, ITERS))
+    got = _mean_field_q(bilateral, probs, taps, W2, h, w, ITERS)
+    assert torch.equal(got, _mean_field_loop(message, q, unary, ns, taps, W2, h, w, ITERS))
     assert kb.LAUNCHES["mean_field_step"] == 0
 
 

@@ -15,7 +15,6 @@ import torch
 from critic_vae_tpu.crf.fused_build import build_kernel_i8 as jax_build_i8
 
 from critic_vae_tpu_torch.crf import REFERENCE_CRF_PARAMS
-from critic_vae_tpu_torch.crf.device import _EPS_NORM, _spatial_taps
 from critic_vae_tpu_torch.crf.fused_build import (
     B2_PLANES,
     TILE,
@@ -36,6 +35,7 @@ from critic_vae_tpu_torch.crf.fused_resident import (
     resident_matrix_reference,
     workspace_bytes,
 )
+from critic_vae_tpu_torch.crf.terms import _EPS_NORM, _spatial_taps
 
 torch.set_num_threads(1)  # one intra-op thread a test process: xdist runs several at once
 
