@@ -198,7 +198,7 @@ def _i8_message(imgs_u8: torch.Tensor, w1, alpha, beta, *, h: int, w: int,
     (C, N, P) q; ``out_dtype`` is the plan's, int8 being B3's only storage."""
     c, n, _ = imgs_u8.shape
     k8, rowsum = build_kernel_i8(imgs_u8, alpha, beta, h=h, w=w)
-    w1_t = torch.tensor(w1, dtype=torch.float32, device=imgs_u8.device)
+    w1_t = torch.full((), w1, dtype=torch.float32, device=imgs_u8.device)
     g = (torch.sqrt(w1_t / QUANT_SCALE)
          * torch.rsqrt(rowsum / QUANT_SCALE + _EPS_NORM)).view(c, n, 1)
     return lambda q: g * matvec_i8(k8, (g * q).view(c * n, -1), n=n).view(c, n, -1)
@@ -363,7 +363,7 @@ def _chunk_marginals(plan: _Plan, imgs_u8: torch.Tensor, probs: torch.Tensor,
 
 def _run_chunked(flat_imgs: torch.Tensor, flat_second: torch.Tensor, params, h: int,
                  w: int, frame_chunk: int, compute_dtype: str, *, build: str = "auto",
-                 fetch: bool = True, soft: bool = False, mesh=None):
+                 fetch: bool = True, soft: bool = False, mesh=None, taps=None):
     """Refine (n, N, 3) frames with (n, N) 0/1 masks, (n, N, T) mask sets or
     (n, N, L) float probabilities, in fixed-size chunks padded by repeating
     the last frame. Returns the (n, N, T) uint8 labels (T = 1 but for mask
@@ -373,13 +373,16 @@ def _run_chunked(flat_imgs: torch.Tensor, flat_second: torch.Tensor, params, h: 
     (``CRITIC_VAE_TPU_CRF_MEM`` bytes, default 6 GiB). With a ``mesh`` the
     chunk is rounded up to a multiple of its ranks, each rank runs the chunk
     body on its rows (the JAX package's ``_meshed_dispatch``) and the rows
-    are gathered (parallel/mesh.py::fetch)."""
+    are gathered (parallel/mesh.py::fetch). ``taps``: the spatial taps
+    (terms.py::_spatial_taps of gamma, h, w) on the frames' device, made
+    and copied there when None."""
     plan = _plan(_resolve_build(build, h, w, flat_imgs.device), flat_second, compute_dtype)
     n = flat_imgs.shape[0]
     if n == 0:
         out = _as_probs(flat_second) if soft else _labels(_as_probs(flat_second))
         return out.cpu().numpy() if fetch else out
-    taps = torch.from_numpy(_spatial_taps(float(params[4]), h, w)).to(flat_imgs.device)
+    if taps is None:
+        taps = torch.from_numpy(_spatial_taps(float(params[4]), h, w)).to(flat_imgs.device)
     budget = int(os.environ.get(MEM_ENV, _MEM_BUDGET))
     frame_chunk = max(1, min(frame_chunk, n, budget // plan.frame_bytes))
     if mesh is not None:
@@ -519,7 +522,8 @@ def crf_param_search(frames_u8, thr_masks, gt, param_grid: dict | None = None, *
 @torch.inference_mode()
 def refine_masks_device(frames_u8, thr_masks, params: Tuple = REFERENCE_CRF_PARAMS, *,
                         frame_chunk: int = 64, compute_dtype: str = "auto",
-                        build: str = "auto", fetch: bool = True, device=None, mesh=None):
+                        build: str = "auto", fetch: bool = True, device=None, mesh=None,
+                        taps=None):
     """Refine (n, H, W) threshold masks of (n, H, W, 3) uint8 frames with the
     exact dense CRF; returns (n, H, W) bool, as numpy with ``fetch`` or as a
     tensor on the device without.
@@ -532,7 +536,9 @@ def refine_masks_device(frames_u8, thr_masks, params: Tuple = REFERENCE_CRF_PARA
     path; held to >= 99.9% segmentation agreement with float32) and the
     ``xla`` build's in float32; ``int8`` and ``vmem`` fix their own
     storage. With a ``mesh`` each rank refines its rows of every chunk and
-    every rank returns the whole result."""
+    every rank returns the whole result. ``taps``, the spatial taps already
+    on the device (:func:`_run_chunked`), spare the call its one copy from
+    the host."""
     frames, device = _frames_on(frames_u8, device, "refine_masks_device")
     n, h, w_, _ = frames.shape
     if tuple(thr_masks.shape) != (n, h, w_):
@@ -542,7 +548,7 @@ def refine_masks_device(frames_u8, thr_masks, params: Tuple = REFERENCE_CRF_PARA
     masks = torch.as_tensor(thr_masks, device=device).to(torch.uint8).reshape(n, h * w_)
     out = _run_chunked(
         frames.reshape(n, h * w_, 3), masks, params, h, w_, frame_chunk,
-        compute_dtype, build=build, fetch=fetch, mesh=mesh,
+        compute_dtype, build=build, fetch=fetch, mesh=mesh, taps=taps,
     )
     return out.reshape(n, h, w_).astype(bool) if fetch else out.reshape(n, h, w_).bool()
 
@@ -552,14 +558,14 @@ def refine_masks_multi_device(frames_u8, thr_masks_multi,
                               params: Tuple = REFERENCE_CRF_PARAMS, *,
                               frame_chunk: int = 64, compute_dtype: str = "auto",
                               build: str = "auto", fetch: bool = True, device=None,
-                              mesh=None):
+                              mesh=None, taps=None):
     """Refine T mask sets of the same frames in one pass (the threshold
     sweep): (F, H, W, 3) uint8 frames and (T, F, H, W) 0/1 masks -> (T, F,
     H, W) bool, as numpy with ``fetch`` or on the device without. Each set
     agrees with ``refine_masks_device(frames, thr_masks_multi[t])``; all T
     share one bilateral build and one read of it per iteration.
 
-    Inputs are used where they lie and ``mesh`` splits the chunks, as in
+    Inputs are used where they lie, and ``mesh`` and ``taps`` are as in
     :func:`refine_masks_device`."""
     frames, device = _frames_on(frames_u8, device, "refine_masks_multi_device")
     f, h, w_, _ = frames.shape
@@ -574,7 +580,7 @@ def refine_masks_multi_device(frames_u8, thr_masks_multi,
              .permute(1, 2, 3, 0).reshape(f, h * w_, t))
     out = _run_chunked(
         frames.reshape(f, h * w_, 3), masks, params, h, w_, frame_chunk,
-        compute_dtype, build=build, fetch=fetch, mesh=mesh,
+        compute_dtype, build=build, fetch=fetch, mesh=mesh, taps=taps,
     )  # (F, N, T)
     if fetch:
         return out.transpose(2, 0, 1).reshape(t, f, h, w_).astype(bool)

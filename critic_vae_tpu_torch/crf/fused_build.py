@@ -46,7 +46,9 @@ B2_PLANES = 6  # per-pixel planes of B2's and B3's builds: x, y, r, g, b, nb (B3
 
 
 def _f32(v, device) -> torch.Tensor:
-    return torch.tensor(v, dtype=torch.float32, device=device)
+    # a fill on the device: a tensor made on the host would be a copy that
+    # waits for the stream
+    return torch.full((), v, dtype=torch.float32, device=device)
 
 
 def row_sum_slots(n: int) -> int:

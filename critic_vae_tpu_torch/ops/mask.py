@@ -136,7 +136,8 @@ def iou_counts(gt: torch.Tensor, masks: torch.Tensor) -> torch.Tensor:
 
 def ious_from_counts(counts: torch.Tensor, round_digits: int | None = 3) -> list[float]:
     """(..., 3) counts of :func:`iou_counts` -> one IoU a triple, in the
-    leading axes' order, read back in one copy. The arithmetic is
+    leading axes' order, read back in one copy (or a numpy copy of them
+    already on the host). The arithmetic is
     ops/iou.py::iou's on the same counts (Python ints, tp / (tp + fn + fp),
     0/0 -> 1.0, rounded to ``round_digits``; None leaves it unrounded), so
     each IoU is bitwise the one numpy gives for the same masks."""

@@ -8,9 +8,8 @@ CRF and whole-stack IoU. The CRF is the exact device mean field (kernel B2,
 or the ``xla``/``int8``/``vmem`` builds) or the host C++ lattice, as
 crf/policy.py resolves it. ``eval_episode`` keeps everything up to the masks
 on the device, counts each IoU's (tp, fn, fp) there and divides the counts
-on the host; with the host CRF a worker thread refines each chunk's masks as
-they reach the host. ``threshold_sweep`` runs the device stage once and
-scores every threshold on the device (the host CRF refines per threshold).
+on the host. ``threshold_sweep`` runs the device stage once and scores
+every threshold on the device (the host CRF refines per threshold).
 With ``mesh=`` (parallel/mesh.py) each rank runs the device stage and the
 device CRF on its rows of every chunk and the rows are gathered, so every
 rank holds the whole result, as the JAX package's meshed runs. ``bin_diagnostics``/``write_bin_info`` write the
@@ -19,12 +18,23 @@ GIF (Pillow, imported only there). Under a profiler each ``eval_episode``
 is a ``video.episode`` span holding its stages' spans (upload, device
 stage, normalise and threshold, CRF, read-backs, scoring;
 utils/profiling.py::span).
+
+On a CUDA device an episode's copies between host and card are
+asynchronous, go through pinned host memory and run on a side stream
+beside the card's work, each queued as soon as its data is ready: each
+chunk's frames just before the chunk, in pieces through a staging buffer
+kept across calls (:class:`_Staging`), so the card computes chunk k while
+the host copies chunk k+1; the ground truth while the card runs the last
+chunk; the maps, threshold masks and scores, back while the card runs the
+CRF, into fresh pinned blocks that the returned arrays use. The host waits
+once, at the end, for all of it. :data:`COPIES` counts the copies. On the
+CPU nothing moves, and the arrays are the tensors' own memory, as ever.
 """
 
 from __future__ import annotations
 
-import concurrent.futures
 import dataclasses
+import threading
 from collections import defaultdict
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -32,6 +42,7 @@ import numpy as np
 import torch
 
 from critic_vae_tpu_torch.crf import REFERENCE_CRF_PARAMS
+from critic_vae_tpu_torch.crf.terms import _spatial_taps
 from critic_vae_tpu_torch.models.critic import Critic
 from critic_vae_tpu_torch.models.vae import VAE
 from critic_vae_tpu_torch.ops.iou import iou, iou_batch
@@ -47,6 +58,162 @@ from critic_vae_tpu_torch.utils.profiling import span
 # the reference's -thresh sweep (vae.py:121-123): 0..120 step 10
 DEFAULT_SWEEP = tuple(range(0, 130, 10))
 
+# the pipeline's copies between host and card since the last reset_copies(),
+# and their bytes, by kind: through pinned host memory (CUDA: one a staged
+# piece or a read-back) or pageable (another accelerator's plain .to() and
+# .cpu()); the CPU copies nothing
+COPIES = {"pinned": 0, "pinned_bytes": 0, "pageable": 0, "pageable_bytes": 0}
+
+
+def reset_copies() -> None:
+    for kind in COPIES:
+        COPIES[kind] = 0
+
+
+def _count(kind: str, nbytes: int) -> None:
+    COPIES[kind] += 1
+    COPIES[kind + "_bytes"] += nbytes
+
+
+class _Staging:
+    """Pinned host memory that uploads to a card pass through, kept across
+    calls: slots of ``PIECE`` bytes taken in turn as a ring, as many as the
+    largest upload so far fills. The host copies piece k+1 into its slot
+    while the card copies piece k out of its own; each slot's event,
+    recorded behind the slot's copy to the card, keeps the host from
+    writing a slot whose copy is still in flight. The host's copy is
+    numpy's, on one thread: torch's copy runs on a team of threads that
+    waits for its slowest, and on a host shared with other work that
+    stalled it for up to 20 ms."""
+
+    PIECE = 2 << 20
+
+    def __init__(self):
+        self.slots: List[torch.Tensor] = []
+        self.copied: List[torch.cuda.Event] = []
+        self.next = 0
+        self.lock = threading.Lock()
+
+    def upload(self, src: np.ndarray, out: torch.Tensor, stream) -> None:
+        """Queue the copy of C-contiguous ``src`` into ``out`` (on the
+        card, as many bytes) on ``stream``, the current stream."""
+        src, dst = src.reshape(-1).view(np.uint8), out.view(-1).view(torch.uint8)
+        n = src.size
+        with self.lock:
+            while len(self.slots) * self.PIECE < n:
+                self.slots.append(torch.empty(self.PIECE, dtype=torch.uint8, pin_memory=True))
+                self.copied.append(torch.cuda.Event())
+            for a in range(0, n, self.PIECE):
+                b = min(a + self.PIECE, n)
+                k, self.next = self.next, (self.next + 1) % len(self.slots)
+                self.copied[k].synchronize()  # returns at once for an event never recorded
+                slot = self.slots[k][: b - a]
+                np.copyto(slot.numpy(), src[a:b])
+                dst[a:b].copy_(slot, non_blocking=True)
+                self.copied[k].record(stream)
+                _count("pinned", b - a)
+
+
+_STAGING = _Staging()
+_SIDE: Dict[int, torch.cuda.Stream] = {}
+
+
+def _side_stream(device: torch.device):
+    """The card's side stream, for the copies that overlap its work (kept
+    across calls); None off CUDA."""
+    if device.type != "cuda":
+        return None
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    if index not in _SIDE:
+        _SIDE[index] = torch.cuda.Stream(index)
+    return _SIDE[index]
+
+
+def _to_device(host: np.ndarray, device: torch.device, stream=None) -> torch.Tensor:
+    """C-contiguous ``host`` on ``device``. To a card through
+    :class:`_Staging`, on ``stream`` (default the current stream), returning
+    once the last piece is queued: a tensor that came up on another stream
+    is marked as used by the current one, which waits for it before
+    reading it. Elsewhere ``.to(device)``."""
+    src = torch.from_numpy(host)
+    if device.type != "cuda":
+        if device.type != "cpu":
+            _count("pageable", src.nbytes)
+        return src.to(device)
+    current = torch.cuda.current_stream(device)
+    stream = stream or current
+    with torch.cuda.stream(stream):
+        out = torch.empty_like(src, device=device)
+        _STAGING.upload(host, out, stream)
+    if stream != current:
+        out.record_stream(current)
+    return out
+
+
+def _frames_by_chunk(host: np.ndarray, device: torch.device, side):
+    """The (N, H, W, 3) uint8 frames on ``device``, and the function that
+    copies rows [start, stop) there, for :func:`episode_device_stage`'s
+    ``before_chunk`` (None: every row is there). On a card the rows go up
+    on the ``side`` stream, a chunk's just before the chunk, so the card
+    computes chunk k while the host copies chunk k+1; the current stream
+    waits for them. Elsewhere the frames go at once, as ``.to(device)``."""
+    if side is None:
+        with span("video.upload"):
+            return _to_device(host, device), None
+    current = torch.cuda.current_stream(device)
+    with torch.cuda.stream(side):
+        frames = torch.empty(host.shape, dtype=torch.uint8, device=device)
+    frames.record_stream(current)
+
+    def upload(start: int, stop: int) -> None:
+        with span("video.upload"):
+            with torch.cuda.stream(side):
+                _STAGING.upload(host[start:stop], frames[start:stop], side)
+            current.wait_stream(side)
+
+    return frames, upload
+
+
+def _to_host(t: torch.Tensor) -> np.ndarray:
+    """``t`` as numpy. A card's tensor is copied on the current stream,
+    without waiting, into a fresh block of pinned memory from torch's
+    caching host allocator, which hands the block out again only once the
+    array is dropped and the copy done: the array holds the values once the
+    stream has passed the copy (:func:`_join`). Elsewhere ``.cpu()``, which
+    on the CPU is the tensor's own memory."""
+    if not t.is_cuda:
+        if t.device.type != "cpu":
+            _count("pageable", t.nbytes)
+        return t.cpu().numpy()
+    out = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    out.copy_(t, non_blocking=True)
+    t.record_stream(torch.cuda.current_stream(t.device))
+    _count("pinned", out.nbytes)
+    return out.numpy()
+
+
+def _to_host_beside(side, tensors: Sequence[torch.Tensor]) -> List[np.ndarray]:
+    """:func:`_to_host` of ``tensors`` on the ``side`` stream, behind
+    everything queued so far on the current one (None: the current one)."""
+    if side is None:
+        return [_to_host(t) for t in tensors]
+    side.wait_stream(torch.cuda.current_stream(side.device))
+    with torch.cuda.stream(side):
+        return [_to_host(t) for t in tensors]
+
+
+def _join(device: torch.device, side=None) -> None:
+    """The host's one wait: for all the card's work queued so far on the
+    current stream and on ``side``."""
+    if device.type != "cuda":
+        return
+    current = torch.cuda.current_stream(device)
+    if side is not None:
+        current.wait_stream(side)
+    done = torch.cuda.Event()
+    done.record(current)
+    done.synchronize()
+
 
 def _normalize_threshold_chunk(diff: torch.Tensor, mean_max: torch.Tensor,
                                thresholds: torch.Tensor):
@@ -57,14 +224,16 @@ def _normalize_threshold_chunk(diff: torch.Tensor, mean_max: torch.Tensor,
 
 
 def _refine(frames_u8, thr_masks, crf_params, backend: str, num_threads: int = 0,
-            mesh=None):
+            mesh=None, taps=None):
     """CRF refinement on ``backend``: ``device`` (the exact mean field of
-    crf/device.py, on the masks' device, over ``mesh`` when given) or
-    ``host`` (the C++ lattice on numpy arrays)."""
+    crf/device.py, on the masks' device, over ``mesh`` when given, with the
+    spatial ``taps`` already there when given) or ``host`` (the C++ lattice
+    on numpy arrays)."""
     if backend == "device":
         from critic_vae_tpu_torch.crf.device import refine_masks_device
 
-        return refine_masks_device(frames_u8, thr_masks, crf_params, fetch=False, mesh=mesh)
+        return refine_masks_device(frames_u8, thr_masks, crf_params, fetch=False, mesh=mesh,
+                                   taps=taps)
     if backend != "host":
         raise ValueError(f"unknown crf backend {backend!r} (host|device)")
     from critic_vae_tpu_torch.crf.host import refine_masks
@@ -94,11 +263,15 @@ def episode_device_stage(vae: Optional[VAE], critic: Critic, frames_u8: torch.Te
                          batch_size: int = 512, *, compute_dtype: str = "float32",
                          with_recons: bool = False, recons_u8: bool = False,
                          mask_source: str = "diff", saliency_opts: Optional[Dict] = None,
-                         mesh=None):
+                         mesh=None, before_chunk=None):
     """Run :func:`episode_forward` over device-resident uint8 frames (N, H,
     W, 3) in chunks of ``batch_size``, the last padded by repeating its last
-    frame, so every chunk has one shape. ``vae`` may be None for the
-    saliency source without ``with_recons``, which never decodes.
+    frame, so every chunk has one shape, each chunk inside a
+    ``video.device_stage`` span. ``vae`` may be None for the saliency
+    source without ``with_recons``, which never decodes. ``before_chunk``,
+    when given, is called with a chunk's (start, stop) rows before the
+    chunk's span opens (:func:`eval_episode` copies the chunk's frames to
+    the card there).
 
     ``saliency_opts`` (read for ``mask_source="saliency"``) holds any of the
     JAX package's keys ``logits``, ``samples``, ``noise``, ``seed``,
@@ -117,9 +290,8 @@ def episode_device_stage(vae: Optional[VAE], critic: Critic, frames_u8: torch.Te
 
     Returns (preds (N,), max_value (N,), diff_chunks, valids, recons): the
     trimmed per-frame outputs, the per-chunk diff maps as they came (still
-    padded), each chunk's count of valid frames, all on the device, and with
-    ``with_recons`` the trimmed (recon_one, recon_zero) on the host (else
-    None)."""
+    padded), each chunk's count of valid frames, and with ``with_recons``
+    the trimmed (recon_one, recon_zero) (else None), all on the device."""
     sal = dict(SALIENCY_DEFAULTS)
     if saliency_opts:
         unknown = set(saliency_opts) - set(sal)
@@ -136,39 +308,42 @@ def episode_device_stage(vae: Optional[VAE], critic: Critic, frames_u8: torch.Te
     preds, maxes, diff_chunks, valids = [], [], [], []
     recons = ([], []) if with_recons else None
     for i in range(0, n, batch_size):
-        chunk = frames_u8[i : i + batch_size]
-        valid = chunk.shape[0]
-        if valid < batch_size:
-            pad = chunk[-1:].expand(batch_size - valid, -1, -1, -1)
-            chunk = torch.cat([chunk, pad])
-        rows = None
-        if mesh is not None:
-            from critic_vae_tpu_torch.parallel.mesh import row_offset, shard_batch
+        if before_chunk is not None:
+            before_chunk(i, min(i + batch_size, n))
+        with span("video.device_stage"):
+            chunk = frames_u8[i : i + batch_size]
+            valid = chunk.shape[0]
+            if valid < batch_size:
+                pad = chunk[-1:].expand(batch_size - valid, -1, -1, -1)
+                chunk = torch.cat([chunk, pad])
+            rows = None
+            if mesh is not None:
+                from critic_vae_tpu_torch.parallel.mesh import row_offset, shard_batch
 
-            rows = (row_offset(mesh, batch_size), batch_size)
-            chunk = shard_batch(mesh, chunk)
-        out = episode_forward(
-            vae, critic, chunk, compute_dtype=compute_dtype, with_recons=with_recons,
-            recons_u8=recons_u8, mask_source=mask_source, saliency_logits=sal["logits"],
-            saliency_samples=sal["samples"], saliency_noise=sal["noise"],
-            saliency_sigma=sal["sigma"], saliency_method=sal["method"],
-            saliency_cam_block=sal["cam_block"], saliency_cam_upsample=sal["cam_upsample"],
-            saliency_tta_flip=sal["tta_flip"], saliency_tta_shift=sal["tta_shift"],
-            saliency_seed=sal["seed"] + i // batch_size if sampling else None,
-            saliency_rows=rows if sampling else None)
-        if mesh is not None:
-            from critic_vae_tpu_torch.parallel.mesh import fetch
+                rows = (row_offset(mesh, batch_size), batch_size)
+                chunk = shard_batch(mesh, chunk)
+            out = episode_forward(
+                vae, critic, chunk, compute_dtype=compute_dtype, with_recons=with_recons,
+                recons_u8=recons_u8, mask_source=mask_source, saliency_logits=sal["logits"],
+                saliency_samples=sal["samples"], saliency_noise=sal["noise"],
+                saliency_sigma=sal["sigma"], saliency_method=sal["method"],
+                saliency_cam_block=sal["cam_block"], saliency_cam_upsample=sal["cam_upsample"],
+                saliency_tta_flip=sal["tta_flip"], saliency_tta_shift=sal["tta_shift"],
+                saliency_seed=sal["seed"] + i // batch_size if sampling else None,
+                saliency_rows=rows if sampling else None)
+            if mesh is not None:
+                from critic_vae_tpu_torch.parallel.mesh import fetch
 
-            out = {k: fetch(mesh, out[k]) for k in keys}
-        preds.append(out["preds"][:valid])
-        maxes.append(out["max_value"][:valid])
-        diff_chunks.append(out["diff"])
-        valids.append(valid)
-        if with_recons:
-            for part, key in zip(recons, ("recon_one", "recon_zero")):
-                part.append(out[key][:valid].cpu().numpy())
+                out = {k: fetch(mesh, out[k]) for k in keys}
+            preds.append(out["preds"][:valid])
+            maxes.append(out["max_value"][:valid])
+            diff_chunks.append(out["diff"])
+            valids.append(valid)
+            if with_recons:
+                for part, key in zip(recons, ("recon_one", "recon_zero")):
+                    part.append(out[key][:valid])
     if with_recons:
-        recons = tuple(np.concatenate(part) for part in recons)
+        recons = tuple(torch.cat(part) for part in recons)
     return torch.cat(preds), torch.cat(maxes), diff_chunks, valids, recons
 
 
@@ -186,7 +361,7 @@ def eval_episode(vae: VAE, critic: Critic, frames_u8: np.ndarray,
       frames_u8: (N, H, W, 3) uint8 raw frames; they go to ``device`` once
         and feed both the nets (normalised there) and the CRF (raw).
       gt: (N, H, W) bool ground truth, or None to skip IoU scoring. It goes
-        to ``device`` beside the frames; each whole-stack IoU is counted
+        to ``device`` after the frames; each whole-stack IoU is counted
         there (ops/mask.py::iou_counts) and divided on the host
         (``ious_from_counts``), bitwise ops/iou.py::iou of the returned
         masks. The host CRF's masks go back to ``device`` to be counted the
@@ -195,8 +370,8 @@ def eval_episode(vae: VAE, critic: Critic, frames_u8: np.ndarray,
       crf_backend: "auto", "device" or "host" (crf/policy.py). The device
         CRF's build is ``auto`` unless ``CRITIC_VAE_TPU_CRF_BUILD`` names
         another (crf/device.py::_resolve_build), as in the JAX package. The
-        host CRF refines each chunk on one worker thread as its masks reach
-        the host, ``num_threads`` OpenMP threads (0: OpenMP's default).
+        host CRF refines the threshold masks once they reach the host, on
+        ``num_threads`` OpenMP threads (0: OpenMP's default).
       with_recons: also return the reconstructions (the panels' input), as
         uint8 with ``recons_u8``. Off by default, so the mask path computes
         nothing more (the JAX package's default is on; its ``video`` and
@@ -211,6 +386,7 @@ def eval_episode(vae: VAE, critic: Critic, frames_u8: np.ndarray,
         the same (rounded) batch size. ``auto`` takes the host CRF when
         more than one process runs (crf/policy.py), as in the JAX package.
     """
+    device = torch.device(device)
     with span("video.episode"):
         backend = None
         if run_crf:
@@ -218,67 +394,64 @@ def eval_episode(vae: VAE, critic: Critic, frames_u8: np.ndarray,
 
             backend = resolve_crf_backend(crf_backend, frames_u8.shape[1], frames_u8.shape[2],
                                           device=device)
+        side = _side_stream(device)
+        frames, upload = _frames_by_chunk(np.ascontiguousarray(frames_u8, dtype=np.uint8),
+                                          device, side)
+        preds, max_value, diff_chunks, valids, recons = episode_device_stage(
+            vae, critic, frames, batch_size, compute_dtype=compute_dtype,
+            with_recons=with_recons, recons_u8=recons_u8, mask_source=mask_source,
+            saliency_opts=saliency_opts, mesh=mesh, before_chunk=upload,
+        )
         with span("video.upload"):
-            frames = torch.from_numpy(np.ascontiguousarray(frames_u8, dtype=np.uint8)).to(device)
-            gt_dev = (torch.from_numpy(np.ascontiguousarray(gt, dtype=bool)).to(device)
+            # needed only after the device stage: up on the side stream while
+            # the card runs it, the current stream waiting for them behind it
+            gt_dev = (_to_device(np.ascontiguousarray(gt, dtype=bool), device, side)
                       if gt is not None else None)
-        with span("video.device_stage"):
-            preds, max_value, diff_chunks, valids, recons = episode_device_stage(
-                vae, critic, frames, batch_size, compute_dtype=compute_dtype,
-                with_recons=with_recons, recons_u8=recons_u8, mask_source=mask_source,
-                saliency_opts=saliency_opts, mesh=mesh,
-            )
+            taps = (_to_device(_spatial_taps(float(crf_params[4]), *frames_u8.shape[1:3]),
+                               device, side) if backend == "device" else None)
+            if side is not None:
+                torch.cuda.current_stream(device).wait_stream(side)
         with span("video.normalize"):
             # global two-pass normalisation: the mean of the trimmed per-frame maxima
             mean_max = torch.mean(max_value)
-            t = torch.tensor([threshold], dtype=torch.int32, device=device)
+            t = torch.full((1,), threshold, dtype=torch.int32, device=device)
             u8_parts, thr_parts = [], []
             for diff, valid in zip(diff_chunks, valids):
                 u8 = normalize_diffs_given_mean(diff, mean_max)[:valid]
                 u8_parts.append(u8)
                 thr_parts.append(threshold_masks(u8, t)[0])
             thr_all = torch.cat(thr_parts)
-
-        crf = None
+        with span("video.readback"):
+            # final now: back on the side stream while the card counts and
+            # runs the CRF
+            diff_u8, thr_masks, preds_host, *recons = _to_host_beside(
+                side, [torch.cat(u8_parts), thr_all, preds, *(recons or ())])
+        counts = [iou_counts(gt_dev, thr_all)] if gt_dev is not None else []
+        crf = crf_masks = None
         if backend == "device":
             # every rank holds every mask: under a mesh the device CRF splits
             # them again (the JAX package's multi-process branch refines them
             # after its fetch, which the gathered masks are here)
             with span("video.crf"):
-                crf = _refine(frames, thr_all, crf_params, "device", mesh=mesh)
-        # the IoUs' counts, queued behind the CRF: the read-backs below wait
-        # for them, so reading them in video.score waits on nothing more
-        counts = []
-        if gt_dev is not None:
-            counts.append(iou_counts(gt_dev, thr_all))
-            if crf is not None:
-                counts.append(iou_counts(gt_dev, crf))
+                crf = _refine(frames, thr_all, crf_params, "device", mesh=mesh, taps=taps)
+        elif backend == "host":
+            with span("video.crf"):
+                _join(device, side)
+                crf_masks = _refine(frames_u8, thr_masks, crf_params, "host", num_threads)
+            if gt_dev is not None:
+                with span("video.upload"):
+                    crf = _to_device(np.ascontiguousarray(crf_masks), device)
+        if crf is not None and gt_dev is not None:
+            counts.append(iou_counts(gt_dev, crf))
         with span("video.readback"):
-            diff_u8 = torch.cat(u8_parts).cpu().numpy()
-        if backend == "host":
-            # each chunk's masks to the host, refined there while the next come
-            with span("video.crf"), concurrent.futures.ThreadPoolExecutor(max_workers=1) as pool:
-                futures, host_thr, off = [], [], 0
-                for thr_c in thr_parts:
-                    with span("video.readback"):
-                        host_thr.append(thr_c.cpu().numpy())
-                    futures.append(pool.submit(_refine, frames_u8[off : off + len(host_thr[-1])],
-                                               host_thr[-1], crf_params, "host", num_threads))
-                    off += len(host_thr[-1])
-                thr_masks = np.concatenate(host_thr)
-                crf_masks = np.concatenate([f.result() for f in futures])
-        else:
-            with span("video.readback"):
-                thr_masks = thr_all.cpu().numpy()
-                crf_masks = crf.cpu().numpy() if crf is not None else None
-        with span("video.readback"):
-            preds_host = preds.cpu().numpy()
+            if backend == "device":
+                crf_masks = _to_host(crf)
+            counts_host = _to_host(torch.stack(counts)) if counts else None
+            _join(device, side)
         with span("video.score"):
-            if backend == "host" and gt_dev is not None:
-                counts.append(iou_counts(gt_dev, torch.from_numpy(crf_masks).to(device)))
             thr_iou = crf_iou = None
-            if counts:
-                ious = ious_from_counts(torch.stack(counts))
+            if counts_host is not None:
+                ious = ious_from_counts(counts_host)
                 thr_iou, crf_iou = ious[0], ious[1] if len(ious) > 1 else None
     return EpisodeResult(
         preds=preds_host,
@@ -311,20 +484,23 @@ def threshold_sweep(vae: VAE, critic: Critic, frames_u8: np.ndarray, gt: np.ndar
     ``run_crf``). Arguments as in :func:`eval_episode` (``mask_source``,
     ``saliency_opts`` and ``mesh`` too); ``gt`` is required.
     """
+    device = torch.device(device)
     backend = None
     if run_crf:
         from critic_vae_tpu_torch.crf.policy import resolve_crf_backend
 
         backend = resolve_crf_backend(crf_backend, frames_u8.shape[1], frames_u8.shape[2],
                                       device=device)
-    frames = torch.from_numpy(np.ascontiguousarray(frames_u8, dtype=np.uint8)).to(device)
-    gt_dev = torch.from_numpy(np.ascontiguousarray(gt, dtype=bool)).to(device)
+    frames = _to_device(np.ascontiguousarray(frames_u8, dtype=np.uint8), device)
+    gt_dev = _to_device(np.ascontiguousarray(gt, dtype=bool), device)
+    t = _to_device(np.array(thresholds, dtype=np.int32), device)
+    taps = (_to_device(_spatial_taps(float(crf_params[4]), *frames_u8.shape[1:3]), device)
+            if backend == "device" else None)
     _, max_value, diff_chunks, valids, _ = episode_device_stage(
         vae, critic, frames, batch_size, compute_dtype=compute_dtype,
         mask_source=mask_source, saliency_opts=saliency_opts, mesh=mesh,
     )
     mean_max = torch.mean(max_value)
-    t = torch.tensor(list(thresholds), dtype=torch.int32, device=device)
     counts = torch.zeros((len(t), 3), dtype=torch.int64, device=device)
     mask_parts = []
     offset = 0
@@ -334,19 +510,23 @@ def threshold_sweep(vae: VAE, critic: Critic, frames_u8: np.ndarray, gt: np.ndar
         if run_crf:
             mask_parts.append(masks)
         offset += valid
-    thr_ious = ious_from_counts(counts)
-
-    crf_ious = [None] * len(t)
+    thr_counts, crf_counts, crf_masks = _to_host(counts), None, None
     if backend == "device":
         from critic_vae_tpu_torch.crf.device import refine_masks_multi_device
 
         refined = refine_masks_multi_device(frames, torch.cat(mask_parts, dim=1), crf_params,
-                                            fetch=False, mesh=mesh)
-        crf_ious = ious_from_counts(iou_counts(gt_dev, refined))
+                                            fetch=False, mesh=mesh, taps=taps)
+        crf_counts = _to_host(iou_counts(gt_dev, refined))
     elif backend == "host":
-        masks = torch.cat(mask_parts, dim=1).cpu().numpy()
+        crf_masks = _to_host(torch.cat(mask_parts, dim=1))
+    _join(device)
+    thr_ious = ious_from_counts(thr_counts)
+    crf_ious = [None] * len(t)
+    if crf_counts is not None:
+        crf_ious = ious_from_counts(crf_counts)
+    elif crf_masks is not None:
         crf_ious = [iou(gt, _refine(frames_u8, m, crf_params, "host", num_threads))
-                    for m in masks]
+                    for m in crf_masks]
     return [{"threshold": int(th), "thr_iou": thr_ious[i], "crf_iou": crf_ious[i]}
             for i, th in enumerate(thresholds)]
 

@@ -197,3 +197,25 @@ def test_every_reader_is_silent_without_its_span(metric):
               _launch(1, 10.0), _kernel(1, 20.0, 30.0)]
     for cell in ("video-crf", "train-b128"):
         assert core.metric_reader(metric).read(_traced(events, cell=cell)) is None
+
+
+PINNED_UP, PAGEABLE_UP = "Memcpy HtoD (Pinned -> Device)", "Memcpy HtoD (Pageable -> Device)"
+PINNED_DOWN, PAGEABLE_DOWN = "Memcpy DtoH (Device -> Pinned)", "Memcpy DtoH (Device -> Pageable)"
+
+
+@pytest.mark.parametrize("copies, want", [
+    # pinned 30 + 10 µs of 100: the card's own DtoD copy and the kernel left out
+    ([(PINNED_UP, 30.0), (PAGEABLE_UP, 40.0), (PINNED_DOWN, 10.0), (PAGEABLE_DOWN, 20.0),
+      ("Memcpy DtoD (Device -> Device)", 500.0)], 40.0),
+    ([(PAGEABLE_UP, 11.7), (PAGEABLE_DOWN, 21.2)], 0.0),       # every copy from pageable memory
+    ([(PINNED_UP, 5.0), (PINNED_DOWN, 7.0)], 100.0),            # every copy through pinned memory
+    ([("Memcpy DtoD (Device -> Device)", 5.0)], None),          # no copy between host and card
+    ([], None),
+])
+def test_pinned_copy_pct_is_the_pinned_share_of_the_copies_device_time(copies, want):
+    events, ts = [_launch(0, 0.0), _kernel(0, 0.0, 50.0)], 100.0
+    for corr, (name, dur) in enumerate(copies, start=1):
+        events += [_launch(corr, ts), _kernel(corr, ts + 5.0, dur, cat="gpu_memcpy", name=name)]
+        ts += 1000.0
+    got = core.metric_reader("pinned_copy_pct.video").read(_traced(events, cell="video-nocrf"))
+    assert got == (None if want is None else pytest.approx(want))

@@ -101,13 +101,18 @@ def test_eval_episode_emits_the_video_and_crf_spans_nested(episodes):
     for name, parent in found:
         assert parent == VIDEO_PARENTS[name], (name, parent)
     counts = {name: sum(1 for n, _ in found if n == name) for name in VIDEO_PARENTS}
-    # one chunk of 3 frames: one build and one mean field; the maps, the
-    # masks and the scores read back in three spans; two IoUs in one span
-    assert counts == {**{name: 1 for name in VIDEO_PARENTS}, "video.readback": 3}
-    # the frames and the ground truth go to the device inside video.upload
+    # 3 frames: two chunks of the device stage and one of the CRF (one build,
+    # one mean field); the frames go up before the device stage, the ground
+    # truth and the CRF's taps after it; the maps, the threshold masks and
+    # the scores read back before the CRF, its masks and the IoUs' counts
+    # after it; two IoUs in one span
+    assert counts == {**{name: 1 for name in VIDEO_PARENTS}, "video.device_stage": 2,
+                      "video.upload": 2, "video.readback": 2}
+    # the frames, the ground truth and the CRF's taps go to the device
+    # inside video.upload
     uploads = [e for e in events if e.name == "aten::to" and e.cpu_parent is not None
                and e.cpu_parent.name == "video.upload"]
-    assert len(uploads) == 2
+    assert len(uploads) == 3
 
 
 def test_train_step_emits_its_four_phases(steps):
