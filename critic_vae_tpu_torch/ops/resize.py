@@ -71,12 +71,22 @@ def weight_matrix(in_size: int, out_size: int, method: str) -> np.ndarray:
     return np.where(inside[:, None], w, 0.0).astype(np.float32)
 
 
+@functools.lru_cache(maxsize=None)
+def _device_matrix(in_size: int, out_size: int, method: str, device: torch.device):
+    """:func:`weight_matrix` on ``device``, uploaded once and shared by every
+    call (read only). A copy of pageable memory to a card waits until the
+    card's queue has drained, so an upload a call held the host and the card
+    in step, two waits a LayerCAM view."""
+    with torch.inference_mode(False):
+        return torch.from_numpy(weight_matrix(in_size, out_size, method)).to(device)
+
+
 def resize_maps(maps: torch.Tensor, size: tuple, method: str) -> torch.Tensor:
     """(B, h, w) float32 maps -> (B, H, W) as ``jax.image.resize(maps, (B, H,
     W), method)``: ``W_h @ maps @ W_w^T`` in float32 on the maps' device.
     On a card the caller turns TF32 off for JAX's ``Precision.HIGHEST``."""
     out_h, out_w = size
     b, h, w = maps.shape
-    wh = torch.from_numpy(weight_matrix(h, out_h, method)).to(maps.device)
-    ww = torch.from_numpy(weight_matrix(w, out_w, method)).to(maps.device)
+    wh = _device_matrix(h, out_h, method, maps.device)
+    ww = _device_matrix(w, out_w, method, maps.device)
     return torch.matmul(torch.matmul(wh, maps.float()), ww.T)

@@ -9,7 +9,10 @@ Spans are named ``<layer>.<stage>`` and nest on the calling thread:
 chunks open ``crf.build`` and ``crf.mean_field`` (crf/device.py); a
 train step (train/step.py) opens ``train.forward``, ``train.loss``,
 ``train.backward`` and ``train.update`` in turn, inside ``train.replay``
-when it replays as CUDA graphs; the mesh's gather opens
+when it replays as CUDA graphs; the saliency mask source
+(ops/saliency.py), inside ``video.device_stage``, opens ``saliency.view``
+a view, ``saliency.upsample`` a LayerCAM upsample and ``saliency.combine``
+a further view's mapping back and minimum; the mesh's gather opens
 ``mesh.all_gather`` (parallel/mesh.py); each hand-written kernel's launch
 is a span named after it (``diff_mask``, ``bilateral_build``,
 ``kernel_i8_build``, ``matvec_i8``, ``mean_field_resident``,

@@ -2,8 +2,9 @@
 metrics that use it) on traces built by hand from Chrome trace events: a
 launch from another thread inside a span counts, idle time inside a span
 is the span less the card's busy intervals, the mean
-field's bound at the video configuration, and every reader's silence when
-its span is missing (the parent commit's program has none)."""
+field's bound at the video configuration, the saliency stage's readers and
+its operation count, and every reader's silence when its span is missing
+(the parent commit's program has none)."""
 
 import sys
 from pathlib import Path
@@ -21,7 +22,8 @@ SPAN_METRICS = ["device_stage_ms_per_kframe", "crf_ms_per_kframe", "mean_field_r
                 "upload_idle_pct.video", "readback_idle_pct.video", "score_idle_pct.video",
                 "launches_per_step.forward", "launches_per_step.loss",
                 "launches_per_step.backward", "launches_per_step.update", "graph_replay_pct.train",
-                "mean_field_fused_pct"]
+                "mean_field_fused_pct", "saliency_ms_per_kframe", "saliency_idle_pct.video",
+                "launches_per_kframe.saliency"]
 
 
 def _span(name, ts, dur, tid=1):
@@ -219,3 +221,60 @@ def test_pinned_copy_pct_is_the_pinned_share_of_the_copies_device_time(copies, w
         ts += 1000.0
     got = core.metric_reader("pinned_copy_pct.video").read(_traced(events, cell="video-nocrf"))
     assert got == (None if want is None else pytest.approx(want))
+
+
+def _saliency_trace():
+    """One chunk's three saliency spans back to back over [0, 200] µs: the
+    view launches a kernel (300 µs), a kernel from autograd's thread (100
+    µs) and a copy (50 µs), the upsample a kernel (40 µs), the combine a
+    kernel (10 µs); the card is busy over [20, 520] and, for a kernel
+    launched after the spans, [900, 1900]."""
+    return [_span("saliency.view", 0.0, 100.0), _span("saliency.upsample", 100.0, 50.0),
+            _span("saliency.combine", 150.0, 50.0),
+            _launch(1, 10.0), _kernel(1, 20.0, 300.0),
+            _launch(2, 50.0, tid=2), _kernel(2, 320.0, 100.0),
+            _launch(3, 60.0), _kernel(3, 420.0, 50.0, cat="gpu_memcpy", name="Memcpy"),
+            _launch(4, 110.0), _kernel(4, 470.0, 40.0),
+            _launch(5, 160.0), _kernel(5, 510.0, 10.0),
+            _launch(6, 900.0), _kernel(6, 900.0, 1000.0)]
+
+
+def test_saliency_readers_on_a_hand_built_trace():
+    t = _traced(_saliency_trace(), cell="video-quality-nocrf", window_s=2000e-6, frames=2000)
+    # 300 + 100 + 50 + 40 + 10 µs of device time over 2,000 frames
+    assert core.metric_reader("saliency_ms_per_kframe").read(t) == pytest.approx(0.25)
+    # four kernels (the copy is no kernel) over 2,000 frames
+    assert core.metric_reader("launches_per_kframe.saliency").read(t) == pytest.approx(2.0)
+    # idle inside the spans: [0, 20] of the 2,000 µs slice
+    got = core.metric_reader("saliency_idle_pct.video").read(t)
+    assert got == pytest.approx(1.0)
+    assert got <= core.metric_reader("device_idle_pct.video").read(t)
+
+
+def test_saliency_readers_sum_the_spans_present():
+    """A trace that holds the view spans alone (no upsample, as the
+    gradient method runs) reads their part."""
+    events = [e for e in _saliency_trace()
+              if e["name"] not in ("saliency.upsample", "saliency.combine")]
+    t = _traced(events, cell="video-quality-nocrf", window_s=2000e-6, frames=2000)
+    assert core.metric_reader("saliency_ms_per_kframe").read(t) == pytest.approx(0.225)
+    assert core.metric_reader("launches_per_kframe.saliency").read(t) == pytest.approx(1.0)
+
+
+def test_saliency_count_at_the_quality_configuration():
+    """At ref64-quality-f32, a view of a frame is, by hand: the critic's
+    forward, its convs 2·64²·3·8·9 = 1,769,472, 2·32²·8·8·9 = 1,179,648,
+    2·16²·8·8·9 = 294,912 and 2·8²·8·16·9 = 147,456, the head 2·16·4·4·32 =
+    16,384 and the linears 2·32·32 + 2·32 = 2,112, together 3,409,984; the
+    backward to block 1's output, the input gradients of blocks 2 and 3,
+    the head and the linears, 294,912 + 147,456 + 16,384 + 2,112 = 460,864;
+    the upsample of the 16x16 map, 2·64·16·16 + 2·64·16·64 = 163,840: 4,034,688
+    a view, 24,208,128 for six views."""
+    from bench_torch.counts import peaks, saliency
+
+    cell = core.load_cell("video-quality-nocrf")
+    assert saliency.views(cell.config) == 6
+    assert saliency.frame(cell.config) == 24_208_128
+    t = _traced(_saliency_trace(), cell="video-quality-nocrf", window_s=1e-3, frames=2000)
+    want = 100.0 * 2000 * 24_208_128 / peaks.FLOPS["float32"] / 1e-3
+    assert core.metric_reader("mfu_pct.quality").read(t) == pytest.approx(want)

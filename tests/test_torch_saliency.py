@@ -53,6 +53,37 @@ def test_resize_matrices_match_jax(method):
     assert np.abs(got - want).max() <= 1e-6 * np.abs(want).max()
 
 
+def test_resize_uploads_its_matrices_once_a_device(monkeypatch):
+    """The weight matrices reach the maps' device once, not at every call:
+    on a card each upload of pageable memory waits for the card's queue, two
+    waits a LayerCAM view. The result is the same tensor either way."""
+    maps = torch.rand(2, 16, 16)
+    want = resize_maps(maps, (64, 64), "lanczos3")
+    made = []
+    real = torch.from_numpy
+    monkeypatch.setattr(torch, "from_numpy", lambda a: made.append(a.shape) or real(a))
+    for _ in range(3):
+        assert torch.equal(resize_maps(maps, (64, 64), "lanczos3"), want)
+    assert made == []
+
+
+@pytest.mark.parametrize("method", tsal.METHODS)
+def test_saliency_uploads_nothing_after_its_first_call(setup, monkeypatch, method):
+    """Neither the resize's matrices nor the blur's taps are uploaded again
+    (on a card a wait each, and no upload may run inside a CUDA graph's
+    capture); the maps stay the same."""
+    _, critic, x = setup
+    x = _nchw(x)
+    opts = dict(method=method, smooth_sigma=1.5, tta_flip=True, tta_shift=2)
+    want = tsal.critic_saliency(critic, x, **opts)
+    made = []
+    real = torch.from_numpy
+    monkeypatch.setattr(torch, "from_numpy", lambda a: made.append(a.shape) or real(a))
+    got = tsal.critic_saliency(critic, x, **opts)
+    assert made == []
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
 def test_lanczos3_first_row_renormalises_the_dropped_taps():
     np.testing.assert_allclose(weight_matrix(16, 64, "lanczos3")[0, :3],
                                [1.1807, -0.2275, 0.0468], atol=1e-4)

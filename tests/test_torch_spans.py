@@ -1,7 +1,8 @@
 """The port's spans (utils/profiling.py::span): under ``torch.profiler``
 ``eval_episode`` and the device CRF emit the ``video.*`` and ``crf.*``
-spans nested as the catalogue lists them, a train step emits its four
-phases in turn, outside a profiler a span is the one
+spans nested as the catalogue lists them, the ``--quality`` chain its
+``saliency.*`` spans inside ``video.device_stage``, a train step emits its
+four phases in turn, outside a profiler a span is the one
 shared null context, and the outputs are bitwise the same with the
 profiler on and off."""
 
@@ -13,6 +14,7 @@ import torch
 
 from critic_vae_tpu_torch.data.synthetic import generate_frames
 from critic_vae_tpu_torch.io import weights
+from critic_vae_tpu_torch.ops import saliency
 from critic_vae_tpu_torch.pipelines.video import eval_episode
 from critic_vae_tpu_torch.train import step as tstep
 from critic_vae_tpu_torch.utils.profiling import span
@@ -148,3 +150,44 @@ def test_outputs_bitwise_the_same_with_the_profiler_on_and_off(episodes, steps):
     for a, b in zip(list(s_on.mu) + list(s_on.nu), list(s_off.mu) + list(s_off.nu)):
         assert torch.equal(a, b)
     assert int(s_on.step) == int(s_off.step) == 1
+
+
+QUALITY_PARENTS = {"video.device_stage": None, "saliency.view": "video.device_stage",
+                   "saliency.upsample": "video.device_stage",
+                   "saliency.combine": "video.device_stage"}
+
+
+def test_quality_chain_emits_the_saliency_spans_and_counts_its_views():
+    """``eval_episode`` on the ``--quality`` chain (LayerCAM, six views,
+    CRF off) over 3 frames in two chunks: a view span and an upsample span a
+    view, a combine span a view after the clean one, all in the chunk's
+    device stage; 12 views, one backward each; outputs bitwise the same
+    with the profiler off."""
+    frames, gt = generate_frames(3, seed=7)
+    opts = dict(method="layercam", cam_block=1, cam_upsample="lanczos3", tta_flip=True,
+                tta_shift=2)
+    results, views = [], []
+    for on in (True, False):
+        saliency.reset_views()
+        out, events = _profiled(lambda: eval_episode(
+            None, _critic(), frames, gt, device=CPU, threshold=64, run_crf=False, batch_size=2,
+            mask_source="saliency", saliency_opts=opts), on)
+        results.append(out)
+        views.append(dict(saliency.VIEWS))
+        if on:
+            found = _span_parents(events, QUALITY_PARENTS)
+    for name, parent in found:
+        assert parent == QUALITY_PARENTS[name], (name, parent)
+    counts = {name: sum(1 for n, _ in found if n == name) for name in QUALITY_PARENTS}
+    assert counts == {"video.device_stage": 2, "saliency.view": 12, "saliency.upsample": 12,
+                      "saliency.combine": 10}
+    # each chunk: its six views, each view's upsample after it
+    order = [n for n, _ in found if n != "saliency.combine"]
+    chunk = ["video.device_stage"] + ["saliency.view", "saliency.upsample"] * 6
+    assert order == chunk * 2
+    assert views == [{"views": 12, "backward": 12}] * 2
+    on, off = results
+    for field in ("preds", "diff_u8", "thr_masks"):
+        got, want = getattr(on, field), getattr(off, field)
+        assert got.dtype == want.dtype and np.array_equal(got, want), field
+    assert on.thr_iou == off.thr_iou
