@@ -59,6 +59,14 @@ exits non-zero:
    Phase 7 also holds B5's C=2 marginals bitwise to their digests from
    before B5's product loop became csrc/row_block_product.cuh, which both
    share;
+7c. kernel block_epilogue (a conv block's post-conv chain of the mask
+   stage in one pass) at a 512-frame chunk's eleven epilogues on the main
+   path (merged front end, float32: the front end's 40 channels, encoder
+   and critic blocks 1-3, the decoder's four upconvs): bitwise its plain
+   version (ATen's chain on the card) at 512 and 402 frames with ±inf, NaN
+   and -0.0 in the input; each launch's device time beside its byte bound
+   (the conv output read once, the block's output written once) and the
+   plain version's kernels, and the chunk's sum;
 8. golden: the port in float32 with TF32 off on the 16-frame episode of
    tests/golden/torch_slice_golden.npz, which the JAX package computed on
    the CPU — preds <= 1e-4 abs, uint8 diff maps >= 99.9% within one level,
@@ -78,9 +86,12 @@ exits non-zero:
    c. ``eval_episode`` with build int8: B1, B3, B4; masks >= 99.9% as a;
    d. ``eval_episode`` with build vmem: B1, B5 at T=1; masks >= 99.9% as a;
    e. ``threshold_sweep`` with build vmem on the first 512 frames: B1, B5
-      at T=13; its refined mask sets >= 99.9% as the default build's.
+      at T=13; its refined mask sets >= 99.9% as the default build's;
+   f. ``eval_episode`` in float32 (the benchmark's video cells) on 2048
+      frames, threshold 50, default build: B1, B2, mean_field_step and
+      block_epilogue, the last exactly 11 times a 512-frame chunk.
    The builds of c-e are selected as a user selects them, through
-   CRITIC_VAE_TPU_CRF_BUILD. Paths a-e run the default (merged) front end.
+   CRITIC_VAE_TPU_CRF_BUILD. Paths a-f run the default (merged) front end.
    After each timed run, one more run under torch.profiler prints the
    path's largest kernels by device time;
 10. front end: at full width, 512 frames, ``episode_forward`` with each
@@ -290,8 +301,8 @@ their rates.
 and 17 alone, driving the critic_vae_tpu_torch package in DIR (for example
 an older checkout) against this checkout's goldens.
 
-The second-to-last line is a JSON object with, for each of the eight kernels
-(B1-B5, mean_field_step, P1, P2), its launches on the paths that run it
+The second-to-last line is a JSON object with, for each of the nine kernels
+(B1-B5, mean_field_step, block_epilogue, P1, P2), its launches on the paths that run it
 (phases 9, 11, 12, 20-22, 25, 26 and 29), its error against
 its plain version, its times, its bound (the larger of its bytes over the
 HBM rate and its operations over the peak rate of their type, from this
@@ -974,6 +985,115 @@ def phase_mean_field_step(dev):
             **{f"{k}_p{p}": rows[p][k] for p in (3, 26) for k in ("ms", "library_ms")}}
 
 
+# the mask stage's block epilogues a chunk on the main path (merged front end,
+# float32): (name, C, H, n_norm, relu) of a (B, C, H, H) conv output's pool
+# form, (name, C, H, relu) of a (2B, 4C, H, H) phase conv output's shuffle form
+EPILOGUE_POOL = (("merged", 40, 64, 32, True), ("enc1", 64, 32, 64, True),
+                 ("enc2", 128, 16, 128, True), ("enc3", 256, 8, 256, False),
+                 ("critic1", 8, 32, 0, True), ("critic2", 8, 16, 0, True),
+                 ("critic3", 16, 8, 0, True))
+EPILOGUE_SHUFFLE = (("up1", 64, 4, True), ("up2", 32, 8, True), ("up3", 32, 16, True),
+                    ("up4", 3, 32, False))
+EPILOGUE_TAIL = 402        # the last chunk of a 2,450-frame episode
+EPILOGUES_PER_CHUNK = len(EPILOGUE_POOL) + len(EPILOGUE_SHUFFLE)
+
+
+def _epilogue_input(shape, seed, dev):
+    """A float32 conv output with ±inf, NaN, -0.0 and 0.0 at the start of
+    every plane and a window all -inf at its end."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    y = torch.randn(shape, generator=g, device=dev)
+    specials = torch.tensor([float("inf"), float("-inf"), float("nan"), -0.0, 0.0], device=dev)
+    y.view(*shape[:2], -1)[..., : specials.numel()] = specials
+    y[..., -2:, -2:] = float("-inf")
+    return y
+
+
+def _epilogue_params(c, n_norm, seed, dev):
+    """``pool_epilogue``'s (bias, bn, tail_bias): an encoder block's bias
+    and BatchNorm with drawn running stats and a negative scale, and the
+    critic's bias of the channels after them; or a critic block's bias."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    bias = torch.randn(c, generator=g, device=dev)
+    if not n_norm:
+        return bias, None, None
+    bn = torch.nn.BatchNorm2d(n_norm).to(dev).eval()
+    with torch.no_grad():
+        bn.running_mean.copy_(0.3 * torch.randn(n_norm, generator=g, device=dev))
+        bn.running_var.copy_(0.25 + torch.rand(n_norm, generator=g, device=dev))
+        bn.weight.copy_(-torch.randn(n_norm, generator=g, device=dev).abs())
+        bn.bias.copy_(0.2 * torch.randn(n_norm, generator=g, device=dev))
+    return bias[:n_norm], bn, bias[n_norm:] if n_norm < c else None
+
+
+def _bitwise(a, b) -> bool:
+    import torch
+
+    return a.shape == b.shape and torch.equal(a.contiguous().view(torch.int32),
+                                              b.contiguous().view(torch.int32))
+
+
+def phase_block_epilogue(dev):
+    """(7c) kernel block_epilogue at the main path's shapes (a 512-frame
+    chunk's eleven epilogues, merged front end, float32): bitwise its plain
+    version (the ATen chain on the card) at 512 and 402 frames, then device
+    time a launch against its byte bound (the conv output read once, the
+    block's output written once) and the plain version's kernels."""
+    import torch
+
+    from critic_vae_tpu_torch.device import device_ms
+    from critic_vae_tpu_torch.ops import epilogue as ep
+
+    tag = "[7c block_epilogue]"
+    totals = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "bytes": 0.0}
+    cases = []
+    cache = {}  # the BN constants, built once as the encoder keeps them
+    for name, c, h, n_norm, relu in EPILOGUE_POOL:
+        cases.append((name, (MAIN_BATCH, c, h, h), _epilogue_params(c, n_norm, h, dev),
+                      lambda y, a, r=relu: ep.pool_epilogue(y, *a, relu=r, cache=cache),
+                      lambda y, a, r=relu: ep.pool_epilogue_reference(y, *a, r),
+                      4.0 * MAIN_BATCH * c * h * h * 1.25))
+    for name, c, h, relu in EPILOGUE_SHUFFLE:
+        g = torch.Generator(device=dev).manual_seed(h)
+        cases.append((name, (2 * MAIN_BATCH, 4 * c, h, h),
+                      torch.randn(c, generator=g, device=dev),
+                      lambda y, b, r=relu: ep.shuffle_epilogue(y, b, r),
+                      lambda y, b, r=relu: (ep.shuffle_epilogue_reference(y, b, r),),
+                      4.0 * 2 * MAIN_BATCH * 4 * c * h * h * 2))
+    same = True
+    with torch.inference_mode():
+        for name, shape, params, kern, plain, nbytes in cases:
+            for frames in (MAIN_BATCH, EPILOGUE_TAIL):
+                y = _epilogue_input((shape[0] * frames // MAIN_BATCH, *shape[1:]), frames, dev)
+                got, want = kern(y, params), plain(y, params)
+                got = got if isinstance(got, tuple) else (got,)
+                ok = all(_bitwise(a, b) for a, b in zip(got, want))
+                same = same and ok
+                require(ok, f"block_epilogue {name} at {frames} frames: not bitwise the plain "
+                        f"version")
+            y = _epilogue_input(shape, 1, dev)
+            ms = device_ms(lambda: kern(y, params), "block_epilogue", iters=20)
+            plain_ms = _kernel_ms(lambda: plain(y, params))[0]
+            b = bound(nbytes, ())
+            log(f"{tag} {name} {tuple(shape)}: kernel {ms:.4f} ms a launch (device time; byte "
+                f"bound {b['bound_ms']:.4f}, {100 * b['bound_ms'] / ms:.1f}%), plain (ATen's "
+                f"chain) {plain_ms:.4f} ms of kernels; bitwise the plain version at "
+                f"{MAIN_BATCH} and {EPILOGUE_TAIL} frames")
+            totals["ms"] += ms
+            totals["plain_ms"] += plain_ms
+            totals["bound_ms"] += b["bound_ms"]
+            totals["bytes"] += nbytes
+    log(f"{tag} a {MAIN_BATCH}-frame chunk's {len(cases)} epilogues: kernel {totals['ms']:.4f} "
+        f"ms ({totals['bytes'] / 1e6:.1f} MB, bound {totals['bound_ms']:.4f} ms, "
+        f"{100 * totals['bound_ms'] / totals['ms']:.1f}%), plain {totals['plain_ms']:.4f} ms")
+    return {"bitwise": same, "ms": totals["ms"], "plain_ms": totals["plain_ms"],
+            "bound_ms": totals["bound_ms"], "bound_by": "bytes", "library_ms": None}
+
+
 def phase_golden(dev, critic, vae):
     import numpy as np
     import torch
@@ -1207,6 +1327,17 @@ def phase_main(dev, critic, vae):
     log(f"[9 main e] refined mask sets identical to the default build's: min {min(agree):.6f} "
         f"(bar 0.999)")
     require(min(agree) >= 0.999, f"vmem sweep mask agreement {agree}")
+
+    kw32 = {**kw, "compute_dtype": "float32"}
+    eval_episode(vae, critic, *warm, threshold=50, **kw32)  # warm-up
+    _, paths["f"] = _drive("f eval_episode float32 auto",
+                           lambda: eval_episode(vae, critic, frames, gt, threshold=50, **kw32),
+                           ("diff_mask", "bilateral_build", "mean_field_step", "block_epilogue"),
+                           MAIN_FRAMES)
+    want = EPILOGUES_PER_CHUNK * -(-MAIN_FRAMES // MAIN_BATCH)
+    require(paths["f"]["block_epilogue"] == want,
+            f"float32 eval_episode: {paths['f']['block_epilogue']} block_epilogue launches, "
+            f"want {want}")
     return {name: sum(p[name] for p in paths.values()) for name in la}
 
 
@@ -3301,6 +3432,7 @@ def main(argv=None) -> int:
     b4 = phase_b4(dev)
     b5 = phase_b5(dev)
     step = phase_mean_field_step(dev)
+    epi = phase_block_epilogue(dev)
     from critic_vae_tpu_torch.io.weights import synthetic_models
 
     critic, vae = synthetic_models(dev)
@@ -3369,6 +3501,10 @@ def main(argv=None) -> int:
          "source": "critic_vae_tpu_torch/csrc/mean_field_step.cu",
          "replaces": "the mean field's bmm, conv and softmax (critic_vae_tpu/crf/device.py)",
          "launches": launches["mean_field_step"], **bounds["step"], **step},
+        {"name": "block_epilogue", "route": "cuda",
+         "source": "critic_vae_tpu_torch/csrc/block_epilogue.cu",
+         "replaces": "none: XLA fuses the conv blocks' elementwise ops and pools",
+         "launches": launches["block_epilogue"], **epi},
         {"name": "caps_probe", "route": "cuda",
          "source": "critic_vae_tpu_torch/csrc/caps_probe.cu",
          "replaces": "examples/mosaic_caps_probe.py:33", **p1},

@@ -15,7 +15,9 @@ The serving formulations of ``critic_apply`` are options of
 :meth:`Critic.forward`: the phase-packed (``fused_pool=True``) and
 space-to-depth (``"s2d"``, first block only) conv+pool of ops/poolconv.py,
 the float32 first conv (``block0_f32``) and the resume point
-``start_block`` of the merged front end (ops/mask.py).
+``start_block`` of the merged front end (ops/mask.py). A plain block's bias,
+ReLU and pool are ops/epilogue.py's ``pool_epilogue`` (one launch of the
+``block_epilogue`` kernel for float32 on the card without autograd).
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from critic_vae_tpu_torch.ops import epilogue
 from critic_vae_tpu_torch.ops.poolconv import conv_pool2_max, s2d_conv_pool2_phases
 
 
@@ -119,12 +122,11 @@ class Critic(nn.Module):
                 x = F.relu(y.amax(dim=1) + layer.bias.to(dtype)[:, None, None])
             elif fused_pool is True:
                 x = F.relu(conv_pool2_max(x, layer.weight.to(dtype), layer.bias.to(dtype)))
+            elif block0_f32 and i == 0:
+                x = F.max_pool2d(F.relu(conv(layer, x.float()).to(dtype)), 2)
             else:
-                if block0_f32 and i == 0:
-                    x = conv(layer, x.float()).to(dtype)
-                else:
-                    x = conv(layer, x, dtype)
-                x = F.max_pool2d(F.relu(x), 2)
+                y = F.conv2d(x, layer.weight.to(dtype), padding=layer.padding)
+                x = epilogue.pool_epilogue(y, layer.bias)[1]  # + bias, ReLU, pool
             if i == tap:
                 tapped = x
             if i >= 2:

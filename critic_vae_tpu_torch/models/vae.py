@@ -46,6 +46,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from critic_vae_tpu_torch.models.critic import conv, linear
+from critic_vae_tpu_torch.ops import epilogue
+from critic_vae_tpu_torch.ops.epilogue import batchnorm_eval
 from critic_vae_tpu_torch.parallel.mesh import global_mean, grouped, shard_batch
 from critic_vae_tpu_torch.ops.poolconv import conv_pool2_phases, s2d_conv_pool2_phases
 from critic_vae_tpu_torch.ops.upconv import phase_weight, upsample2_conv5
@@ -61,24 +63,6 @@ POOL_IMPLS = ("reduce_window", "strided")
 # ``fused_pool=True`` per block (the JAX package's FUSED_POOL_SERVING):
 # space-to-depth for the 3-channel first block, the plain graph after it
 FUSED_POOL_SERVING = ("s2d", False, False, False)
-
-
-def batchnorm_eval(bn: nn.BatchNorm2d, x: torch.Tensor,
-                   bias: torch.Tensor | None = None) -> torch.Tensor:
-    """Eval-mode BatchNorm in float32 over dim -3 (channels of (..., C, H,
-    W)), cast back to x's dtype.
-
-    ``bias``: a conv bias, cast to x's dtype and added to x in float32,
-    unrounded. That is the JAX package's ``_batchnorm(conv(x, w) + b)`` as
-    XLA compiles it: the sum's only use is BN's cast to float32, and XLA
-    drops the sum's rounding to the activation dtype (its excess-precision
-    rule), so in bfloat16 the sum is not rounded before BN."""
-    xf = x.float()
-    if bias is not None:
-        xf = xf + bias.to(x.dtype).float()[:, None, None]
-    inv = torch.rsqrt(bn.running_var + bn.eps) * bn.weight
-    y = (xf - bn.running_mean[:, None, None]) * inv[:, None, None]
-    return (y + bn.bias[:, None, None]).to(x.dtype)
 
 
 def batchnorm_train(bn: nn.BatchNorm2d, x: torch.Tensor, bias: torch.Tensor | None = None,
@@ -145,6 +129,9 @@ class Encoder(nn.Module):
         self.bns = nn.ModuleList(nn.BatchNorm2d(co, eps=BN_EPS) for co in dims)
         self.fc_mu = nn.Linear(bottleneck, latent_dim)
         self.fc_var = nn.Linear(bottleneck, latent_dim)
+        # the blocks' BN constants for the block_epilogue kernel, kept with the
+        # frozen weights (ops/epilogue.py::pool_params)
+        self.epilogue_cache = {}
 
     def forward(self, x: torch.Tensor, *, fused_pool: bool | tuple = False,
                 fold_bn: bool = False, pool_impl: str = "reduce_window",
@@ -201,6 +188,11 @@ class Encoder(nn.Module):
                 x = pool(norm(bn, conv(layer, x.float()).to(out_dtype)))
             else:
                 y = F.conv2d(x, layer.weight.to(x.dtype), padding=layer.padding)
+                if not train and pool_impl == "reduce_window":
+                    x = epilogue.pool_epilogue(y, layer.bias, bn, relu=i != last,
+                                               cache=self.epilogue_cache)[0]
+                    x = torch.tanh(x) if i == last else x
+                    continue
                 x = pool(norm(bn, y, layer.bias))
             x = torch.tanh(x) if i == last else F.relu(x)
         flat = x.flatten(1)
@@ -230,23 +222,20 @@ class Decoder(nn.Module):
         # (stage, dtype) -> (the weight's identity, its phase_weight)
         self._phase_weights = {}
 
-    def _upconv(self, i: int, x: torch.Tensor) -> torch.Tensor:
+    def _upconv(self, i: int, x: torch.Tensor, relu: bool = False) -> torch.Tensor:
         """Stage ``i``'s nearest ×2 + conv5 by phase split. Its phase weight
         in x's dtype is built once from the frozen weight, and again only when
         that weight's storage, device or in-place version changes (so a load
         or a move rebuilds it). A weight that autograd follows (training)
-        gets its phase weight built in the graph, every call."""
+        gets its phase weight built in the graph, every call. ``relu``: the
+        stage's ReLU, applied in its epilogue (a stage without FiLM)."""
         layer = self.convs[i]
         w = layer.weight
         if w.requires_grad and torch.is_grad_enabled():
-            return upsample2_conv5(x, w, layer.bias)
-        ident = (w.data_ptr(), w.device, None if w.is_inference() else w._version)
-        hit = self._phase_weights.get((i, x.dtype))
-        if hit is None or hit[0] != ident:
-            with torch.no_grad():
-                hit = (ident, phase_weight(w, x.dtype))
-            self._phase_weights[(i, x.dtype)] = hit
-        return upsample2_conv5(x, w, layer.bias, hit[1])
+            return upsample2_conv5(x, w, layer.bias, relu=relu)
+        w4 = epilogue.frozen(self._phase_weights, (i, x.dtype), (w,),
+                             lambda: phase_weight(w, x.dtype))
+        return upsample2_conv5(x, w, layer.bias, w4, relu=relu)
 
     def _film(self, i: int, x: torch.Tensor, value: torch.Tensor) -> torch.Tensor:
         """Stage ``i``'s FiLM, as the JAX ``_film``: (gamma, beta) from the
@@ -270,8 +259,10 @@ class Decoder(nn.Module):
         if fused:
             x = F.relu(self._film(0, conv(self.convs[0], x), value))
             for i in (1, 2, 3):
-                x = self._upconv(i, x)
-                x = F.relu(self._film(i, x, value))
+                if self.film is None:
+                    x = self._upconv(i, x, relu=True)
+                else:
+                    x = F.relu(self._film(i, self._upconv(i, x), value))
             x = self._upconv(len(self.convs) - 1, x)
         else:
             for i, layer in enumerate(self.convs[:-1]):

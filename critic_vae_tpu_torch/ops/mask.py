@@ -11,7 +11,7 @@ uint8 and the threshold compare.
 The bfloat16 arithmetic is the JAX package's as XLA compiles it: each op
 rounds to bf16, except a sum or a tanh whose only use is a cast to float32
 (XLA drops that rounding), which is the encoder's conv bias before its
-BatchNorm (models/vae.py::batchnorm_eval) and tanh before the difference.
+BatchNorm (ops/epilogue.py::batchnorm_eval) and tanh before the difference.
 
 The front end (the critic's and the encoder's first convs over the
 3-channel frames) is ``merged`` by default, as in the JAX package: one
@@ -42,7 +42,9 @@ import torch
 import torch.nn.functional as F
 
 from critic_vae_tpu_torch.models.critic import Critic
-from critic_vae_tpu_torch.models.vae import VAE, batchnorm_eval
+from critic_vae_tpu_torch.models.vae import VAE
+from critic_vae_tpu_torch.ops import epilogue
+from critic_vae_tpu_torch.ops.epilogue import batchnorm_eval
 from critic_vae_tpu_torch.ops.diff_mask import diff_mask
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -180,20 +182,21 @@ def merged_front_end(vae: VAE, critic: Critic, x: torch.Tensor, cdt: torch.dtype
     branch adds its bias in that dtype before the cast to ``cdt`` (the
     encoder's sum unrounded into BN when the dtypes agree, as XLA compiles
     it), then runs its own order: encoder BN → pool → ReLU, critic ReLU →
-    pool. Returns
+    pool; with the dtypes alike both branches are one ``pool_epilogue``
+    (ops/epilogue.py: one launch of the ``block_epilogue`` kernel for
+    float32 on the card without autograd). Returns
     (h_enc, h_critic), the post-pool activations that the nets resume from
     at ``start_block=1``."""
     enc0, bn0, cr0 = vae.encoder.convs[0], vae.encoder.bns[0], critic.convs[0]
     conv_dt = x.dtype
     ne = enc0.out_channels
     y = F.conv2d(x, merged_conv0_weight(vae, critic).to(conv_dt), padding=enc0.padding)
-    if conv_dt == cdt:  # the bias sum feeds BN unrounded (models/vae.py::batchnorm_eval)
-        ye = batchnorm_eval(bn0, y[:, :ne], enc0.bias)
-    else:
-        ye = batchnorm_eval(bn0, (y[:, :ne] + enc0.bias.to(conv_dt)[:, None, None]).to(cdt))
-    h_enc = F.relu(F.max_pool2d(ye, 2))
+    if conv_dt == cdt:  # the bias sum feeds BN unrounded (ops/epilogue.py::batchnorm_eval)
+        return epilogue.pool_epilogue(y, enc0.bias, bn0, cr0.bias,
+                                      cache=vae.encoder.epilogue_cache)
+    ye = batchnorm_eval(bn0, (y[:, :ne] + enc0.bias.to(conv_dt)[:, None, None]).to(cdt))
     yc = F.relu((y[:, ne:] + cr0.bias.to(conv_dt)[:, None, None]).to(cdt))
-    return h_enc, F.max_pool2d(yc, 2)
+    return F.relu(F.max_pool2d(ye, 2)), F.max_pool2d(yc, 2)
 
 
 MASK_SOURCES = ("diff", "saliency")

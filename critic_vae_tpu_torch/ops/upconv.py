@@ -11,7 +11,9 @@ never formed.
 Here the four phases are one 3×3 conv with 4·C_out output channels, output
 channel ``4c + 2a + b`` holding phase (a, b) of channel c, which is the
 order ``F.pixel_shuffle(·, 2)`` interleaves. It is a plain conv (cuDNN on a
-card), as the JAX package's four phase convs are XLA convs.
+card), as the JAX package's four phase convs are XLA convs; on the mask
+stage's path the interleave, bias and ReLU after it are one launch of the
+``block_epilogue`` kernel (ops/epilogue.py).
 
 Rounding follows the JAX package. Its ``_phase_kernels`` is a three-operand
 einsum on weights already in the activation dtype, which XLA runs as two
@@ -24,6 +26,8 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from critic_vae_tpu_torch.ops import epilogue
 
 # per phase, the original taps summed into each of the three phase taps
 _TAPS = (((0, 1), (2, 3), (4,)), ((0,), (1, 2), (3, 4)))
@@ -57,12 +61,14 @@ def phase_weight(w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
 
 
 def upsample2_conv5(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
-                    w4: torch.Tensor | None = None) -> torch.Tensor:
+                    w4: torch.Tensor | None = None, relu: bool = False) -> torch.Tensor:
     """``conv5_same(nearest_upsample2(x), w) + b`` without the upsample: x
     (B, C_in, H, W), w (C_out, C_in, 5, 5), b (C_out,) → (B, C_out, 2H, 2W)
-    in x's dtype. ``w4``: ``phase_weight(w, x.dtype)``, for a caller that
-    keeps it across calls (the frozen decoder does); else built here."""
+    in x's dtype, ReLU'd with ``relu``. ``w4``: ``phase_weight(w, x.dtype)``,
+    for a caller that keeps it across calls (the frozen decoder does); else
+    built here. The interleave, bias and ReLU are ops/epilogue.py's
+    ``shuffle_epilogue`` (one launch of the ``block_epilogue`` kernel for
+    float32 on the card without autograd)."""
     if w4 is None:
         w4 = phase_weight(w, x.dtype)
-    y = F.pixel_shuffle(F.conv2d(x, w4, padding=1), 2)
-    return y + b.to(x.dtype)[:, None, None]
+    return epilogue.shuffle_epilogue(F.conv2d(x, w4, padding=1), b, relu)

@@ -13,10 +13,12 @@ when it replays as CUDA graphs; the saliency mask source
 (ops/saliency.py), inside ``video.device_stage``, opens ``saliency.view``
 a view, ``saliency.upsample`` a LayerCAM upsample and ``saliency.combine``
 a further view's mapping back and minimum; the mesh's gather opens
-``mesh.all_gather`` (parallel/mesh.py); each hand-written kernel's launch
-is a span named after it (``diff_mask``, ``bilateral_build``,
-``kernel_i8_build``, ``matvec_i8``, ``mean_field_resident``,
-``mean_field_step``).
+``mesh.all_gather`` (parallel/mesh.py); a conv block's epilogue without
+autograd opens ``block.epilogue`` (ops/epilogue.py), around the
+``block_epilogue`` kernel's launch where it runs; each other hand-written
+kernel's launch is a span named after it (``diff_mask``,
+``bilateral_build``, ``kernel_i8_build``, ``matvec_i8``,
+``mean_field_resident``, ``mean_field_step``).
 """
 
 from __future__ import annotations

@@ -23,7 +23,8 @@ SPAN_METRICS = ["device_stage_ms_per_kframe", "crf_ms_per_kframe", "mean_field_r
                 "launches_per_step.forward", "launches_per_step.loss",
                 "launches_per_step.backward", "launches_per_step.update", "graph_replay_pct.train",
                 "mean_field_fused_pct", "saliency_ms_per_kframe", "saliency_idle_pct.video",
-                "launches_per_kframe.saliency"]
+                "launches_per_kframe.saliency", "epilogue_ms_per_kframe",
+                "epilogue_fused_pct.video"]
 
 
 def _span(name, ts, dur, tid=1):
@@ -147,6 +148,43 @@ STEP = "void (anonymous namespace)::mean_field_step_kernel<1>(__nv_bfloat16 cons
 def test_mean_field_fused_pct_counts_the_kernels_launches(kernel_names, want):
     t = _traced(_mean_field_chunks(kernel_names), cell="video-crf")
     assert core.metric_reader("mean_field_fused_pct").read(t) == pytest.approx(want)
+
+
+EPILOGUE = "void (anonymous namespace)::block_epilogue_pool(float const*, unsigned int)"
+
+
+def _epilogue_blocks(kernel_lists):
+    """A ``block.epilogue`` span a block, each launching its list of kernels
+    (100 µs each) in turn."""
+    events, corr = [], 0
+    for block, names in enumerate(kernel_lists):
+        t0 = 1000.0 * block
+        events.append(_span("block.epilogue", t0, 500.0))
+        for k, name in enumerate(names):
+            corr += 1
+            events += [_launch(corr, t0 + 10 + 50 * k),
+                       _kernel(corr, t0 + 100 + 100 * k, 100.0, name=name)]
+    return events
+
+
+@pytest.mark.parametrize("kernel_lists, want", [
+    ([[EPILOGUE]] * 4, 100.0),                                  # one launch a block
+    ([[EPILOGUE, "void at::native::vectorized_elementwise_kernel<4> tanh"]] + [[EPILOGUE]] * 3,
+     100.0),                                                    # another kernel beside it
+    ([["void at::native::elementwise_kernel<128, 2> add"] * 4
+      + ["void at::native::max_pool_forward_nchw<float, float>"]] * 2 + [[EPILOGUE]] * 2,
+     50.0),                                                     # the ATen chain in two blocks
+])
+def test_epilogue_fused_pct_counts_the_kernels_launches(kernel_lists, want):
+    t = _traced(_epilogue_blocks(kernel_lists), cell="video-nocrf")
+    assert core.metric_reader("epilogue_fused_pct.video").read(t) == pytest.approx(want)
+
+
+def test_epilogue_ms_per_kframe_sums_the_spans_device_time():
+    t = _traced(_epilogue_blocks([[EPILOGUE]] * 3 + [[EPILOGUE, "tanh"]]), cell="video-crf",
+                frames=500)
+    # five kernels of 100 µs over 500 frames: 1 ms a 1,000 frames
+    assert core.metric_reader("epilogue_ms_per_kframe").read(t) == pytest.approx(1.0)
 
 
 def test_mean_field_fused_pct_is_silent_without_the_span():
