@@ -17,7 +17,9 @@ reference's bin_info file, ``compose_frames`` the annotated strips of the
 GIF (Pillow, imported only there). Under a profiler each ``eval_episode``
 is a ``video.episode`` span holding its stages' spans (upload, device
 stage, normalise and threshold, CRF, read-backs, scoring;
-utils/profiling.py::span).
+utils/profiling.py::span), and each ``threshold_sweep`` a ``video.sweep``
+span holding the same stages, with ``sweep.threshold`` a chunk for its
+normalisation, T masks and counts.
 
 On a CUDA device an episode's copies between host and card are
 asynchronous, go through pinned host memory and run on a side stream
@@ -45,7 +47,7 @@ from critic_vae_tpu_torch.crf import REFERENCE_CRF_PARAMS
 from critic_vae_tpu_torch.crf.terms import _spatial_taps
 from critic_vae_tpu_torch.models.critic import Critic
 from critic_vae_tpu_torch.models.vae import VAE
-from critic_vae_tpu_torch.ops.iou import iou, iou_batch
+from critic_vae_tpu_torch.ops.iou import iou_batch
 from critic_vae_tpu_torch.ops.mask import (
     episode_forward,
     iou_counts,
@@ -68,6 +70,16 @@ COPIES = {"pinned": 0, "pinned_bytes": 0, "pageable": 0, "pageable_bytes": 0}
 def reset_copies() -> None:
     for kind in COPIES:
         COPIES[kind] = 0
+
+
+# threshold_sweep's calls since the last reset_sweeps(), the thresholds they
+# scored and the mask sets their CRF refined (a threshold's set a call)
+SWEEPS = {"calls": 0, "thresholds": 0, "mask_sets_refined": 0}
+
+
+def reset_sweeps() -> None:
+    for key in SWEEPS:
+        SWEEPS[key] = 0
 
 
 def _count(kind: str, nbytes: int) -> None:
@@ -480,54 +492,82 @@ def threshold_sweep(vae: VAE, critic: Critic, frames_u8: np.ndarray, gt: np.ndar
     together (crf/device.py::refine_masks_multi_device) and its IoUs are
     counted on the device too, while the host CRF refines them one
     threshold at a time. Returns one dict per threshold: ``threshold``,
-    ``thr_iou`` (3 digits) and ``crf_iou`` (3 digits, None without
-    ``run_crf``). Arguments as in :func:`eval_episode` (``mask_source``,
-    ``saliency_opts`` and ``mesh`` too); ``gt`` is required.
+    ``thr_iou`` (3 digits), ``crf_iou`` (3 digits, None without
+    ``run_crf``), and the whole-stack counts the IoUs divide, unrounded:
+    ``thr_counts`` and ``crf_counts`` (tp, fn, fp) as ints (``crf_counts``
+    None without ``run_crf``). Arguments as in :func:`eval_episode`
+    (``mask_source``, ``saliency_opts`` and ``mesh`` too); ``gt`` is
+    required.
+
+    Under a profiler the call is a ``video.sweep`` span holding
+    ``video.upload`` (frames, ``gt``, thresholds, taps), the device stage's
+    ``video.device_stage`` a chunk, ``sweep.threshold`` a chunk (its
+    normalisation, the T masks and their counts), ``video.crf`` (the T sets
+    refined), ``video.readback`` (the counts back, the wait) and
+    ``video.score``; :data:`SWEEPS` counts the calls, thresholds and mask
+    sets refined.
     """
     device = torch.device(device)
-    backend = None
-    if run_crf:
-        from critic_vae_tpu_torch.crf.policy import resolve_crf_backend
-
-        backend = resolve_crf_backend(crf_backend, frames_u8.shape[1], frames_u8.shape[2],
-                                      device=device)
-    frames = _to_device(np.ascontiguousarray(frames_u8, dtype=np.uint8), device)
-    gt_dev = _to_device(np.ascontiguousarray(gt, dtype=bool), device)
-    t = _to_device(np.array(thresholds, dtype=np.int32), device)
-    taps = (_to_device(_spatial_taps(float(crf_params[4]), *frames_u8.shape[1:3]), device)
-            if backend == "device" else None)
-    _, max_value, diff_chunks, valids, _ = episode_device_stage(
-        vae, critic, frames, batch_size, compute_dtype=compute_dtype,
-        mask_source=mask_source, saliency_opts=saliency_opts, mesh=mesh,
-    )
-    mean_max = torch.mean(max_value)
-    counts = torch.zeros((len(t), 3), dtype=torch.int64, device=device)
-    mask_parts = []
-    offset = 0
-    for diff, valid in zip(diff_chunks, valids):
-        masks = _normalize_threshold_chunk(diff, mean_max, t)[1][:, :valid]
-        counts += iou_counts(gt_dev[offset : offset + valid], masks)
+    with span("video.sweep"):
+        backend = None
         if run_crf:
-            mask_parts.append(masks)
-        offset += valid
-    thr_counts, crf_counts, crf_masks = _to_host(counts), None, None
-    if backend == "device":
-        from critic_vae_tpu_torch.crf.device import refine_masks_multi_device
+            from critic_vae_tpu_torch.crf.policy import resolve_crf_backend
 
-        refined = refine_masks_multi_device(frames, torch.cat(mask_parts, dim=1), crf_params,
-                                            fetch=False, mesh=mesh, taps=taps)
-        crf_counts = _to_host(iou_counts(gt_dev, refined))
-    elif backend == "host":
-        crf_masks = _to_host(torch.cat(mask_parts, dim=1))
-    _join(device)
-    thr_ious = ious_from_counts(thr_counts)
-    crf_ious = [None] * len(t)
-    if crf_counts is not None:
-        crf_ious = ious_from_counts(crf_counts)
-    elif crf_masks is not None:
-        crf_ious = [iou(gt, _refine(frames_u8, m, crf_params, "host", num_threads))
-                    for m in crf_masks]
-    return [{"threshold": int(th), "thr_iou": thr_ious[i], "crf_iou": crf_ious[i]}
+            backend = resolve_crf_backend(crf_backend, frames_u8.shape[1], frames_u8.shape[2],
+                                          device=device)
+        with span("video.upload"):
+            frames = _to_device(np.ascontiguousarray(frames_u8, dtype=np.uint8), device)
+            gt_dev = _to_device(np.ascontiguousarray(gt, dtype=bool), device)
+            t = _to_device(np.array(thresholds, dtype=np.int32), device)
+            taps = (_to_device(_spatial_taps(float(crf_params[4]), *frames_u8.shape[1:3]), device)
+                    if backend == "device" else None)
+        _, max_value, diff_chunks, valids, _ = episode_device_stage(
+            vae, critic, frames, batch_size, compute_dtype=compute_dtype,
+            mask_source=mask_source, saliency_opts=saliency_opts, mesh=mesh,
+        )
+        mean_max = torch.mean(max_value)
+        counts = torch.zeros((len(t), 3), dtype=torch.int64, device=device)
+        mask_parts = []
+        offset = 0
+        for diff, valid in zip(diff_chunks, valids):
+            with span("sweep.threshold"):
+                masks = _normalize_threshold_chunk(diff, mean_max, t)[1][:, :valid]
+                counts += iou_counts(gt_dev[offset : offset + valid], masks)
+            if run_crf:
+                mask_parts.append(masks)
+            offset += valid
+        with span("video.readback"):
+            thr_counts, crf_counts, crf_masks = _to_host(counts), None, None
+        if backend == "device":
+            from critic_vae_tpu_torch.crf.device import refine_masks_multi_device
+
+            with span("video.crf"):
+                refined = refine_masks_multi_device(frames, torch.cat(mask_parts, dim=1),
+                                                    crf_params, fetch=False, mesh=mesh, taps=taps)
+            crf_counts = iou_counts(gt_dev, refined)
+        with span("video.readback"):
+            if crf_counts is not None:
+                crf_counts = _to_host(crf_counts)
+            elif backend == "host":
+                crf_masks = _to_host(torch.cat(mask_parts, dim=1))
+            _join(device)
+        if backend == "host":
+            with span("video.crf"):
+                refined = np.stack([_refine(frames_u8, m, crf_params, "host", num_threads)
+                                    for m in crf_masks])
+            crf_counts = iou_counts(torch.from_numpy(np.ascontiguousarray(gt, dtype=bool)),
+                                    torch.from_numpy(refined)).numpy()
+        with span("video.score"):
+            thr_ious = ious_from_counts(thr_counts)
+            crf_ious = [None] * len(t)
+            if crf_counts is not None:
+                crf_ious = ious_from_counts(crf_counts)
+        SWEEPS["calls"] += 1
+        SWEEPS["thresholds"] += len(t)
+        SWEEPS["mask_sets_refined"] += len(t) if backend is not None else 0
+    return [{"threshold": int(th), "thr_iou": thr_ious[i], "crf_iou": crf_ious[i],
+             "thr_counts": tuple(int(c) for c in thr_counts[i]),
+             "crf_counts": None if crf_counts is None else tuple(int(c) for c in crf_counts[i])}
             for i, th in enumerate(thresholds)]
 
 

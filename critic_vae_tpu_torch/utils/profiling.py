@@ -5,6 +5,9 @@ takes an XLA one, and ``span`` names a stage of the port in that trace.
 Spans are named ``<layer>.<stage>`` and nest on the calling thread:
 ``video.episode`` (``pipelines/video.py::eval_episode``) holds
 ``video.upload``, ``video.device_stage``, ``video.normalize``,
+``video.crf``, ``video.readback`` and ``video.score``; ``video.sweep``
+(``threshold_sweep``) holds ``video.upload``, ``video.device_stage``,
+``sweep.threshold`` (a chunk's normalisation, T masks and their counts),
 ``video.crf``, ``video.readback`` and ``video.score``; the device CRF's
 chunks open ``crf.build`` and ``crf.mean_field`` (crf/device.py); a
 train step (train/step.py) opens ``train.forward``, ``train.loss``,

@@ -3,8 +3,9 @@ metrics that use it) on traces built by hand from Chrome trace events: a
 launch from another thread inside a span counts, idle time inside a span
 is the span less the card's busy intervals, the mean
 field's bound at the video configuration, the saliency stage's readers and
-its operation count, and every reader's silence when its span is missing
-(the parent commit's program has none)."""
+its operation count, the threshold sweep's readers and its operation count,
+and every reader's silence when its span is missing (the parent commit's
+program has none)."""
 
 import sys
 from pathlib import Path
@@ -24,7 +25,7 @@ SPAN_METRICS = ["device_stage_ms_per_kframe", "crf_ms_per_kframe", "mean_field_r
                 "launches_per_step.backward", "launches_per_step.update", "graph_replay_pct.train",
                 "mean_field_fused_pct", "saliency_ms_per_kframe", "saliency_idle_pct.video",
                 "launches_per_kframe.saliency", "epilogue_ms_per_kframe",
-                "epilogue_fused_pct.video"]
+                "epilogue_fused_pct.video", "sweep_threshold_ms_per_kframe"]
 
 
 def _span(name, ts, dur, tid=1):
@@ -316,3 +317,37 @@ def test_saliency_count_at_the_quality_configuration():
     t = _traced(_saliency_trace(), cell="video-quality-nocrf", window_s=1e-3, frames=2000)
     want = 100.0 * 2000 * 24_208_128 / peaks.FLOPS["float32"] / 1e-3
     assert core.metric_reader("mfu_pct.quality").read(t) == pytest.approx(want)
+
+
+def test_sweep_threshold_ms_per_kframe_sums_its_spans_device_time():
+    """Two chunks' ``sweep.threshold`` spans, each launching a kernel (one
+    from another thread); a kernel launched outside them is left out."""
+    events = [_span("sweep.threshold", 0.0, 100.0), _span("sweep.threshold", 1000.0, 100.0),
+              _launch(1, 10.0), _kernel(1, 20.0, 300.0),
+              _launch(2, 1010.0, tid=2), _kernel(2, 1020.0, 200.0),
+              _launch(3, 500.0), _kernel(3, 500.0, 400.0)]
+    t = _traced(events, cell="video-sweep", frames=2450)
+    # 0.5 ms of device time over 2,450 frames
+    got = core.metric_reader("sweep_threshold_ms_per_kframe").read(t)
+    assert got == pytest.approx(0.5 / 2.45)
+    bare = [e for e in events if e["name"] != "sweep.threshold"]
+    assert core.metric_reader("sweep_threshold_ms_per_kframe").read(
+        _traced(bare, cell="video-sweep")) is None
+
+
+def test_mfu_pct_sweep_counts_the_nets_and_the_26_lane_mean_field():
+    from bench_torch.counts import flops, peaks, sweep
+
+    cfg = core.load_cell("video-sweep").config
+    stages = sweep.stages(cfg, True)
+    # the nets as eval_episode counts them, then 10 passes of M @ Q over 2 x 13 lanes
+    assert stages[:-1] == flops.video_stages(cfg, False)
+    assert stages[-1] == (10 * 2 * 4096**2 * 26, "bfloat16")
+    assert sweep.stages(cfg, False) == flops.video_stages(cfg, False)
+    per_frame = peaks.seconds_at_peak(stages)
+    assert per_frame == pytest.approx(9.8e-6, abs=0.1e-6)
+    # 4,900 frames in a 0.98 s slice: 4.9% of the peak
+    t = _traced([_launch(1, 0.0), _kernel(1, 0.0, 10.0)], cell="video-sweep", window_s=0.98,
+                frames=4900)
+    assert core.metric_reader("mfu_pct.sweep").read(t) == pytest.approx(
+        100.0 * 4900 * per_frame / 0.98)

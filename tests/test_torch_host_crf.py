@@ -94,4 +94,5 @@ def test_threshold_sweep_host_equals_jax():
                                crf_backend="host", batch_size=3)
     got = threshold_sweep(vae, critic, frames, gt, thresholds, device=CPU, crf_backend="host",
                           batch_size=3)
-    assert got == want
+    # the port's dicts also carry the unrounded counts, which JAX's lack
+    assert [{k: r[k] for k in want[0]} for r in got] == want

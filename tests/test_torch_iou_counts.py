@@ -76,6 +76,11 @@ def _boundary_gt(masks: np.ndarray) -> np.ndarray:
     return gt.reshape(masks.shape)
 
 
+def _numpy_counts(gt: np.ndarray, pred: np.ndarray) -> tuple:
+    """numpy's whole-stack (tp, fn, fp) of boolean ``pred`` against ``gt``."""
+    return (int(np.sum(gt & pred)), int(np.sum(gt & ~pred)), int(np.sum(~gt & pred)))
+
+
 def _gt(case: str, shape, thr_masks: np.ndarray) -> np.ndarray:
     rng = np.random.default_rng(CASES.index(case))
     if case == "empty_union":
@@ -150,7 +155,8 @@ def test_sweep_and_param_search_ious_are_numpys(models, episode, without_gt, pip
         diff_u8 = without_gt[None].diff_u8.astype(np.int32)
         masks = np.stack([diff_u8 > th for th in thresholds])
         crf = refine_masks_multi_device(frames, masks, CRF_PARAMS, device=CPU)
-        assert got == [{"threshold": th, "thr_iou": iou(gt, m), "crf_iou": iou(gt, c)}
+        assert got == [{"threshold": th, "thr_iou": iou(gt, m), "crf_iou": iou(gt, c),
+                        "thr_counts": _numpy_counts(gt, m), "crf_counts": _numpy_counts(gt, c)}
                        for th, m, c in zip(thresholds, masks, crf)]
         return
     small, small_gt = generate_frames(3, size=16, seed=5)

@@ -165,9 +165,11 @@ def test_threshold_sweep_is_bitwise_the_plain_path(card):
     masks = torch.cat([threshold_masks(normalize_diffs_given_mean(d, torch.mean(max_value))[:v], t)
                        for d, v in zip(diff_chunks, valids)], dim=1)
     refined = refine_masks_multi_device(frames_dev, masks, PARAMS, fetch=False)
-    thr_ious = ious_from_counts(iou_counts(gt_dev, masks))
-    crf_ious = ious_from_counts(iou_counts(gt_dev, refined))
-    assert got == [{"threshold": th, "thr_iou": thr_ious[i], "crf_iou": crf_ious[i]}
+    thr_counts, crf_counts = iou_counts(gt_dev, masks), iou_counts(gt_dev, refined)
+    thr_ious, crf_ious = ious_from_counts(thr_counts), ious_from_counts(crf_counts)
+    assert got == [{"threshold": th, "thr_iou": thr_ious[i], "crf_iou": crf_ious[i],
+                    "thr_counts": tuple(thr_counts[i].tolist()),
+                    "crf_counts": tuple(crf_counts[i].tolist())}
                    for i, th in enumerate(thresholds)]
 
 
