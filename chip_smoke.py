@@ -54,8 +54,12 @@ exits non-zero:
    the library's composition (bmm, cuDNN's TF32 conv, softmax), two runs
    bitwise identical; the device time a launch beside its 0.641 ms bound,
    torch.bmm of the same M as library_ms, the composition's iteration and
-   the plain version's time; then one and 10 steps at P = 2 on 20x20, 16x32
-   and 32x512 frames (a random bf16 M; 32x512 stages its rows in windows).
+   the plain version's time; at P = 26 the 26 lanes bitwise 13 two-lane
+   calls for one and 10 steps, kernel spatial_message (the spatial message
+   each step adds, one launch a step) against its plain version (max abs
+   error <= 5e-6, SPATIAL_ATOL), its device time beside its byte bound (y
+   read, s written) and its plain version's time; then one and 10 steps at
+   P = 2 on 20x20, 16x32 and 32x512 frames (a random bf16 M).
    Phase 7 also holds B5's C=2 marginals bitwise to their digests from
    before B5's product loop became csrc/row_block_product.cuh, which both
    share;
@@ -311,8 +315,10 @@ where there is one (for B5, of its iteration's product; its row also has
 build_ms and iter_ms, and each time again at T=13 as *_t13; B4's row has its
 3-lane error and time at C=64 as *_l3, its error the larger;
 mean_field_step's ``ms`` is its device time a launch at P=2, call_ms an iteration by
-CUDA events, library_iter_ms the composition's iteration, and ms and
-library_ms at P=3 and 26 as *_p3, *_p26). B1's and P1's
+CUDA events, library_iter_ms the composition's iteration, ms and
+library_ms at P=3 and 26 as *_p3, *_p26, and spatial_ms, spatial_plain_ms and
+spatial_max_abs_err the device time a launch of kernel spatial_message at
+P=26, its plain version's time and its error against it). B1's and P1's
 ``ms`` is device time (B1 in bf16, the mask path's dtype) and their
 ``call_ms`` the time of a call through the
 Python wrapper (P1's rows sum the three questions, with ``empty_ms`` the
@@ -851,6 +857,10 @@ def phase_b5(dev):
 STEP_ATOL = 1e-4
 STEP_ATOL_ITERS = 1e-2
 STEP_LABELS = 0.999
+# kernel spatial_message against its plain version: the kernel's FMAs and the
+# plain version's products and adds differ by a few float32 roundings of the
+# 2 (2 radius + 1) terms of s, whose |s| < 1
+SPATIAL_ATOL = 5e-6
 STEP_LANES = ((2, 2), (3, 3), (26, 2))  # (P, L): one mask, three classes, the sweep
 
 
@@ -951,11 +961,14 @@ def phase_mean_field_step(dev):
         rows[lanes] = {"max_abs_err": max(step_err, iter_err), "ms": ms, "call_ms": call_ms,
                        "plain_ms": plain_ms, "library_ms": library_ms,
                        "library_iter_ms": library_iter_ms}
+        if lanes == 26:
+            rows[lanes].update(_lane_pairs_and_spatial(mb, qf, uf, ns, taps, w2, classes, iters,
+                                                       got, tag))
         del mb, q0, unary, qf, uf, got, want, q, qb
     # other frames, on a random bf16 M of B2's scale (row sums ~ w1) with P = 2:
     # a block's 128 pixels over part of a row and 7 rows (20x20), over 4 rows
-    # with the taps clamped to 16 (16x32), and rows too wide for a lane's 31
-    # at once (32x512: its rows staged in windows)
+    # with the taps clamped to 16 (16x32), and over part of a row of 512
+    # (32x512: spatial_message's bands of 16 rows)
     g = torch.Generator(device=dev).manual_seed(7)
     frame_err = 0.0
     for h, w in ((20, 20), (16, 32), (32, 512)):
@@ -982,7 +995,56 @@ def phase_mean_field_step(dev):
         del mb
     # P = 2 (one mask, the cell's) as the row's times; the error the largest
     return {**rows[2], "max_abs_err": max(frame_err, *(r["max_abs_err"] for r in rows.values())),
-            **{f"{k}_p{p}": rows[p][k] for p in (3, 26) for k in ("ms", "library_ms")}}
+            **{f"{k}_p{p}": rows[p][k] for p in (3, 26) for k in ("ms", "library_ms")},
+            **{k: rows[26][k] for k in ("spatial_ms", "spatial_plain_ms",
+                                        "spatial_max_abs_err")}}
+
+
+def _lane_pairs_and_spatial(mb, qf, uf, ns, taps, w2, classes, iters, got, tag):
+    """(7b) the 26 lanes (``got``: their ``iters`` steps from qf) bitwise
+    their softmax groups, each in a call of its own, for one step and
+    ``iters``; kernel spatial_message's launches a step, its output against
+    its plain version, its device time beside its byte bound and its plain
+    version's time."""
+    import torch
+
+    from critic_vae_tpu_torch.crf.mean_field_step import (
+        mean_field_steps,
+        spatial_message,
+        spatial_message_reference,
+    )
+    from critic_vae_tpu_torch.device import cuda_ms, device_ms
+    from critic_vae_tpu_torch.kernels import build as kb
+
+    lanes = qf.shape[-1]
+
+    def run(n_iter, l0=0, l1=lanes):
+        return mean_field_steps(mb, qf[..., l0:l1], uf[..., l0:l1].contiguous(), ns, taps, w2,
+                                h=H, w=W, classes=classes, iters=n_iter)
+
+    kb.reset_launches()
+    one = run(1)
+    launches = kb.LAUNCHES["spatial_message"]
+    for n_iter, want in ((1, one), (iters, got)):
+        groups = [run(n_iter, l0, l0 + classes) for l0 in range(0, lanes, classes)]
+        require(torch.equal(torch.cat(groups, dim=-1), want),
+                f"mean_field_step P={lanes}: {n_iter} steps differ from {lanes // classes} "
+                f"calls of {classes} lanes")
+    y = qf.transpose(1, 2).contiguous() * ns.reshape(1, 1, -1)
+    with no_tf32():
+        plain = spatial_message_reference(y, ns, taps, H, W)
+        plain_ms = cuda_ms(lambda: spatial_message_reference(y, ns, taps, H, W), iters=3)
+    err = (spatial_message(y, ns, taps, h=H, w=W) - plain).abs().max().item()
+    ms = device_ms(lambda: spatial_message(y, ns, taps, h=H, w=W), "spatial_message", iters=20)
+    bound_ms = 1e3 * 2 * y.numel() * 4 / 3.35e12
+    log(f"{tag} P={lanes}: bitwise {lanes // classes} calls of {classes} lanes for 1 and "
+        f"{iters} steps; spatial_message ({launches} launch a step) against its plain version "
+        f"max_abs_err {err:.3e} (bar {SPATIAL_ATOL:g}), {ms:.4f} ms a launch (device time; "
+        f"bound {bound_ms:.4f} ms: y read and s written, {100 * bound_ms / ms:.1f}%), plain "
+        f"{plain_ms:.3f} ms")
+    require(launches == 1, f"spatial_message: {launches} launches in one step")
+    require(err <= SPATIAL_ATOL, f"spatial_message: off its plain version by {err}")
+    return {"spatial_ms": ms, "spatial_plain_ms": plain_ms, "spatial_max_abs_err": err}
 
 
 # the mask stage's block epilogues a chunk on the main path (merged front end,

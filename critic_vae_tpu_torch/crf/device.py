@@ -28,7 +28,8 @@ Each decision is taken in one place:
   or with ``soft`` its marginals, which the entry points reshape;
 * :func:`_mean_field_q` iterates on every bilateral term but B5's: one
   launch of kernel ``mean_field_step`` (crf/mean_field_step.py) an
-  iteration for a bf16 M on the card with N % 8 == 0, else the one loop
+  iteration for a bf16 M on the card with N % 8 == 0 (each after one of
+  kernel ``spatial_message``), else the one loop
   :func:`_mean_field_loop` with the message as a function of q.
 
 ``refine_masks_multi_device`` refines T mask sets of the same frames

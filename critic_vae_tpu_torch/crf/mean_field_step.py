@@ -18,7 +18,11 @@ frame, in float32 (the composition runs cuDNN's TF32 on the card).
 
 The CUDA kernel is ``csrc/mean_field_step.cu``;
 :func:`mean_field_step_reference` is the plain version of one launch, lane
-group by lane group as the kernel takes them (:func:`lane_groups`).
+group by lane group as the kernel takes them (:func:`lane_groups`). The
+spatial message n_s * (sepconv(y) - y) comes from kernel ``spatial_message``
+(``csrc/spatial_message.cu``, plain version
+:func:`spatial_message_reference`), launched before each step on the y
+that the step before wrote; the step adds it.
 """
 
 from __future__ import annotations
@@ -31,11 +35,8 @@ from critic_vae_tpu_torch.crf.fused_build import MAX_LAUNCH_FRAMES
 from critic_vae_tpu_torch.kernels import build as kb
 from critic_vae_tpu_torch.utils.profiling import span
 
-# A softmax group lies in one block's 64 lanes, and the kernel's spatial pass
-# holds, for a lane, the image rows of a block's 128 pixels (at most 2 w + 126
-# f32 words) and a row of y in its 16,256 words (csrc/mean_field_step.cu).
+# A softmax group lies in one block's 64 lanes (csrc/mean_field_step.cu).
 MAX_CLASSES = 64
-MAX_WIDTH = 5376
 
 
 def lane_groups(lanes: int, classes: int) -> List[Tuple[int, int]]:
@@ -68,6 +69,40 @@ def spatial_message_reference(y: torch.Tensor, ns: torch.Tensor, taps: torch.Ten
     img = y.reshape(c, p, h, w)
     conv = _tap_sum(_tap_sum(img, taps.float(), 2), taps.float(), 3).reshape(c, p, n)
     return ns.reshape(1, 1, n) * (conv - y)
+
+
+def spatial_message(y: torch.Tensor, ns: torch.Tensor, taps: torch.Tensor, *, h: int, w: int,
+                    out: torch.Tensor | None = None) -> torch.Tensor:
+    """n_s * (sepconv(y) - y) of a (C, P, N) float32 lane-major y, N = h*w.
+
+    CUDA tensors launch kernel ``spatial_message`` into ``out`` (a fresh
+    (C, P, N) float32 tensor if None) or raise (also where a row of its
+    column and row sums, about 2 w + 2 radius float32 words, exceeds a
+    block's shared memory); CPU tensors take
+    :func:`spatial_message_reference`."""
+    c, p, n = y.shape
+    if n != h * w or ns.numel() != n:
+        raise ValueError(f"spatial_message: y {tuple(y.shape)} or n_s {tuple(ns.shape)} are "
+                         f"no {h}x{w} frames")
+    if not y.is_cuda:
+        return spatial_message_reference(y, ns.reshape(n), taps, h, w)
+    if (y.dtype != torch.float32 or not y.is_contiguous() or c > MAX_LAUNCH_FRAMES
+            or p > MAX_LAUNCH_FRAMES):
+        raise ValueError(f"spatial_message: want a contiguous float32 y of at most "
+                         f"{MAX_LAUNCH_FRAMES} frames and lanes, got {y.dtype} {tuple(y.shape)}")
+    if out is None:
+        out = torch.empty_like(y)
+    elif out.shape != y.shape or out.dtype != y.dtype or not out.is_contiguous():
+        raise ValueError(f"spatial_message: out {out.dtype} {tuple(out.shape)} is not like y")
+    ns = ns.float().reshape(n).contiguous()
+    taps = taps.to(y.device, torch.float32).contiguous()
+    with torch.cuda.device(y.device):
+        status = kb.library().cvt_spatial_message(
+            y.data_ptr(), ns.data_ptr(), taps.data_ptr(), taps.shape[0] // 2, c, p, h, w,
+            out.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    kb.check(status, "spatial_message")
+    kb.LAUNCHES["spatial_message"] += 1
+    return out
 
 
 def mean_field_step_reference(mb: torch.Tensor, q: torch.Tensor, unary: torch.Tensor,
@@ -115,9 +150,10 @@ def mean_field_steps(mb: torch.Tensor, q: torch.Tensor, unary: torch.Tensor, ns:
       ns: the (N, 1) spatial normalizer of ``taps`` (terms.py::_spatial_norm).
       classes: L, the lanes of one softmax group.
 
-    Returns the (C, N, P) float32 marginals. CUDA tensors launch the kernel
-    once an iteration (a contiguous bf16 M with N % 8 == 0, w <= MAX_WIDTH
-    and C <= 65535) or raise; CPU tensors take the plain version."""
+    Returns the (C, N, P) float32 marginals. CUDA tensors launch kernel
+    ``spatial_message`` and then the step once an iteration (a contiguous
+    bf16 M with N % 8 == 0 and C <= 65535), or raise; CPU tensors take the
+    plain version."""
     _check(mb, q, unary, ns, h, w, classes)
     if iters < 0:
         raise ValueError(f"mean_field_step: iters={iters} < 0")
@@ -129,9 +165,9 @@ def mean_field_steps(mb: torch.Tensor, q: torch.Tensor, unary: torch.Tensor, ns:
     c, n, p = q.shape
     if mb.dtype != torch.bfloat16 or not mb.is_contiguous():
         raise ValueError(f"mean_field_step: M must be contiguous bf16, got {mb.dtype}")
-    if n % 8 or w > MAX_WIDTH or c > MAX_LAUNCH_FRAMES:
-        raise ValueError(f"mean_field_step: N={n} must divide by 8, w={w} be at most "
-                         f"{MAX_WIDTH} and C={c} at most {MAX_LAUNCH_FRAMES} on CUDA")
+    if n % 8 or c > MAX_LAUNCH_FRAMES:
+        raise ValueError(f"mean_field_step: N={n} must divide by 8 and C={c} be at most "
+                         f"{MAX_LAUNCH_FRAMES} on CUDA")
     if iters == 0:
         return q
     dev = mb.device
@@ -141,6 +177,7 @@ def mean_field_steps(mb: torch.Tensor, q: torch.Tensor, unary: torch.Tensor, ns:
     qb = torch.empty((2, c, p, n), dtype=torch.bfloat16, device=dev)
     y = torch.empty((2, c, p, n), dtype=torch.float32, device=dev)
     out = torch.empty((c, n, p), dtype=torch.float32, device=dev)
+    sp = torch.empty((c, p, n), dtype=torch.float32, device=dev)
     qt = q.transpose(1, 2)
     qb[0].copy_(qt)
     torch.mul(ns_flat.reshape(1, 1, n), qt, out=y[0])
@@ -149,12 +186,12 @@ def mean_field_steps(mb: torch.Tensor, q: torch.Tensor, unary: torch.Tensor, ns:
         stream = torch.cuda.current_stream().cuda_stream
         for it in range(iters):
             src, dst = it % 2, 1 - it % 2
+            spatial_message(y[src], ns_flat, taps, h=h, w=w, out=sp)
             with span("mean_field_step"):
                 status = lib.cvt_mean_field_step(
-                    mb.data_ptr(), qb[src].data_ptr(), y[src].data_ptr(), unary.data_ptr(),
-                    ns_flat.data_ptr(), taps.data_ptr(), taps.shape[0] // 2, c, n, w, p,
-                    classes, float(w2), int(it == iters - 1), qb[dst].data_ptr(),
-                    y[dst].data_ptr(), out.data_ptr(), stream,
+                    mb.data_ptr(), qb[src].data_ptr(), sp.data_ptr(), unary.data_ptr(),
+                    ns_flat.data_ptr(), c, n, p, classes, float(w2), int(it == iters - 1),
+                    qb[dst].data_ptr(), y[dst].data_ptr(), out.data_ptr(), stream,
                 )
             kb.check(status, "mean_field_step")
             kb.LAUNCHES["mean_field_step"] += 1

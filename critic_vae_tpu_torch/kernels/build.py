@@ -42,7 +42,7 @@ NVCC_FLAGS = (
 # where it launches its kernel and nowhere else
 LAUNCHES = {"diff_mask": 0, "bilateral_build": 0, "kernel_i8_build": 0, "matvec_i8": 0,
             "mean_field_resident": 0, "caps_probe": 0, "front_end_probe": 0,
-            "mean_field_step": 0, "block_epilogue": 0}
+            "mean_field_step": 0, "block_epilogue": 0, "spatial_message": 0}
 
 _LOCK = threading.Lock()
 _LIB: ctypes.CDLL | None = None
@@ -121,8 +121,10 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.cvt_mean_field_resident.argtypes = [p, p, p, i, i, i, i, f, f, f, f, f, i,
                                             p, p, p, p, p, p, p]
     lib.cvt_mean_field_resident.restype = i
-    lib.cvt_mean_field_step.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, f, i, p, p, p, p]
+    lib.cvt_mean_field_step.argtypes = [p, p, p, p, p, i, i, i, i, f, i, p, p, p, p]
     lib.cvt_mean_field_step.restype = i
+    lib.cvt_spatial_message.argtypes = [p, p, p, i, i, i, i, i, p, p]
+    lib.cvt_spatial_message.restype = i
     lib.cvt_block_epilogue_pool.argtypes = [p, i, i, i, i, p, i, i, p, p, p]
     lib.cvt_block_epilogue_pool.restype = i
     lib.cvt_block_epilogue_shuffle.argtypes = [p, i, i, i, i, p, i, p, p]

@@ -25,7 +25,8 @@ SPAN_METRICS = ["device_stage_ms_per_kframe", "crf_ms_per_kframe", "mean_field_r
                 "launches_per_step.backward", "launches_per_step.update", "graph_replay_pct.train",
                 "mean_field_fused_pct", "saliency_ms_per_kframe", "saliency_idle_pct.video",
                 "launches_per_kframe.saliency", "epilogue_ms_per_kframe",
-                "epilogue_fused_pct.video", "sweep_threshold_ms_per_kframe"]
+                "epilogue_fused_pct.video", "sweep_threshold_ms_per_kframe",
+                "mean_field_hoisted_pct"]
 
 
 def _span(name, ts, dur, tid=1):
@@ -186,6 +187,26 @@ def test_epilogue_ms_per_kframe_sums_the_spans_device_time():
                 frames=500)
     # five kernels of 100 µs over 500 frames: 1 ms a 1,000 frames
     assert core.metric_reader("epilogue_ms_per_kframe").read(t) == pytest.approx(1.0)
+
+
+SPATIAL = "void (anonymous namespace)::spatial_message_kernel(float const*, float const*)"
+
+
+@pytest.mark.parametrize("kernel_names, want", [
+    ([SPATIAL, STEP] * 10, 100.0),                   # the sweep: each step after its message
+    ([STEP] * 10, 0.0),                              # every step's message in its own tail
+    ([SPATIAL, STEP] * 5 + [STEP] * 5, 50.0),        # half the steps
+    (["cutlass_80_tensorop_s16816gemm_bf16_64x256", "softmax_warp_forward"] * 10, None),
+])
+def test_mean_field_hoisted_pct_counts_the_spatial_kernels_over_the_steps(kernel_names, want):
+    """The spatial kernels over the step kernels in ``crf.mean_field``
+    spans; nothing where no step ran there (the library's mean field)."""
+    t = _traced(_mean_field_chunks(kernel_names), cell="video-sweep")
+    got = core.metric_reader("mean_field_hoisted_pct").read(t)
+    assert got == (None if want is None else pytest.approx(want))
+    # the spatial kernel's name holds no "mean_field_step": the fused share stays 100
+    if want:
+        assert core.metric_reader("mean_field_fused_pct").read(t) == pytest.approx(100.0)
 
 
 def test_mean_field_fused_pct_is_silent_without_the_span():

@@ -61,7 +61,7 @@ def test_diff_mask_wrapper_checks_and_counts_nothing_on_cpu():
     assert kb.LAUNCHES == {"diff_mask": 0, "bilateral_build": 0, "kernel_i8_build": 0,
                            "matvec_i8": 0, "mean_field_resident": 0, "caps_probe": 0,
                            "front_end_probe": 0, "mean_field_step": 0,
-                           "block_epilogue": 0}
+                           "block_epilogue": 0, "spatial_message": 0}
     with pytest.raises(ValueError):
         diff_mask(pre[:, :2])
     with pytest.raises(ValueError):

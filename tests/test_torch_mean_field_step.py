@@ -2,10 +2,24 @@
 plain version of one launch against the composition it replaces on a bf16 M
 (crf/device.py::_mean_field_loop with ``_matrix_message``: M @ q + w2
 ``_spatial_message`` - the unaries, then the softmax), its lane groups, the
-dispatch rule of ``_mean_field_q``, and the labels of the entry points when
-their mean fields take the kernel's arithmetic. No JAX: the composition is the port's
-own, held to the JAX package by tests/test_torch_crf*.py."""
+dispatch rule of ``_mean_field_q``, the plain version of kernel
+``spatial_message`` against the composition's spatial message, and the
+labels of the entry points when their mean fields take the kernel's
+arithmetic. No JAX: the composition is the port's own, held to the JAX
+package by tests/test_torch_crf*.py.
 
+On the card (marked ``card``, skipped without one): on B2's M of a seeded
+64-frame chunk, one 26-lane call bitwise 13 two-lane calls, for one
+iteration and ten, reproducible, and the marginals the step gave when it
+computed the spatial message in its own epilogue (their digests); kernel
+``spatial_message`` against its plain version at the cell's frames, at
+small, wide and edge-clamped ones. The card's machine has no JAX, so the
+file runs there without tests/conftest.py:
+
+    python -m pytest --noconftest tests/test_torch_mean_field_step.py -m card
+"""
+
+import hashlib
 import types
 
 import numpy as np
@@ -20,15 +34,19 @@ from critic_vae_tpu_torch.crf.device import (
     _matrix_message,
     _mean_field_loop,
     _mean_field_q,
+    _spatial_message,
     densecrf_device,
     refine_masks_device,
     refine_masks_multi_device,
 )
+from critic_vae_tpu_torch.crf.fused_build import build_bilateral
 from critic_vae_tpu_torch.crf.mean_field_step import (
     MAX_CLASSES,
     lane_groups,
     mean_field_step_reference,
     mean_field_steps,
+    spatial_message,
+    spatial_message_reference,
 )
 from critic_vae_tpu_torch.crf.terms import _prologue, _spatial_norm, _spatial_taps
 from critic_vae_tpu_torch.data.synthetic import generate_frames
@@ -194,3 +212,128 @@ def test_entry_point_labels_unchanged_by_the_kernels_arithmetic(entry, monkeypat
     got = entry(*episode)
     assert kb.LAUNCHES["mean_field_step"] == 0
     np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("h, w, lanes, gamma", [
+    (64, 64, 26, GAMMA),  # the sweep's frames: 31 taps
+    (16, 32, 2, GAMMA),   # the taps clamped to the 16 rows
+    (8, 8, 3, GAMMA),     # the taps cut to the frame on both axes
+    (12, 40, 2, 6.0),     # radius 39: every tap reaches out of the frame
+])
+def test_plain_spatial_message_is_the_compositions(h, w, lanes, gamma):
+    """:func:`spatial_message_reference` on lane-major y = n_s * q against
+    the composition's ``_spatial_message`` of the same q (cuDNN's depthwise
+    conv on the CPU): the tap sums in another order, a few float32 roundings
+    apart."""
+    taps = torch.from_numpy(_spatial_taps(gamma, h, w))
+    ns = _spatial_norm(taps, h, w)
+    q = torch.rand((C, h * w, lanes), generator=torch.Generator().manual_seed(h + lanes))
+    y = (ns.reshape(1, -1, 1) * q).transpose(1, 2).contiguous()
+    got = spatial_message_reference(y, ns, taps, h, w).transpose(1, 2)
+    torch.testing.assert_close(got, _spatial_message(q, ns, taps, h, w), rtol=0.0,
+                               atol=STEP_ATOL)
+
+
+def test_spatial_message_on_the_cpu_is_its_plain_version():
+    h, w = 16, 32
+    taps = torch.from_numpy(_spatial_taps(GAMMA, h, w))
+    ns = _spatial_norm(taps, h, w)
+    y = torch.rand((C, 5, h * w), generator=torch.Generator().manual_seed(3))
+    kb.reset_launches()
+    got = spatial_message(y, ns, taps, h=h, w=w)
+    assert torch.equal(got, spatial_message_reference(y, ns, taps, h, w))
+    assert kb.LAUNCHES["spatial_message"] == 0
+    with pytest.raises(ValueError, match="no 16x16 frames"):
+        spatial_message(y, ns, taps, h=h, w=16)
+
+
+# --- on the card
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: kernels mean_field_step and spatial_message run only "
+                    "there")
+    return torch.device("cuda")
+
+
+def _chunk_on_card(dev, lanes, seed):
+    """B2's bf16 M of a seeded 64-frame chunk of 64x64 frames, with the q0
+    and unaries of ``lanes // 2`` noisy masks of each frame."""
+    frames, gt = generate_frames(64, size=64, seed=seed)
+    n = 64 * 64
+    mb = build_bilateral(torch.from_numpy(frames.reshape(64, n, 3)).to(dev), W1, ALPHA, BETA,
+                         h=64, w=64)
+    rng = np.random.default_rng(seed)
+    masks = np.stack([gt ^ (rng.random(gt.shape) < r) for r in np.linspace(0.02, 0.3,
+                                                                           lanes // 2)], -1)
+    m = torch.from_numpy(masks.reshape(64, n, lanes // 2).astype(np.float32)).to(dev)
+    probs = torch.stack([1.0 - m, m], dim=-1).clamp(0.05, 0.95)
+    unary, q = _prologue(probs)
+    taps = torch.from_numpy(_spatial_taps(GAMMA, 64, 64)).to(dev)
+    return mb, q.reshape(64, n, lanes), unary.reshape(64, n, lanes), taps
+
+
+# sha256 of the marginals' bytes below, as the step gave them when it summed
+# the spatial message in its own epilogue (4 staging rounds a block at 26
+# lanes, one at 2)
+_EPILOGUE_DIGESTS = {
+    1: "76a441f48b5ec82f0609d3f43f08f6a3f1e005e279e1cfa6f829b7c06b58ad8e",
+    ITERS: "ada1a5da19f912e7987886a8ae8a737dd37106db5da5fcc8a6997d26b5326c8a",
+}
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("iters", [1, ITERS])
+def test_26_lanes_are_bitwise_13_pairs_and_the_epilogues_marginals(card, iters):
+    """The sweep's 26 lanes and each of their 13 (neg, pos) pairs alone
+    (P = 2, ``video-crf``'s lanes): the lanes do not mix, so the marginals
+    are the same bits; two 26-lane runs too; and the same bits as when the
+    step computed the spatial message in its epilogue. ``spatial_message``
+    launches once an iteration a call."""
+    mb, q, unary, taps = _chunk_on_card(card, 26, seed=24)
+    ns = _spatial_norm(taps, 64, 64)
+
+    def run(lanes):
+        return mean_field_steps(mb, q[..., lanes], unary[..., lanes].contiguous(), ns, taps, W2,
+                                h=64, w=64, classes=2, iters=iters)
+
+    kb.reset_launches()
+    got = run(slice(0, 26))
+    assert kb.LAUNCHES["spatial_message"] == iters
+    assert kb.LAUNCHES["mean_field_step"] == iters
+    again = run(slice(0, 26))
+    kb.reset_launches()
+    pairs = torch.cat([run(slice(2 * t, 2 * t + 2)) for t in range(13)], dim=-1)
+    torch.cuda.synchronize()
+    assert kb.LAUNCHES["spatial_message"] == 13 * iters
+    assert kb.LAUNCHES["mean_field_step"] == 13 * iters
+    assert torch.equal(got, pairs)
+    assert torch.equal(got, again)
+    assert not torch.equal(got, q)
+    assert hashlib.sha256(got.cpu().numpy().tobytes()).hexdigest() == _EPILOGUE_DIGESTS[iters]
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("h, w, lanes, gamma", [
+    (64, 64, 26, GAMMA),       # the sweep's chunk: one band a lane
+    (20, 20, 3, GAMMA),        # taps clamped to the frame on both axes
+    (32, 512, 2, GAMMA),       # bands of 16 rows
+    (8, 5376, 2, GAMMA),       # a wide frame: bands of 5 rows
+    (24, 40, 2, 6.0),          # radius 39 > the frame: every tap reaches out
+])
+def test_spatial_kernel_is_its_plain_version(card, h, w, lanes, gamma):
+    """Kernel ``spatial_message`` against :func:`spatial_message_reference`:
+    the kernel's FMAs against the plain version's products and adds differ
+    by a few float32 roundings of the 2 (2 radius + 1) terms (STEP_ATOL);
+    two launches are the same bits."""
+    g = torch.Generator().manual_seed(h + w)
+    taps = torch.from_numpy(_spatial_taps(gamma, h, w)).to(card)
+    ns = _spatial_norm(taps, h, w)
+    y = (torch.rand((3, lanes, h * w), generator=g) * 0.5).to(card) * ns.reshape(1, 1, -1)
+    got = spatial_message(y, ns, taps, h=h, w=w)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, spatial_message_reference(y, ns, taps, h, w), rtol=0.0,
+                               atol=STEP_ATOL)
+    assert torch.equal(got, spatial_message(y, ns, taps, h=h, w=w))

@@ -153,7 +153,7 @@ def test_device_honesty():
     assert {p.name for p in kb.sources()} == {
         "diff_mask.cu", "bilateral_build.cu", "kernel_i8_build.cu", "matvec_i8.cu",
         "mean_field_resident.cu", "caps_probe.cu", "front_end_probe.cu", "mean_field_step.cu",
-        "block_epilogue.cu"}
+        "block_epilogue.cu", "spatial_message.cu"}
     rel = kb.BUILD_DIR.relative_to(ROOT).as_posix() + "/"
     assert rel in (ROOT / ".gitignore").read_text().splitlines()
     # CPU runs never count a launch
@@ -165,4 +165,4 @@ def test_device_honesty():
     assert kb.LAUNCHES == {"diff_mask": 0, "bilateral_build": 0, "kernel_i8_build": 0,
                            "matvec_i8": 0, "mean_field_resident": 0, "caps_probe": 0,
                            "front_end_probe": 0, "mean_field_step": 0,
-                           "block_epilogue": 0}
+                           "block_epilogue": 0, "spatial_message": 0}
