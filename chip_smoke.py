@@ -2989,12 +2989,12 @@ def phase_parallel(dev, critic, vae, smi: str, scratch: Path):
     b1_k = sorted(k for k in kernels if "diff_mask" in k)
     b2_k = sorted(k for k in kernels if "tile_store_kernel" in k or "tile_rowsum_kernel" in k)
     log(f"[29 parallel a] video --profile: exit {proc.returncode} in {secs:.1f} s; trace "
-        f"{files}: spans diff_mask {'diff_mask' in names}, bilateral_build "
-        f"{'bilateral_build' in names}; {len(kernels)} kernel names, B1's {b1_k[:1]}, "
+        f"{files}: spans bilateral_build {'bilateral_build' in names}, setup.library "
+        f"{'setup.library' in names}; {len(kernels)} kernel names, B1's {b1_k[:1]}, "
         f"B2's {[k[:60] for k in b2_k]}")
     require(len(files) == 1, f"video --profile: {files} traces")
-    require({"diff_mask", "bilateral_build"} <= names and b1_k and b2_k,
-            "the --profile trace does not name B1 and B2")
+    require({"bilateral_build", "setup.first_call", "setup.library"} <= names and b1_k and b2_k,
+            "the --profile trace does not name B1, B2 and the library's load")
     require(_iou_lines(lines) == want, f"video --profile: IoUs {_iou_lines(lines)} != {want}")
 
     # (b) one rank on NCCL under the launcher, --num-devices 1

@@ -22,6 +22,11 @@ ranks, one a device, and ``utils/profiling.py`` takes ``--profile``'s trace.
 This package imports torch and numpy, never jax.
 """
 
+import time as _time
+
+# the port's import start, on the clock of the set-up spans (utils/profiling.py)
+IMPORT_START_NS = _time.time_ns()
+
 __version__ = "0.1.0"
 
 from critic_vae_tpu_torch.config import Config, default_config  # noqa: E402,F401

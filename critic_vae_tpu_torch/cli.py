@@ -78,10 +78,11 @@ the port's spans: an episode's ``video.episode`` holding ``video.upload``,
 ``video.device_stage``, ``video.normalize``, ``video.crf``,
 ``video.readback`` and ``video.score``; each device CRF chunk's
 ``crf.build`` and ``crf.mean_field``; under ``--num-devices`` the mesh's
-``mesh.all_gather``; and each hand-written kernel's launch under its name
-(``diff_mask``, ``bilateral_build``, ``kernel_i8_build``, ``matvec_i8``,
-``mean_field_resident``, ``mean_field_step``). ``--device cpu`` runs on the
-CPU; the card is the default.
+``mesh.all_gather``; the bilateral build's launch as ``bilateral_build``
+(every kernel appears under its own name, tied to its launch); and, before
+the traced work, the set-up spans the process closed before the trace
+began (the kernel library's load, earlier first calls). ``--device cpu``
+runs on the CPU; the card is the default.
 
 Ranks: ``main`` forms the ``torch.distributed`` group first when a launcher
 set one up (parallel/distributed.py: ``python -m torch.distributed.run

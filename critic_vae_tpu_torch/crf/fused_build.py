@@ -194,7 +194,7 @@ def build_kernel_i8(imgs_u8: torch.Tensor, alpha, beta, *, h: int, w: int):
     feat = feature_planes(c, n, B2_PLANES, dev)
     k8 = torch.empty((c * n, n), dtype=torch.int8, device=dev)
     rowsum = torch.empty((c * n, 1), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev), span("kernel_i8_build"):
+    with torch.cuda.device(dev):
         status = lib.cvt_kernel_i8_build(
             imgs_u8.data_ptr(), c, n, w, float(alpha), float(beta), feat.data_ptr(),
             k8.data_ptr(), rowsum.data_ptr(), torch.cuda.current_stream().cuda_stream,
@@ -238,7 +238,7 @@ def matvec_i8(k8: torch.Tensor, y: torch.Tensor, *, n: int) -> torch.Tensor:
     cn, lanes = yb.shape
     lib = kb.library()
     out = torch.empty((cn, lanes), dtype=torch.float32, device=k8.device)
-    with torch.cuda.device(k8.device), span("matvec_i8"):
+    with torch.cuda.device(k8.device):
         status = lib.cvt_matvec_i8(
             k8.data_ptr(), yb.data_ptr(), cn // n, n, lanes, out.data_ptr(),
             torch.cuda.current_stream().cuda_stream,

@@ -33,7 +33,6 @@ import torch
 
 from critic_vae_tpu_torch.crf.fused_build import MAX_LAUNCH_FRAMES
 from critic_vae_tpu_torch.kernels import build as kb
-from critic_vae_tpu_torch.utils.profiling import span
 
 # A softmax group lies in one block's 64 lanes (csrc/mean_field_step.cu).
 MAX_CLASSES = 64
@@ -187,12 +186,11 @@ def mean_field_steps(mb: torch.Tensor, q: torch.Tensor, unary: torch.Tensor, ns:
         for it in range(iters):
             src, dst = it % 2, 1 - it % 2
             spatial_message(y[src], ns_flat, taps, h=h, w=w, out=sp)
-            with span("mean_field_step"):
-                status = lib.cvt_mean_field_step(
-                    mb.data_ptr(), qb[src].data_ptr(), sp.data_ptr(), unary.data_ptr(),
-                    ns_flat.data_ptr(), c, n, p, classes, float(w2), int(it == iters - 1),
-                    qb[dst].data_ptr(), y[dst].data_ptr(), out.data_ptr(), stream,
-                )
+            status = lib.cvt_mean_field_step(
+                mb.data_ptr(), qb[src].data_ptr(), sp.data_ptr(), unary.data_ptr(),
+                ns_flat.data_ptr(), c, n, p, classes, float(w2), int(it == iters - 1),
+                qb[dst].data_ptr(), y[dst].data_ptr(), out.data_ptr(), stream,
+            )
             kb.check(status, "mean_field_step")
             kb.LAUNCHES["mean_field_step"] += 1
     return out

@@ -15,9 +15,10 @@ towards the 1e-20 floor) and the diff maps' tanh — both are parity surfaces
 against the JAX package.
 
 Each kernel wrapper counts its launches in :data:`LAUNCHES`, so a run can
-show that its main path went through the kernels, and opens a span named
-after the kernel around its launch (utils/profiling.py::span), so a
-``torch.profiler`` trace names each launch.
+show that its main path went through the kernels; a ``torch.profiler``
+trace names each kernel itself. The library's load is the set-up span
+``setup.library`` (utils/profiling.py::setup_span), keyed ``build`` where
+the process compiled the library first and ``load`` where it found it.
 """
 
 from __future__ import annotations
@@ -30,6 +31,8 @@ import subprocess
 import tempfile
 import threading
 from pathlib import Path
+
+from critic_vae_tpu_torch.utils.profiling import setup_span
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "_build"
@@ -141,11 +144,14 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
 
 
 def library() -> ctypes.CDLL:
-    """The loaded kernel library, built on first use."""
+    """The loaded kernel library, built on first use: the set-up span
+    ``setup.library``, keyed by whether the library was there to load."""
     global _LIB
     with _LOCK:
         if _LIB is None:
-            _LIB = _declare(ctypes.CDLL(str(build())))
+            found = library_path().exists()
+            with setup_span("setup.library", "load" if found else "build"):
+                _LIB = _declare(ctypes.CDLL(str(build())))
         return _LIB
 
 

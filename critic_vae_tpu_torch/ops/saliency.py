@@ -40,8 +40,9 @@ profiler inside the spans ``saliency.view``, ``saliency.upsample`` and
 ``saliency.combine`` (utils/profiling.py::span). On a card without
 SmoothGrad the parts replay as CUDA graphs from a signature's second call
 (:class:`_SaliencyGraphs`), each inside its span, with the kernels and
-results of the eager parts. :data:`VIEWS` counts the views and the
-backward passes.
+results of the eager parts; a capture is the set-up span ``setup.capture``
+(key ``saliency:`` and the frames' shape; utils/profiling.py::setup_span).
+:data:`VIEWS` counts the views and the backward passes.
 """
 
 from __future__ import annotations
@@ -55,7 +56,7 @@ import torch.nn.functional as F
 from critic_vae_tpu_torch.device import no_tf32
 from critic_vae_tpu_torch.ops.resize import METHODS as CAM_UPSAMPLES
 from critic_vae_tpu_torch.ops.resize import resize_maps
-from critic_vae_tpu_torch.utils.profiling import span
+from critic_vae_tpu_torch.utils.profiling import setup_span, span
 
 DEFAULT_SMOOTH_SIGMA = 1.5  # the JAX package's measured best for "gradient"
 METHODS = ("gradient", "layercam")
@@ -295,17 +296,18 @@ class _Captured:
     def __init__(self, critic, x: torch.Tensor, options: dict):
         self.x = x.clone()  # the static input; the graphs hold its address
         before = dict(VIEWS)
-        # the generator's frame holds every tensor the graphs read and write
-        self.parts = _parts(critic, self.x, None, **options)
-        self.graphs = []
-        pool = torch.cuda.graph_pool_handle()
-        item = next(self.parts)
-        while isinstance(item, str):
-            graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(graph, pool=pool):
-                following = next(self.parts)
-            self.graphs.append((item, graph))
-            item = following
+        with setup_span("setup.capture", "saliency:" + "x".join(map(str, x.shape))):
+            # the generator's frame holds every tensor the graphs read and write
+            self.parts = _parts(critic, self.x, None, **options)
+            self.graphs = []
+            pool = torch.cuda.graph_pool_handle()
+            item = next(self.parts)
+            while isinstance(item, str):
+                graph = torch.cuda.CUDAGraph()
+                with torch.cuda.graph(graph, pool=pool):
+                    following = next(self.parts)
+                self.graphs.append((item, graph))
+                item = following
         self.out = item
         self.counts = {k: VIEWS[k] - before[k] for k in VIEWS}
         self.counts["views"] = sum(1 for name, _ in self.graphs if name == "saliency.view")

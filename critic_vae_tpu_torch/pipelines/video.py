@@ -19,7 +19,11 @@ is a ``video.episode`` span holding its stages' spans (upload, device
 stage, normalise and threshold, CRF, read-backs, scoring;
 utils/profiling.py::span), and each ``threshold_sweep`` a ``video.sweep``
 span holding the same stages, with ``sweep.threshold`` a chunk for its
-normalisation, T masks and counts.
+normalisation, T masks and counts. The first call of each in the process
+is also the set-up span ``setup.first_call`` (``video.episode``,
+``video.sweep``; utils/profiling.py::setup_span): it holds the lazy work
+of set-up (cuDNN's choices, the allocator's growth, :class:`_Staging`'s
+ring, the CRF's plan, the kernel library's load) besides the call's own.
 
 On a CUDA device an episode's copies between host and card are
 asynchronous, go through pinned host memory and run on a side stream
@@ -55,7 +59,7 @@ from critic_vae_tpu_torch.ops.mask import (
     normalize_diffs_given_mean,
     threshold_masks,
 )
-from critic_vae_tpu_torch.utils.profiling import span
+from critic_vae_tpu_torch.utils.profiling import setup_span, span
 
 # the reference's -thresh sweep (vae.py:121-123): 0..120 step 10
 DEFAULT_SWEEP = tuple(range(0, 130, 10))
@@ -399,7 +403,7 @@ def eval_episode(vae: VAE, critic: Critic, frames_u8: np.ndarray,
         more than one process runs (crf/policy.py), as in the JAX package.
     """
     device = torch.device(device)
-    with span("video.episode"):
+    with setup_span("setup.first_call", "video.episode"), span("video.episode"):
         backend = None
         if run_crf:
             from critic_vae_tpu_torch.crf.policy import resolve_crf_backend
@@ -508,7 +512,7 @@ def threshold_sweep(vae: VAE, critic: Critic, frames_u8: np.ndarray, gt: np.ndar
     sets refined.
     """
     device = torch.device(device)
-    with span("video.sweep"):
+    with setup_span("setup.first_call", "video.sweep"), span("video.sweep"):
         backend = None
         if run_crf:
             from critic_vae_tpu_torch.crf.policy import resolve_crf_backend

@@ -33,7 +33,11 @@ phase's span. Replays compute what eager steps compute: the noise
 generator is registered with the forward's graph, so replays draw what
 eager steps would from its state (``load_state_tree`` included); the
 per-call tensors are copied into static buffers; the losses returned are
-copies. A grouped mesh's collectives and the CPU run eagerly.
+copies. A grouped mesh's collectives and the CPU run eagerly. The
+process's first step is the set-up span ``setup.first_call`` (key
+``train.step``), closed once the card has run it, and each capture
+``setup.capture`` (key ``train:`` and its per-call inputs' shapes;
+utils/profiling.py::setup_span).
 
 ``mesh=`` (parallel/mesh.py: one rank a device) trains data-parallel with
 the JAX mesh step's meaning: each rank takes its equal share of the global
@@ -73,7 +77,7 @@ from critic_vae_tpu_torch.models.vae import VAE
 from critic_vae_tpu_torch.ops.losses import vae_loss
 from critic_vae_tpu_torch.parallel.mesh import (Mesh, global_mean, grouped, row_slice,
                                                 shard_batch, sum_gradients)
-from critic_vae_tpu_torch.utils.profiling import span
+from critic_vae_tpu_torch.utils.profiling import setup_span, span
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 ADAM = dict(beta1=0.9, beta2=0.999, eps=1e-8)  # torch defaults, as the reference (vae.py:36)
@@ -276,19 +280,22 @@ class _Captured:
     ``fixed`` (and the state) read and written where they are."""
 
     def __init__(self, phases: Callable, state: TrainState, fixed: dict, varying: dict):
-        self.state, self.fixed = state, fixed  # the graphs hold their addresses
-        self.static = {k: None if t is None else torch.empty(t.shape, dtype=t.dtype,
-                                                              device=state.step.device)
-                       for k, t in varying.items()}
-        self.graphs = [torch.cuda.CUDAGraph() for _ in PHASES]
-        # replays draw the noise eager steps would draw from the generator's state
-        self.graphs[0].register_generator_state(state.generator)
-        pool = torch.cuda.graph_pool_handle()
-        # the generator's frame holds every tensor the graphs read and write
-        self.run = phases(state, **fixed, **self.static, retain_graph=True)
-        for g in self.graphs:
-            with torch.cuda.graph(g, pool=pool):
-                self.losses = next(self.run)
+        shapes = ",".join(f"{k}={'x'.join(map(str, t.shape))}"
+                          for k, t in varying.items() if t is not None)
+        with setup_span("setup.capture", "train:" + shapes):
+            self.state, self.fixed = state, fixed  # the graphs hold their addresses
+            self.static = {k: None if t is None else torch.empty(t.shape, dtype=t.dtype,
+                                                                  device=state.step.device)
+                           for k, t in varying.items()}
+            self.graphs = [torch.cuda.CUDAGraph() for _ in PHASES]
+            # replays draw the noise eager steps would draw from the generator's state
+            self.graphs[0].register_generator_state(state.generator)
+            pool = torch.cuda.graph_pool_handle()
+            # the generator's frame holds every tensor the graphs read and write
+            self.run = phases(state, **fixed, **self.static, retain_graph=True)
+            for g in self.graphs:
+                with torch.cuda.graph(g, pool=pool):
+                    self.losses = next(self.run)
         GRAPHS["captures"] += 1
         print(f"train step: a signature's second call captured as {len(PHASES)} CUDA graphs on "
               f"{state.step.device}; it and every later call of the signature replay them",
@@ -325,6 +332,12 @@ class _StepGraphs:
         self.captured = None  # (key, _Captured)
 
     def __call__(self, state: TrainState, fixed: dict, varying: dict) -> Dict[str, torch.Tensor]:
+        # the process's first step, until the card has run it: cuDNN's
+        # choices, the allocator's growth
+        with setup_span("setup.first_call", "train.step", barrier=state.step):
+            return self._step(state, fixed, varying)
+
+    def _step(self, state: TrainState, fixed: dict, varying: dict) -> Dict[str, torch.Tensor]:
         if not graphed(state.step.device, self.mesh):
             return _eager(self.phases, state, **fixed, **varying)
 

@@ -6,7 +6,9 @@ with test-time views, over new frames, after the critic's weights change
 in place, and for a second critic; ``eval_episode`` on the ``--quality``
 chain is bitwise the eager stage's, counts its views and backward passes
 in ``VIEWS`` as the eager stage does, and under a profiler each replayed
-part's kernels lie inside its ``saliency.*`` span. No JAX here: the
+part's kernels lie inside its ``saliency.*`` span; a capture is a set-up
+span keyed by the frames' shape, held by the episode's first call where
+it falls in it. No JAX here: the
 card's machine has none, so the file runs there without tests/conftest.py:
 
     python -m pytest --noconftest tests/test_torch_saliency_graphs.py -m card
@@ -22,6 +24,7 @@ from critic_vae_tpu_torch.data.synthetic import generate_frames
 from critic_vae_tpu_torch.io import weights
 from critic_vae_tpu_torch.ops import saliency
 from critic_vae_tpu_torch.pipelines.video import eval_episode
+from critic_vae_tpu_torch.utils import profiling
 
 ROOT = Path(__file__).resolve().parent.parent
 if str(ROOT) not in sys.path:
@@ -151,9 +154,9 @@ def test_an_episodes_chunks_and_its_tail_are_each_captured_once(monkeypatch):
     assert episode(5, 8, 8) == [("replay", 5), ("eager", 8), ("capture", 8), ("replay", 8)]
 
 
-def _episode(critic, frames, gt, device):
+def _episode(critic, frames, gt, device, batch_size=128):
     return eval_episode(None, critic, frames, gt, device=device, threshold=64, run_crf=False,
-                        batch_size=128, mask_source="saliency", saliency_opts=QUALITY)
+                        batch_size=batch_size, mask_source="saliency", saliency_opts=QUALITY)
 
 
 @pytest.mark.card
@@ -194,3 +197,27 @@ def test_replayed_parts_launch_inside_their_spans(card):
     inside = sum(len(found) for v in per_part.values() for found in v)
     stage = sum(len(found) for found in spans.ops(trace, "video.device_stage"))
     assert inside > 0.9 * stage
+
+
+@pytest.mark.card
+def test_the_first_capture_is_a_set_up_span_inside_the_first_call(card, monkeypatch):
+    """In a process's first ``eval_episode`` the second chunk's capture is
+    the set-up span ``setup.capture`` keyed by the frames' shape, its parent
+    the call's ``setup.first_call``; a later call's capture of another
+    shape (chunks of 64) is one too, inside nothing; a capture of a shape
+    met before (a second critic's) records nothing."""
+    monkeypatch.setattr(profiling, "SETUP_SPANS", [])
+    monkeypatch.setattr(profiling, "_SEEN", set())
+    # chunks of 128: eager, captured, and the tail padded to 128, replayed
+    frames, gt, _ = _frames(300, 8, card)
+    first, second = _critic(card), _critic(card)
+    for critic, batch in ((first, 128), (first, 64), (second, 128)):
+        _episode(critic, frames, gt, card, batch)
+    assert len(saliency._GRAPHS.captured) == 3
+    got = [(s.name, s.key.split("x")[0], s.parent) for s in profiling.SETUP_SPANS]
+    assert got == [("setup.first_call", "video.episode", None),
+                   ("setup.capture", "saliency:128", 0),
+                   ("setup.capture", "saliency:64", None)]
+    call, wide, narrow = profiling.SETUP_SPANS
+    assert call.start_ns < wide.start_ns < wide.end_ns < call.end_ns < narrow.start_ns
+    assert wide.key.split("x")[1:] == narrow.key.split("x")[1:]

@@ -3,8 +3,9 @@ what makes a replay compute what an eager step computes, on the CPU (the
 state written in place, the decision to replay, MS-SSIM's constants built
 once, losses that are the caller's own), and on the card (marked ``card``,
 skipped without one) the replayed steps bitwise equal to eager ones under
-cuDNN's deterministic algorithms, a resume in the middle of replays, and a
-new capture when TF32 is turned on. No JAX here: the card's machine has
+cuDNN's deterministic algorithms, a resume in the middle of replays, a
+new capture when TF32 is turned on, and the first step and each capture
+recorded as set-up spans. No JAX here: the card's machine has
 none, so the file runs there without tests/conftest.py, which imports it:
 
     python -m pytest --noconftest tests/test_torch_step_graphs.py -m card
@@ -21,6 +22,7 @@ from critic_vae_tpu_torch.io import weights
 from critic_vae_tpu_torch.ops import msssim
 from critic_vae_tpu_torch.parallel.mesh import Mesh
 from critic_vae_tpu_torch.train import step as tstep
+from critic_vae_tpu_torch.utils import profiling
 
 torch.set_num_threads(1)  # one intra-op thread a test process: xdist runs several at once
 
@@ -312,3 +314,29 @@ def test_turning_tf32_on_between_calls_recaptures(critic, card):
     assert counts[1]["replays"] == counts[0]["replays"] + 2
     assert counts[2]["captures"] == counts[1]["captures"] + 1
     assert counts[2]["replays"] == counts[1]["replays"] + 1
+
+
+@pytest.mark.card
+def test_each_capture_is_a_set_up_span_keyed_by_its_shapes(critic, card, monkeypatch):
+    """The process's first step is ``setup.first_call`` (key ``train.step``),
+    closed after the card ran it; each signature's capture is
+    ``setup.capture`` keyed by its per-call inputs' shapes, after it; a
+    capture of shapes met before records nothing."""
+    monkeypatch.setattr(profiling, "SETUP_SPANS", [])
+    monkeypatch.setattr(profiling, "_SEEN", set())
+    critic = critic.to(card)
+    data = _frames(64, card)
+    idx = torch.arange(48, dtype=torch.int32, device=card).reshape(6, 8)
+    multi = tstep.make_multi_step(critic, learning_rate=LR)
+    state = _state(card)
+    before = dict(tstep.GRAPHS)
+    multi(state, data, idx[:3])  # eager, captured, replayed
+    multi(state, data, idx[3:, :4])  # four rows a step: another signature
+    multi(state, data, idx[:3])  # eight again, captured anew
+    assert tstep.GRAPHS["captures"] == before["captures"] + 3
+    got = [(s.name, s.key, s.parent) for s in profiling.SETUP_SPANS]
+    assert got == [("setup.first_call", "train.step", None),
+                   ("setup.capture", "train:idx=8", None),
+                   ("setup.capture", "train:idx=4", None)]
+    call, eight, four = profiling.SETUP_SPANS
+    assert call.end_ns < eight.start_ns < eight.end_ns < four.start_ns < four.end_ns
