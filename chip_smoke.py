@@ -23,11 +23,14 @@ exits non-zero:
    launches, the inputs in turn over 4 decodes so that they come from HBM,
    not the L2), call time (CUDA events over 50 calls of the Python wrapper)
    and plain time;
-4. kernel B2 (bilateral_build) against its plain version at C=4, N=4096
-   and at a ragged N=2500 (50x50) (f32: <= 1e-5 relative on entries >
-   1e-3; bf16: within 1 bf16 ulp; the diagonal exactly 0; M bitwise
-   symmetric), then at the main path's C=64 in bf16 (the same bars), two
-   launches bitwise identical in bf16 and f32, and timed there;
+4. kernel B2 (bilateral_build: the unnormalized K and its normalizers g)
+   against its plain version at C=4, N=4096 and at a ragged N=2500 (50x50)
+   (K in f32: <= 1e-5 relative on entries > 1e-3; in bf16: within 1 bf16
+   ulp; g <= 1e-5 relative; the diagonal exactly 0; K bitwise symmetric),
+   then at the main path's C=64 in bf16 (the same bars), two launches
+   bitwise identical in bf16 and f32 (K and g), and timed there: device
+   time a launch and the kernels it launched (three, no row-sum pass)
+   beside those of the build before its row sums moved into the store;
 5. kernel B3 (kernel_i8_build) against its plain version at C=4 with
    N=4096, N=1024 (32x32) and a ragged N=400 (20x20: divides by 16, not by
    the 64-pixel tile), and at the main path's C=64, N=4096: int8 identical
@@ -44,22 +47,23 @@ exits non-zero:
    labels >= 99.99% identical; at C=64 timed (the timed runs' outputs are
    the ones checked), two launches bitwise identical, the build alone
    (iters=0) timed, the iteration's time taken as the difference over 10,
-   and beside it torch.bmm of a (64, 4096, 4096) bf16 M by 2T bf16 lanes
-   with f32 sums (library_ms: the product each iteration computes);
-7b. kernel mean_field_step (one mean-field iteration on a bf16 M) at the
-   main path's C=64, N=4096 on B2's M, at P = 2 (one mask), 3 (three
-   classes) and 26 (the sweep): one step against its plain version (float32
-   with TF32 off: max abs error <= 1e-4, the bar's reason at STEP_ATOL), 10
-   steps (<= 1e-2), labels >= 99.9% identical to the plain version's and to
-   the library's composition (bmm, cuDNN's TF32 conv, softmax), two runs
-   bitwise identical; the device time a launch beside its 0.641 ms bound,
-   torch.bmm of the same M as library_ms, the composition's iteration and
+   and beside it torch.bmm of B2's (64, 4096, 4096) bf16 K by 2T bf16
+   lanes with f32 sums (library_ms: the product each iteration computes);
+7b. kernel mean_field_step (one mean-field iteration on a bf16 K and its
+   normalizers g) at the main path's C=64, N=4096 on B2's pair, at P = 2
+   (one mask), 3 (three classes) and 26 (the sweep): one step against its
+   plain version (float32 with TF32 off: max abs error <= 1e-4, the bar's
+   reason at STEP_ATOL), 10 steps (<= 1e-2), labels >= 99.9% identical to
+   the plain version's and to the library's composition (bmm, cuDNN's TF32
+   conv, softmax), two runs bitwise identical; the device time a launch
+   beside its 0.641 ms bound, torch.bmm of the same K as library_ms, the
+   composition's iteration and
    the plain version's time; at P = 26 the 26 lanes bitwise 13 two-lane
    calls for one and 10 steps, kernel spatial_message (the spatial message
    each step adds, one launch a step) against its plain version (max abs
    error <= 5e-6, SPATIAL_ATOL), its device time beside its byte bound (y
    read, s written) and its plain version's time; then one and 10 steps at
-   P = 2 on 20x20, 16x32 and 32x512 frames (a random bf16 M).
+   P = 2 on 20x20, 16x32 and 32x512 frames (a random bf16 pair).
    Phase 7 also holds B5's C=2 marginals bitwise to their digests from
    before B5's product loop became csrc/row_block_product.cuh, which both
    share;
@@ -559,30 +563,62 @@ def _bf16_ulps(x, y) -> int:
     return (x.view(torch.int16).int() - y.view(torch.int16).int()).abs().max().item()
 
 
-def _check_b2(mk, mr, out_dtype, label):
-    """B2's M against its plain version's: the diagonal exactly 0, M bitwise
-    symmetric, f32 within 1e-5 relative on entries > 1e-3, bf16 within 1
-    ulp. Returns the max abs error."""
+def _check_b2(got, want, out_dtype, label):
+    """B2's pair (K, g) against its plain version's: K's diagonal exactly 0,
+    K bitwise symmetric, a float32 K within 1e-5 relative on entries > 1e-3,
+    a bf16 K within 1 ulp, g within 1e-5 relative (its row sums in another
+    order). Returns the max abs error of K."""
     import torch
 
+    mk, mr = got.k, want.k
     diag = torch.diagonal(mk, dim1=1, dim2=2).abs().max().item()
     sym = torch.equal(mk, mk.transpose(1, 2))
     err = (mk.float() - mr.float()).abs().max().item()
+    g_rel = ((got.g - want.g).abs() / want.g).max().item()
     if out_dtype == "float32":
         sig = mr.abs() > 1e-3
         rel = ((mk - mr).abs()[sig] / mr.abs()[sig]).max().item()
-        log(f"[4 B2 bilateral_build] {label} float32: max_rel_err {rel:.3e} on "
-            f"{int(sig.sum())} entries > 1e-3 (bar 1e-5); diagonal max {diag}; bitwise "
-            f"symmetric {sym}")
+        log(f"[4 B2 bilateral_build] {label} float32: K max_rel_err {rel:.3e} on "
+            f"{int(sig.sum())} entries > 1e-3 (bar 1e-5); g max_rel_err {g_rel:.3e} (bar 1e-5); "
+            f"diagonal max {diag}; bitwise symmetric {sym}")
         require(rel <= 1e-5, f"B2 {label} float32: max relative error {rel} > 1e-5")
     else:
         ulps = _bf16_ulps(mk, mr)
-        log(f"[4 B2 bilateral_build] {label} bfloat16: max {ulps} bf16 ulp (bar 1), "
-            f"max_abs_err {err:.3e}; diagonal max {diag}; bitwise symmetric {sym}")
+        log(f"[4 B2 bilateral_build] {label} bfloat16: K max {ulps} bf16 ulp (bar 1), "
+            f"max_abs_err {err:.3e}; g max_rel_err {g_rel:.3e} (bar 1e-5); diagonal max {diag}; "
+            f"bitwise symmetric {sym}")
         require(ulps <= 1, f"B2 {label} bfloat16: {ulps} ulps from the plain version")
+    require(g_rel <= 1e-5, f"B2 {label} {out_dtype}: g off by {g_rel} relative")
     require(diag == 0.0, f"B2 {label} {out_dtype}: diagonal not exactly 0 ({diag})")
-    require(sym, f"B2 {label} {out_dtype}: M is not bitwise symmetric")
+    require(sym, f"B2 {label} {out_dtype}: K is not bitwise symmetric")
     return err
+
+
+# B2 before its row-sum pass was merged into the store (measured on an H100
+# 80GB HBM3 at 700 W, C = 64 bf16, device time a launch): four kernels
+B2_BEFORE = {"ms": "1.2865-1.2909",
+             "kernels": ["tile_feats_kernel", "tile_rowsum_kernel", "tile_norm_kernel",
+                         "tile_store_kernel"]}
+
+
+def _launch_kernels(fn, iters=20):
+    """Device time of one call of ``fn`` (every kernel it launched, summed,
+    over ``iters`` calls traced by torch.profiler) and the short names of
+    those kernels."""
+    import torch
+
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+    names = sorted({name for e in events for name in B2_BEFORE["kernels"] if name in e.key}
+                   | {e.key[:40] for e in events
+                      if not any(name in e.key for name in B2_BEFORE["kernels"])})
+    return sum(e.self_device_time_total for e in events) / iters / 1e3, names
 
 
 def phase_b2(dev):
@@ -605,34 +641,41 @@ def phase_b2(dev):
         small = imgs(c, 1, side)
         for out_dtype in ("float32", "bfloat16"):
             kw = dict(h=side, w=side, out_dtype=out_dtype)
-            mk = build_bilateral(small, w1, alpha, beta, **kw)
-            mr = build_bilateral_reference(small, w1, alpha, beta, **kw)
+            got = build_bilateral(small, w1, alpha, beta, **kw)
+            want = build_bilateral_reference(small, w1, alpha, beta, **kw)
             torch.cuda.synchronize()
-            _check_b2(mk, mr, out_dtype, f"C={c} N={side * side}")
-            del mk, mr
+            _check_b2(got, want, out_dtype, f"C={c} N={side * side}")
+            del got, want
 
     chunk = imgs(CRF_CHUNK, 2)
-    mk = build_bilateral(chunk, w1, alpha, beta, h=H, w=W, out_dtype="bfloat16")
-    mr = build_bilateral_reference(chunk, w1, alpha, beta, h=H, w=W, out_dtype="bfloat16")
+    got = build_bilateral(chunk, w1, alpha, beta, h=H, w=W, out_dtype="bfloat16")
+    want = build_bilateral_reference(chunk, w1, alpha, beta, h=H, w=W, out_dtype="bfloat16")
     torch.cuda.synchronize()
-    err = _check_b2(mk, mr, "bfloat16", f"C={CRF_CHUNK} N={NPIX}")
-    del mr
+    err = _check_b2(got, want, "bfloat16", f"C={CRF_CHUNK} N={NPIX}")
+    del want
     for out_dtype in ("bfloat16", "float32"):  # two launches, bitwise the same
         a = build_bilateral(chunk, w1, alpha, beta, h=H, w=W, out_dtype=out_dtype)
-        same = torch.equal(a, build_bilateral(chunk, w1, alpha, beta, h=H, w=W,
-                                              out_dtype=out_dtype))
+        b = build_bilateral(chunk, w1, alpha, beta, h=H, w=W, out_dtype=out_dtype)
+        same = torch.equal(a.k, b.k) and torch.equal(a.g, b.g)
         log(f"[4 B2 bilateral_build] C={CRF_CHUNK} {out_dtype}: two launches bitwise "
-            f"identical {same}")
+            f"identical (K and g) {same}")
         require(same, f"B2 {out_dtype}: two launches differ")
-        del a
-    del mk
+        del a, b
+    del got
     ms = cuda_ms(lambda: build_bilateral(chunk, w1, alpha, beta, h=H, w=W), iters=10)
+    device_ms_, kernels = _launch_kernels(lambda: build_bilateral(chunk, w1, alpha, beta, h=H,
+                                                                  w=W))
     plain_ms = cuda_ms(lambda: build_bilateral_reference(chunk, w1, alpha, beta, h=H, w=W),
                        iters=2, warmup=1)
     b2_bound = crf_bounds()[1]["bound_ms"]
-    log(f"[4 B2 bilateral_build] C={CRF_CHUNK} N={NPIX} bfloat16: kernel {ms:.3f} ms "
-        f"({b2_bound / ms:.1%} of its {b2_bound:.3f} ms byte bound), plain {plain_ms:.3f} ms")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+    log(f"[4 B2 bilateral_build] C={CRF_CHUNK} N={NPIX} bfloat16: device {device_ms_:.4f} ms a "
+        f"launch ({b2_bound / device_ms_:.1%} of its {b2_bound:.3f} ms byte bound) in "
+        f"{len(kernels)} kernels {kernels}; before the merged store {B2_BEFORE['ms']} ms in "
+        f"{len(B2_BEFORE['kernels'])} {B2_BEFORE['kernels']}; call {ms:.3f} ms, plain "
+        f"{plain_ms:.3f} ms")
+    require(len(kernels) == 3 and "tile_rowsum_kernel" not in kernels,
+            f"B2 launched {kernels}")
+    return {"max_abs_err": err, "ms": device_ms_, "call_ms": ms, "plain_ms": plain_ms}
 
 
 def _crf_imgs(c, seed, dev, side=H):
@@ -827,9 +870,9 @@ def phase_b5(dev):
         require(same, f"B5 T={t}: two launches differ")
         err = max(err, _check_b5(q, qr, CRF_CHUNK, t, iters))
         del q, qr, probs
-        # the iteration's yardstick: one bmm of a bf16 M of the chunk's shape
-        # by 2T bf16 lanes, f32 sums, as the default build's mean field runs it
-        m = build_bilateral(imgs, w1, alpha, beta, h=H, w=W)
+        # the iteration's yardstick: one bmm of B2's bf16 K of the chunk's
+        # shape by 2T bf16 lanes, f32 sums, as the composition would run it
+        m = build_bilateral(imgs, w1, alpha, beta, h=H, w=W).k
         y = torch.rand((CRF_CHUNK, NPIX, 2 * t), device=dev).to(torch.bfloat16)
         library_ms = cuda_ms(lambda: torch.bmm(m, y, torch.float32), iters=20)
         log(f"[7 B5 mean_field_resident] T={t}: library (torch.bmm of the ({CRF_CHUNK}, {NPIX}, "
@@ -865,7 +908,7 @@ STEP_LANES = ((2, 2), (3, 3), (26, 2))  # (P, L): one mask, three classes, the s
 
 
 def _step_case(lanes, classes, seed, dev):
-    """B2's bf16 M of CRF_CHUNK seeded 64x64 frames with the (C, N, T, L)
+    """B2's bf16 pair of CRF_CHUNK seeded 64x64 frames with the (C, N, T, L)
     q0 and unaries of mask-derived probabilities, as the cell's chunks have
     them (P = 3: the classes (1 - m, 0.6 m, 0.4 m), as phase 22)."""
     import torch
@@ -882,8 +925,8 @@ def _step_case(lanes, classes, seed, dev):
         probs = _sweep_probs(CRF_CHUNK, lanes // 2, seed, dev)
     probs = probs.view(CRF_CHUNK, NPIX, lanes // classes, classes)
     unary = -torch.log(torch.clamp_min(probs, 1e-8))
-    mb = build_bilateral(imgs, w1, alpha, beta, h=H, w=W)
-    return mb, torch.softmax(-unary, dim=-1), unary
+    pair = build_bilateral(imgs, w1, alpha, beta, h=H, w=W)
+    return pair, torch.softmax(-unary, dim=-1), unary
 
 
 def phase_mean_field_step(dev):
@@ -892,7 +935,8 @@ def phase_mean_field_step(dev):
     import torch
 
     from critic_vae_tpu_torch.crf import REFERENCE_CRF_PARAMS
-    from critic_vae_tpu_torch.crf.device import _matrix_message, _mean_field_loop
+    from critic_vae_tpu_torch.crf.device import _mean_field_loop, _pair_message
+    from critic_vae_tpu_torch.crf.fused_build import BilateralPair
     from critic_vae_tpu_torch.crf.mean_field_step import (
         mean_field_step_reference,
         mean_field_steps,
@@ -906,25 +950,25 @@ def phase_mean_field_step(dev):
     tag = "[7b mean_field_step]"
     rows = {}
     for lanes, classes in STEP_LANES:
-        mb, q0, unary = _step_case(lanes, classes, 30 + lanes, dev)
+        pair, q0, unary = _step_case(lanes, classes, 30 + lanes, dev)
         qf, uf = q0.reshape(CRF_CHUNK, NPIX, lanes), unary.reshape(CRF_CHUNK, NPIX, lanes)
 
         def kern(n_iter=iters):
-            return mean_field_steps(mb, qf, uf, ns, taps, w2, h=H, w=W, classes=classes,
+            return mean_field_steps(pair, qf, uf, ns, taps, w2, h=H, w=W, classes=classes,
                                     iters=n_iter)
 
         def plain():
-            return mean_field_step_reference(mb, qf, uf, ns, taps, w2, h=H, w=W,
+            return mean_field_step_reference(pair, qf, uf, ns, taps, w2, h=H, w=W,
                                              classes=classes)
 
-        def library():  # today's path for a bf16 M: bmm, cuDNN's conv in TF32, softmax
-            return _mean_field_loop(_matrix_message(mb), q0, unary, ns, taps, w2, H, W, iters)
+        def library():  # the composition: bmm, cuDNN's conv in TF32, softmax
+            return _mean_field_loop(_pair_message(pair), q0, unary, ns, taps, w2, H, W, iters)
 
         with no_tf32():
             step_err = (kern(1) - plain()).abs().max().item()
             q = qf
             for _ in range(iters):
-                q = mean_field_step_reference(mb, q, uf, ns, taps, w2, h=H, w=W,
+                q = mean_field_step_reference(pair, q, uf, ns, taps, w2, h=H, w=W,
                                               classes=classes)
             plain_ms = cuda_ms(plain, iters=1, warmup=1)
         got = kern()
@@ -940,7 +984,7 @@ def phase_mean_field_step(dev):
         ms = device_ms(lambda: kern(1), "mean_field_step", iters=20)
         call_ms = cuda_ms(kern, iters=5) / iters
         qb = qf.to(torch.bfloat16)
-        library_ms = cuda_ms(lambda: torch.bmm(mb, qb, torch.float32), iters=20)
+        library_ms = cuda_ms(lambda: torch.bmm(pair.k, qb, torch.float32), iters=20)
         library_iter_ms = cuda_ms(library, iters=3) / iters
         log(f"{tag} C={CRF_CHUNK} N={NPIX} P={lanes} L={classes}: one step against the plain "
             f"version max_abs_err {step_err:.3e} (bar {STEP_ATOL:g}); {iters} steps "
@@ -949,7 +993,7 @@ def phase_mean_field_step(dev):
             f"{STEP_LABELS}); two runs bitwise identical {same}")
         log(f"{tag} P={lanes}: kernel {ms:.4f} ms a launch (device time; bound 0.641, "
             f"{100 * 0.641 / ms:.1f}%), {call_ms:.4f} ms an iteration by CUDA events over "
-            f"{iters}; library: torch.bmm of the same M by {lanes} bf16 lanes, f32 out, "
+            f"{iters}; library: torch.bmm of the same K by {lanes} bf16 lanes, f32 out, "
             f"{library_ms:.4f} ms, the composition's iteration {library_iter_ms:.4f} ms; plain "
             f"{plain_ms:.3f} ms")
         require(step_err <= STEP_ATOL, f"mean_field_step P={lanes}: one step off by {step_err}")
@@ -962,10 +1006,11 @@ def phase_mean_field_step(dev):
                        "plain_ms": plain_ms, "library_ms": library_ms,
                        "library_iter_ms": library_iter_ms}
         if lanes == 26:
-            rows[lanes].update(_lane_pairs_and_spatial(mb, qf, uf, ns, taps, w2, classes, iters,
+            rows[lanes].update(_lane_pairs_and_spatial(pair, qf, uf, ns, taps, w2, classes, iters,
                                                        got, tag))
-        del mb, q0, unary, qf, uf, got, want, q, qb
-    # other frames, on a random bf16 M of B2's scale (row sums ~ w1) with P = 2:
+        del pair, q0, unary, qf, uf, got, want, q, qb
+    # other frames, on a random pair of B2's scale (a bf16 K in [0, 1), g of
+    # its row sums: M's row sums ~ w1) with P = 2:
     # a block's 128 pixels over part of a row and 7 rows (20x20), over 4 rows
     # with the taps clamped to 16 (16x32), and over part of a row of 512
     # (32x512: spatial_message's bands of 16 rows)
@@ -973,17 +1018,18 @@ def phase_mean_field_step(dev):
     frame_err = 0.0
     for h, w in ((20, 20), (16, 32), (32, 512)):
         n = h * w
-        mb = (torch.rand((2, n, n), generator=g, device=dev) * (2.0 * w1 / n)).to(torch.bfloat16)
+        k = torch.rand((2, n, n), generator=g, device=dev).to(torch.bfloat16)
+        pair = BilateralPair(k, (w1 / k.float().sum(dim=2)).sqrt())
         unary = -torch.log(torch.clamp_min(torch.rand((2, n, 2), generator=g, device=dev), 1e-8))
         q0 = torch.softmax(-unary, dim=-1)
         taps_hw = torch.from_numpy(_spatial_taps(gamma, h, w)).to(dev)
         ns_hw = _spatial_norm(taps_hw, h, w)
-        args = (mb, q0, unary, ns_hw, taps_hw, w2)
+        args = (pair, q0, unary, ns_hw, taps_hw, w2)
         with no_tf32():
             q = mean_field_step_reference(*args, h=h, w=w, classes=2)
             step_err = (mean_field_steps(*args, h=h, w=w, classes=2, iters=1) - q).abs().max()
             for _ in range(iters - 1):
-                q = mean_field_step_reference(mb, q, unary, ns_hw, taps_hw, w2, h=h, w=w,
+                q = mean_field_step_reference(pair, q, unary, ns_hw, taps_hw, w2, h=h, w=w,
                                               classes=2)
         iter_err = (mean_field_steps(*args, h=h, w=w, classes=2, iters=iters) - q).abs().max()
         log(f"{tag} C=2 {h}x{w} P=2: one step against the plain version max_abs_err "
@@ -992,7 +1038,7 @@ def phase_mean_field_step(dev):
         require(step_err <= STEP_ATOL and iter_err <= STEP_ATOL_ITERS,
                 f"mean_field_step {h}x{w}: off by {step_err}, {iter_err}")
         frame_err = max(frame_err, step_err.item(), iter_err.item())
-        del mb
+        del pair
     # P = 2 (one mask, the cell's) as the row's times; the error the largest
     return {**rows[2], "max_abs_err": max(frame_err, *(r["max_abs_err"] for r in rows.values())),
             **{f"{k}_p{p}": rows[p][k] for p in (3, 26) for k in ("ms", "library_ms")},
@@ -1000,7 +1046,7 @@ def phase_mean_field_step(dev):
                                         "spatial_max_abs_err")}}
 
 
-def _lane_pairs_and_spatial(mb, qf, uf, ns, taps, w2, classes, iters, got, tag):
+def _lane_pairs_and_spatial(pair, qf, uf, ns, taps, w2, classes, iters, got, tag):
     """(7b) the 26 lanes (``got``: their ``iters`` steps from qf) bitwise
     their softmax groups, each in a call of its own, for one step and
     ``iters``; kernel spatial_message's launches a step, its output against
@@ -1019,7 +1065,7 @@ def _lane_pairs_and_spatial(mb, qf, uf, ns, taps, w2, classes, iters, got, tag):
     lanes = qf.shape[-1]
 
     def run(n_iter, l0=0, l1=lanes):
-        return mean_field_steps(mb, qf[..., l0:l1], uf[..., l0:l1].contiguous(), ns, taps, w2,
+        return mean_field_steps(pair, qf[..., l0:l1], uf[..., l0:l1].contiguous(), ns, taps, w2,
                                 h=H, w=W, classes=classes, iters=n_iter)
 
     kb.reset_launches()
@@ -2987,7 +3033,7 @@ def phase_parallel(dev, critic, vae, smi: str, scratch: Path):
     names, kernels = _trace_names(trace)
     files = sorted(p.name for p in trace.rglob("*.pt.trace.json"))
     b1_k = sorted(k for k in kernels if "diff_mask" in k)
-    b2_k = sorted(k for k in kernels if "tile_store_kernel" in k or "tile_rowsum_kernel" in k)
+    b2_k = sorted(k for k in kernels if "tile_store_kernel" in k or "tile_norm_kernel" in k)
     log(f"[29 parallel a] video --profile: exit {proc.returncode} in {secs:.1f} s; trace "
         f"{files}: spans bilateral_build {'bilateral_build' in names}, setup.library "
         f"{'setup.library' in names}; {len(kernels)} kernel names, B1's {b1_k[:1]}, "

@@ -26,11 +26,13 @@ Each decision is taken in one place:
   each chunk (C, N, T, L) probabilities (masks as (1 - m, m)), runs it
   through the one chunk body :func:`_chunk_marginals` and keeps its labels,
   or with ``soft`` its marginals, which the entry points reshape;
-* :func:`_mean_field_q` iterates on every bilateral term but B5's: one
-  launch of kernel ``mean_field_step`` (crf/mean_field_step.py) an
-  iteration for a bf16 M on the card with N % 8 == 0 (each after one of
-  kernel ``spatial_message``), else the one loop
-  :func:`_mean_field_loop` with the message as a function of q.
+* :func:`_mean_field_q` iterates on every bilateral term but B5's: B2's
+  pair of the unnormalized K and its normalizers g (M = g g^T K), the
+  ``xla`` build's normalized M, or B3 + B4's message. One launch of kernel
+  ``mean_field_step`` (crf/mean_field_step.py) an iteration for a bf16 K or
+  M on the card with N % 8 == 0 (each after one of kernel
+  ``spatial_message``), else the one loop :func:`_mean_field_loop` with the
+  message as a function of q (:func:`_message`).
 
 ``refine_masks_multi_device`` refines T mask sets of the same frames
 against one matrix, packed as T*L lanes of Q (the threshold sweep);
@@ -50,7 +52,8 @@ values widened to float32 (bf16 products are exact in float32), and on
 CUDA, where a ragged N leaves the kernel, ``torch.bmm(M, Q_bf16,
 torch.float32)``, the ``out_dtype`` overload that PyTorch documents for
 float32 output from bf16 operands on CUDA only (a plain bf16 ``bmm`` would
-round the messages to bf16).
+round the messages to bf16). B2's pair takes the same product with K in M's
+place and g * Q in Q's, and scales its rows by g.
 """
 
 from __future__ import annotations
@@ -66,6 +69,7 @@ import torch.nn.functional as F
 from critic_vae_tpu_torch.crf import DEFAULT_PARAM_GRID, REFERENCE_CRF_PARAMS
 from critic_vae_tpu_torch.crf.fused_build import (
     QUANT_SCALE,
+    BilateralPair,
     build_bilateral,
     build_kernel_i8,
     matvec_i8,
@@ -186,6 +190,26 @@ def _matrix_message(mb: torch.Tensor) -> Callable:
     return lambda q: torch.bmm(mb.float(), q.to(mb.dtype).float())
 
 
+def _pair_message(pair: BilateralPair) -> Callable:
+    """q -> M @ q of B2's pair, M = g g^T K: g * (K @ (g * q)), the product
+    cast and summed as :func:`_matrix_message` takes it (g * q rounded to
+    K's dtype)."""
+    kq = _matrix_message(pair.k)
+    g = pair.g.unsqueeze(-1)
+    return lambda q: g * kq(g * q)
+
+
+def _message(bilateral) -> Callable:
+    """The bilateral term as a function of the (C, N, P) q: B3's message as
+    it is, B2's pair by :func:`_pair_message`, a matrix by
+    :func:`_matrix_message`."""
+    if callable(bilateral):
+        return bilateral
+    if isinstance(bilateral, BilateralPair):
+        return _pair_message(bilateral)
+    return _matrix_message(bilateral)
+
+
 def _i8_message(imgs_u8: torch.Tensor, w1, alpha, beta, *, h: int, w: int,
                 out_dtype: str = "int8") -> Callable:
     """The ``int8`` build's bilateral term: kernel B3 stores the
@@ -207,21 +231,24 @@ def _i8_message(imgs_u8: torch.Tensor, w1, alpha, beta, *, h: int, w: int,
 
 def _fused_step(bilateral) -> bool:
     """Whether the mean field over a chunk's bilateral term runs as kernel
-    ``mean_field_step``: a bf16 M on the card whose rows are whole 16-byte
-    chunks (N % 8 == 0, as the kernel's copies want; the ``pallas`` build's
-    M, at H*W % 128 == 0, always is). CPU tensors, a float32 M and B3's
-    message (a function) run :func:`_mean_field_loop`."""
-    return (not callable(bilateral) and bilateral.is_cuda
-            and bilateral.dtype == torch.bfloat16 and bilateral.shape[-1] % 8 == 0)
+    ``mean_field_step``: B2's bf16 K (or a bf16 M) on the card whose rows
+    are whole 16-byte chunks (N % 8 == 0, as the kernel's copies want; the
+    ``pallas`` build's K, at H*W % 128 == 0, always is). CPU tensors, a
+    float32 K or M and B3's message (a function) run
+    :func:`_mean_field_loop`."""
+    if callable(bilateral):
+        return False
+    m = bilateral.k if isinstance(bilateral, BilateralPair) else bilateral
+    return m.is_cuda and m.dtype == torch.bfloat16 and m.shape[-1] % 8 == 0
 
 
 def _mean_field_loop(message: Callable, q: torch.Tensor, unary: torch.Tensor,
                      ns: torch.Tensor, taps: torch.Tensor, w2, h: int, w: int,
                      iters: int) -> torch.Tensor:
     """The mean field as the composition of ``message`` (a function of the
-    (C, N, P) q: :func:`_matrix_message` or :func:`_i8_message`),
-    :func:`_spatial_message` and the softmax: (C, N, T, L) q and unaries ->
-    (C, N, T, L) float32 marginals."""
+    (C, N, P) q: :func:`_matrix_message`, :func:`_pair_message` or
+    :func:`_i8_message`), :func:`_spatial_message` and the softmax: (C, N, T,
+    L) q and unaries -> (C, N, T, L) float32 marginals."""
     c, n, t, L = q.shape
     for _ in range(iters):
         qf = q.reshape(c, n, t * L)
@@ -234,17 +261,20 @@ def _mean_field_q(bilateral, probs: torch.Tensor, taps: torch.Tensor, w2, h: int
                   iters: int) -> torch.Tensor:
     """T independent mean fields over a chunk's bilateral term, packed into
     the lanes of Q: (C, N, T, L) probabilities -> (C, N, T, L) float32
-    marginals. ``bilateral`` is the (C, N, N) M, read once an iteration for
-    all T, by kernel ``mean_field_step`` where :func:`_fused_step` says so
-    and else by :func:`_mean_field_loop`; or B3's message
-    (:func:`_i8_message`). The prologue stays outside ``crf.mean_field``."""
+    marginals. ``bilateral`` is B2's :class:`BilateralPair` or the ``xla``
+    build's (C, N, N) M, read once an iteration for all T, by kernel
+    ``mean_field_step`` where :func:`_fused_step` says so (an M as the pair
+    (M, 1), which leaves its products and roundings as they were) and else
+    by :func:`_mean_field_loop`; or B3's message (:func:`_i8_message`). The
+    prologue stays outside ``crf.mean_field``."""
     c, n, t, L = probs.shape
     ns = _spatial_norm(taps, h, w)
     unary, q = _prologue(probs)
     with span("crf.mean_field"):
         if not _fused_step(bilateral):
-            message = bilateral if callable(bilateral) else _matrix_message(bilateral)
-            return _mean_field_loop(message, q, unary, ns, taps, w2, h, w, iters)
+            return _mean_field_loop(_message(bilateral), q, unary, ns, taps, w2, h, w, iters)
+        if not isinstance(bilateral, BilateralPair):
+            bilateral = BilateralPair(bilateral, torch.ones((c, n), device=bilateral.device))
         out = mean_field_steps(bilateral, q.reshape(c, n, t * L), unary.reshape(c, n, t * L),
                                ns, taps, w2, h=h, w=w, classes=L, iters=iters)
         return out.view(c, n, t, L)
@@ -310,8 +340,10 @@ def _plan(build: str, second: torch.Tensor, compute_dtype: str) -> _Plan:
     * ``int8``: B3 + B4 on one mask set or on probabilities, its K at one
       byte an entry; many mask sets take B2 in bf16 (the lane-packed
       product wants a plain M operand);
-    * ``pallas`` (B2) and ``xla``: M in ``compute_dtype``, ``auto`` being
-      bf16 for B2 and float32 for ``xla``; 2 bytes an entry in bf16, else 4.
+    * ``pallas`` (B2: K and its normalizers g) and ``xla`` (M): the matrix
+      in ``compute_dtype``, ``auto`` being bf16 for B2 and float32 for
+      ``xla``; 2 bytes an entry in bf16, else 4 (g's 4 bytes a pixel are
+      left out).
     """
     npix = second.shape[1]
     probs = second.is_floating_point()

@@ -1,11 +1,14 @@
-"""Kernel B2: the device CRF's normalized bilateral message matrix.
+"""Kernel B2: the device CRF's bilateral kernel and its normalizers.
 
 Counterpart of critic_vae_tpu/crf/fused_build.py::build_bilateral. Per frame
 of N = H*W pixels, with features (x, y)/alpha and rgb/beta:
 
     K[i,j] = exp(-1/2 |dxy|^2 - 1/2 |drgb|^2) for i != j, exactly 0 on i == j
-    n_i    = sqrt(w1) * rsqrt(sum_j K[i,j] + 1e-20)
-    M[i,j] = (n_i * n_j) * K[i,j]
+    g_i    = sqrt(w1) * rsqrt(sum_j K[i,j] + 1e-20)
+
+The JAX package stores the normalized M[i,j] = (g_i * g_j) * K[i,j]; B2
+stores K and g (:class:`BilateralPair`), and the mean field applies g to its
+vector, M @ q = g * (K @ (g * q)), so that K's store need not wait for g.
 
 The CUDA kernel is ``csrc/bilateral_build.cu``;
 :func:`build_bilateral_reference` is its plain version. Both take the
@@ -16,9 +19,9 @@ the exponent and is not what either version computes.
 
 K computed so is bitwise symmetric, and the kernel exploits it: the
 symmetric-tile build (``csrc/bilateral_tile.cuh``, shared with B5) computes
-each distinct entry once for M[I, J] and M[J, I] of a pair of ``TILE``-pixel
-tiles, and takes the row sums as per-tile partials in ``row_sum_slots(N)``
-fixed slots, summed in slot order.
+each distinct entry once for K[I, J] and K[J, I] of a pair of ``TILE``-pixel
+tiles, in the same pass adds it into per-tile row partials in
+``row_sum_slots(N)`` fixed slots, and sums those in slot order into g.
 
 The int8 build (``build="int8"``) has two more kernels on the same K:
 
@@ -33,6 +36,8 @@ The int8 build (``build="int8"``) has two more kernels on the same K:
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from critic_vae_tpu_torch.crf.terms import _EPS_NORM, _coords
@@ -42,7 +47,8 @@ from critic_vae_tpu_torch.utils.profiling import span
 OUT_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 MAX_LAUNCH_FRAMES = 65535  # the kernels put frames on a grid's y or z axis
 TILE = 64  # pixels a side of the symmetric build's tiles (csrc/bilateral_tile.cuh)
-B2_PLANES = 6  # per-pixel planes of B2's and B3's builds: x, y, r, g, b, nb (B3 leaves nb)
+B2_PLANES = 6  # per-pixel planes of B2's and B3's builds: x, y, r, g, b and nb's slot,
+               # which both leave unused (B2 writes its g apart)
 
 
 def _f32(v, device) -> torch.Tensor:
@@ -96,18 +102,28 @@ def bilateral_k(imgs_u8: torch.Tensor, alpha, beta, *, h: int, w: int,
         yield ci, k
 
 
+class BilateralPair(NamedTuple):
+    """B2's bilateral term: the normalized M is ``g[:, :, None] * g[:, None,
+    :] * k``, and its message ``g * (k @ (g * q))``."""
+
+    k: torch.Tensor  # (C, N, N) unnormalized kernel in B2's out_dtype, diagonal 0
+    g: torch.Tensor  # (C, N) float32: sqrt(w1) * rsqrt(sum_j k[:, i, j] + 1e-20)
+
+
 def build_bilateral_reference(imgs_u8: torch.Tensor, w1, alpha, beta, *, h: int,
                               w: int, out_dtype: str = "bfloat16",
-                              row_block: int = 512) -> torch.Tensor:
-    """Plain PyTorch version: (C, N, 3) uint8 -> (C, N, N) M in ``out_dtype``."""
+                              row_block: int = 512) -> BilateralPair:
+    """Plain PyTorch version: (C, N, 3) uint8 -> the pair of the (C, N, N) K
+    in ``out_dtype`` and the (C, N) float32 g."""
     c, n, _ = imgs_u8.shape
     dev = imgs_u8.device
     sqrt_w1 = torch.sqrt(_f32(w1, dev))
     out = torch.empty((c, n, n), dtype=OUT_DTYPES[out_dtype], device=dev)
+    g = torch.empty((c, n), dtype=torch.float32, device=dev)
     for ci, k in bilateral_k(imgs_u8, alpha, beta, h=h, w=w, row_block=row_block):
-        nvec = sqrt_w1 * torch.rsqrt(k.sum(dim=1) + _EPS_NORM)
-        out[ci] = ((nvec[:, None] * nvec[None, :]) * k).to(out.dtype)
-    return out
+        g[ci] = sqrt_w1 * torch.rsqrt(k.sum(dim=1) + _EPS_NORM)
+        out[ci] = k.to(out.dtype)
+    return BilateralPair(out, g)
 
 
 def _check_frames(name: str, imgs_u8: torch.Tensor, h: int, w: int) -> None:
@@ -126,9 +142,10 @@ def _check_frames(name: str, imgs_u8: torch.Tensor, h: int, w: int) -> None:
 
 
 def build_bilateral(imgs_u8: torch.Tensor, w1, alpha, beta, *, h: int, w: int,
-                    out_dtype: str = "bfloat16") -> torch.Tensor:
-    """(C, N, 3) uint8 frames -> (C, N, N) normalized bilateral matrices M,
-    diag(M) = 0, stored in ``out_dtype`` ("bfloat16" or "float32").
+                    out_dtype: str = "bfloat16") -> BilateralPair:
+    """(C, N, 3) uint8 frames -> the :class:`BilateralPair` of the (C, N, N)
+    unnormalized bilateral kernels K, diag(K) = 0, stored in ``out_dtype``
+    ("bfloat16" or "float32"), and their (C, N) float32 normalizers g.
 
     CUDA tensors launch kernel B2 (or raise); CPU tensors take the plain
     version."""
@@ -143,15 +160,16 @@ def build_bilateral(imgs_u8: torch.Tensor, w1, alpha, beta, *, h: int, w: int,
     dev = imgs_u8.device
     feat, part = build_scratch(c, n, B2_PLANES, dev)
     out = torch.empty((c, n, n), dtype=OUT_DTYPES[out_dtype], device=dev)
+    g = torch.empty((c, n), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev), span("bilateral_build"):
         status = lib.cvt_bilateral_build(
             imgs_u8.data_ptr(), c, n, w, float(w1), float(alpha), float(beta),
-            feat.data_ptr(), part.data_ptr(), out.data_ptr(), int(out_dtype == "bfloat16"),
-            torch.cuda.current_stream().cuda_stream,
+            feat.data_ptr(), part.data_ptr(), out.data_ptr(), g.data_ptr(),
+            int(out_dtype == "bfloat16"), torch.cuda.current_stream().cuda_stream,
         )
     kb.check(status, "bilateral_build")
     kb.LAUNCHES["bilateral_build"] += 1
-    return out
+    return BilateralPair(out, g)
 
 
 QUANT_SCALE = 127.0  # int8 fixed scale for k in [0, 1), as the JAX package

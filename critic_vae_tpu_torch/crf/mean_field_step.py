@@ -1,20 +1,22 @@
 """Kernel ``mean_field_step``: one iteration of the device CRF's mean field
-on a bf16 bilateral matrix in one launch.
+on a bf16 bilateral kernel in one launch.
 
 The device CRF's one chunk body (``crf/device.py::_chunk_marginals``)
-runs its iterations here whenever its plan builds a bf16 M on the card with
-N % 8 == 0 (B2's, or the ``xla`` build's in bf16), whatever the entry point
-or the lanes. Per frame of N = h*w pixels, with q's P = T*L lanes (T sets
-of L classes):
+runs its iterations here whenever its plan builds a bf16 bilateral term on
+the card with N % 8 == 0 (B2's pair of K and g, or the ``xla`` build's
+normalized M in bf16, which runs as the pair (M, 1)), whatever the entry
+point or the lanes. Per frame of N = h*w pixels, with q's P = T*L lanes (T
+sets of L classes):
 
     y  = n_s * q
-    z  = M @ bf16(q) + w2 * n_s * (sepconv(y) - y) - U
+    z  = g * (K @ bf16(g * q)) + w2 * n_s * (sepconv(y) - y) - U
     q' = softmax(z) over each group of L lanes
 
-which is ``_matrix_message(M)(q) + w2 * _spatial_message(q, ...)``, less the
-unaries, through the softmax: the same bf16 M and bf16 q in the product,
-the separable conv of the taps along H and then W with zero outside the
-frame, in float32 (the composition runs cuDNN's TF32 on the card).
+which is the message of the pair (``crf/device.py::_pair_message``) + w2 *
+``_spatial_message(q, ...)``, less the unaries, through the softmax: the
+same bf16 K and bf16 g q in the product, the separable conv of the taps
+along H and then W with zero outside the frame, in float32 (the composition
+runs cuDNN's TF32 on the card).
 
 The CUDA kernel is ``csrc/mean_field_step.cu``;
 :func:`mean_field_step_reference` is the plain version of one launch, lane
@@ -31,7 +33,7 @@ from typing import List, Tuple
 
 import torch
 
-from critic_vae_tpu_torch.crf.fused_build import MAX_LAUNCH_FRAMES
+from critic_vae_tpu_torch.crf.fused_build import MAX_LAUNCH_FRAMES, BilateralPair
 from critic_vae_tpu_torch.kernels import build as kb
 
 # A softmax group lies in one block's 64 lanes (csrc/mean_field_step.cu).
@@ -104,46 +106,53 @@ def spatial_message(y: torch.Tensor, ns: torch.Tensor, taps: torch.Tensor, *, h:
     return out
 
 
-def mean_field_step_reference(mb: torch.Tensor, q: torch.Tensor, unary: torch.Tensor,
+def mean_field_step_reference(pair: BilateralPair, q: torch.Tensor, unary: torch.Tensor,
                               ns: torch.Tensor, taps: torch.Tensor, w2, *, h: int, w: int,
                               classes: int) -> torch.Tensor:
-    """Plain version of one launch: (C, N, N) M, (C, N, P) float32 q and
-    unaries, the (N, 1) n_s and the taps -> the (C, N, P) float32 q of the
-    next iteration."""
+    """Plain version of one launch: the pair of the (C, N, N) K and the (C,
+    N) g, (C, N, P) float32 q and unaries, the (N, 1) n_s and the taps ->
+    the (C, N, P) float32 q of the next iteration."""
     c, n, p = q.shape
     y = (ns.reshape(1, n, 1) * q).transpose(1, 2)
     sp = spatial_message_reference(y, ns, taps, h, w).transpose(1, 2)
-    m, qb = mb.float(), q.to(torch.bfloat16).float()
+    g = pair.g.float().reshape(c, n, 1)
+    k, qb = pair.k.float(), (g * q).to(torch.bfloat16).float()
     out = torch.empty_like(q)
     for l0, l1 in lane_groups(p, classes):
-        z = torch.bmm(m, qb[..., l0:l1]) + w2 * sp[..., l0:l1] - unary[..., l0:l1]
+        z = g * torch.bmm(k, qb[..., l0:l1]) + w2 * sp[..., l0:l1] - unary[..., l0:l1]
         out[..., l0:l1] = torch.softmax(z.unflatten(-1, (-1, classes)), dim=-1).flatten(-2)
     return out
 
 
-def _check(mb, q, unary, ns, h, w, classes):
+def _check(pair, q, unary, ns, h, w, classes):
     c, n, p = q.shape
-    if mb.dim() != 3 or tuple(mb.shape) != (c, n, n) or n != h * w:
-        raise ValueError(f"mean_field_step: want a (C={c}, N={n}, N) M of {h}x{w} frames, got "
-                         f"{tuple(mb.shape)}")
+    k, g = pair
+    if k.dim() != 3 or tuple(k.shape) != (c, n, n) or n != h * w:
+        raise ValueError(f"mean_field_step: want a (C={c}, N={n}, N) K of {h}x{w} frames, got "
+                         f"{tuple(k.shape)}")
+    if tuple(g.shape) != (c, n):
+        raise ValueError(f"mean_field_step: want (C={c}, N={n}) normalizers g, got "
+                         f"{tuple(g.shape)}")
     if tuple(unary.shape) != (c, n, p) or ns.numel() != n:
         raise ValueError(f"mean_field_step: unary {tuple(unary.shape)} or n_s "
                          f"{tuple(ns.shape)} does not match q {tuple(q.shape)}")
     if not 0 < classes <= MAX_CLASSES or p % classes:
         raise ValueError(f"mean_field_step: {p} lanes are no whole groups of 1 to "
                          f"{MAX_CLASSES} classes, got {classes}")
-    if any(t.device != mb.device for t in (q, unary, ns)):
-        raise ValueError(f"mean_field_step: M on {mb.device}, q on {q.device}, unary on "
-                         f"{unary.device}, n_s on {ns.device}")
+    if any(t.device != k.device for t in (g, q, unary, ns)):
+        raise ValueError(f"mean_field_step: K on {k.device}, g on {g.device}, q on {q.device}, "
+                         f"unary on {unary.device}, n_s on {ns.device}")
 
 
-def mean_field_steps(mb: torch.Tensor, q: torch.Tensor, unary: torch.Tensor, ns: torch.Tensor,
-                     taps: torch.Tensor, w2, *, h: int, w: int, classes: int,
+def mean_field_steps(pair: BilateralPair, q: torch.Tensor, unary: torch.Tensor,
+                     ns: torch.Tensor, taps: torch.Tensor, w2, *, h: int, w: int, classes: int,
                      iters: int) -> torch.Tensor:
     """``iters`` mean-field iterations from q.
 
     Args:
-      mb: (C, N, N) bilateral matrices.
+      pair: the (C, N, N) bilateral kernels K and their (C, N) float32
+        normalizers g (B2's :class:`BilateralPair`; a normalized M runs as
+        the pair (M, 1)).
       q: (C, N, P) float32, the first iteration's q.
       unary: (C, N, P) float32 unaries.
       ns: the (N, 1) spatial normalizer of ``taps`` (terms.py::_spatial_norm).
@@ -151,25 +160,27 @@ def mean_field_steps(mb: torch.Tensor, q: torch.Tensor, unary: torch.Tensor, ns:
 
     Returns the (C, N, P) float32 marginals. CUDA tensors launch kernel
     ``spatial_message`` and then the step once an iteration (a contiguous
-    bf16 M with N % 8 == 0 and C <= 65535), or raise; CPU tensors take the
+    bf16 K with N % 8 == 0 and C <= 65535), or raise; CPU tensors take the
     plain version."""
-    _check(mb, q, unary, ns, h, w, classes)
+    _check(pair, q, unary, ns, h, w, classes)
     if iters < 0:
         raise ValueError(f"mean_field_step: iters={iters} < 0")
-    if not mb.is_cuda:
+    k = pair.k
+    if not k.is_cuda:
         for _ in range(iters):
-            q = mean_field_step_reference(mb, q, unary, ns, taps, w2, h=h, w=w,
+            q = mean_field_step_reference(pair, q, unary, ns, taps, w2, h=h, w=w,
                                           classes=classes)
         return q
     c, n, p = q.shape
-    if mb.dtype != torch.bfloat16 or not mb.is_contiguous():
-        raise ValueError(f"mean_field_step: M must be contiguous bf16, got {mb.dtype}")
+    if k.dtype != torch.bfloat16 or not k.is_contiguous():
+        raise ValueError(f"mean_field_step: K must be contiguous bf16, got {k.dtype}")
     if n % 8 or c > MAX_LAUNCH_FRAMES:
         raise ValueError(f"mean_field_step: N={n} must divide by 8 and C={c} be at most "
                          f"{MAX_LAUNCH_FRAMES} on CUDA")
     if iters == 0:
         return q
-    dev = mb.device
+    dev = k.device
+    g = pair.g.float().contiguous()
     unary = unary.float().contiguous()
     ns_flat = ns.float().reshape(n).contiguous()
     taps = taps.to(dev, torch.float32).contiguous()
@@ -178,7 +189,7 @@ def mean_field_steps(mb: torch.Tensor, q: torch.Tensor, unary: torch.Tensor, ns:
     out = torch.empty((c, n, p), dtype=torch.float32, device=dev)
     sp = torch.empty((c, p, n), dtype=torch.float32, device=dev)
     qt = q.transpose(1, 2)
-    qb[0].copy_(qt)
+    torch.mul(g.reshape(c, 1, n), qt, out=qb[0])  # bf16(g q), as the step writes it
     torch.mul(ns_flat.reshape(1, 1, n), qt, out=y[0])
     lib = kb.library()
     with torch.cuda.device(dev):
@@ -187,9 +198,10 @@ def mean_field_steps(mb: torch.Tensor, q: torch.Tensor, unary: torch.Tensor, ns:
             src, dst = it % 2, 1 - it % 2
             spatial_message(y[src], ns_flat, taps, h=h, w=w, out=sp)
             status = lib.cvt_mean_field_step(
-                mb.data_ptr(), qb[src].data_ptr(), sp.data_ptr(), unary.data_ptr(),
-                ns_flat.data_ptr(), c, n, p, classes, float(w2), int(it == iters - 1),
-                qb[dst].data_ptr(), y[dst].data_ptr(), out.data_ptr(), stream,
+                k.data_ptr(), g.data_ptr(), qb[src].data_ptr(), sp.data_ptr(),
+                unary.data_ptr(), ns_flat.data_ptr(), c, n, p, classes, float(w2),
+                int(it == iters - 1), qb[dst].data_ptr(), y[dst].data_ptr(), out.data_ptr(),
+                stream,
             )
             kb.check(status, "mean_field_step")
             kb.LAUNCHES["mean_field_step"] += 1

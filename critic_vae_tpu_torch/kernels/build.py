@@ -115,7 +115,7 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.cvt_diff_mask.argtypes = [p, i, i, i, p, p, p]
     lib.cvt_diff_mask.restype = i
-    lib.cvt_bilateral_build.argtypes = [p, i, i, i, f, f, f, p, p, p, i, p]
+    lib.cvt_bilateral_build.argtypes = [p, i, i, i, f, f, f, p, p, p, p, i, p]
     lib.cvt_bilateral_build.restype = i
     lib.cvt_kernel_i8_build.argtypes = [p, i, i, i, f, f, p, p, p, p]
     lib.cvt_kernel_i8_build.restype = i
@@ -124,7 +124,7 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.cvt_mean_field_resident.argtypes = [p, p, p, i, i, i, i, f, f, f, f, f, i,
                                             p, p, p, p, p, p, p]
     lib.cvt_mean_field_resident.restype = i
-    lib.cvt_mean_field_step.argtypes = [p, p, p, p, p, i, i, i, i, f, i, p, p, p, p]
+    lib.cvt_mean_field_step.argtypes = [p, p, p, p, p, p, i, i, i, i, f, i, p, p, p, p]
     lib.cvt_mean_field_step.restype = i
     lib.cvt_spatial_message.argtypes = [p, p, p, i, i, i, i, i, p, p]
     lib.cvt_spatial_message.restype = i

@@ -1,6 +1,7 @@
 """The port's device CRF (critic_vae_tpu_torch.crf) against the JAX package:
-kernel B2's plain version against the Pallas build (interpret mode on the
-CPU), and the refinement against both JAX builds. 16x16 frames (N = 256)."""
+kernel B2's plain version (the pair of K and g, M = g g^T K) against the
+Pallas build's normalized M (interpret mode on the CPU), and the refinement
+against both JAX builds. 16x16 frames (N = 256)."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -42,24 +43,35 @@ def _jax_m(imgs, out_dtype):
                       .astype(jnp.float32))
 
 
+def _normalized(pair):
+    """M = g g^T K of B2's pair, in float32."""
+    return pair.g[:, :, None] * pair.g[:, None, :] * pair.k.float()
+
+
 def test_build_plain_matches_pallas_f32(episode):
     imgs = episode[0][:3].reshape(3, H * W, 3)
     want = _jax_m(imgs, "float32")
-    got = build_bilateral(torch.from_numpy(imgs), W1, ALPHA, BETA, h=H, w=W,
-                          out_dtype="float32").numpy()
-    assert got.shape == (3, H * W, H * W) and got.dtype == np.float32
-    assert np.abs(np.diagonal(got, axis1=1, axis2=2)).max() == 0.0
+    pair = build_bilateral(torch.from_numpy(imgs), W1, ALPHA, BETA, h=H, w=W,
+                           out_dtype="float32")
+    assert pair.k.shape == (3, H * W, H * W) and pair.k.dtype == torch.float32
+    assert pair.g.shape == (3, H * W) and pair.g.dtype == torch.float32
+    assert torch.diagonal(pair.k, dim1=1, dim2=2).abs().max().item() == 0.0
+    got = _normalized(pair).numpy()
     sig = np.abs(want) > 1e-3
     assert sig.sum() > 1000
     assert (np.abs(got - want)[sig] / np.abs(want)[sig]).max() <= 1e-5
 
 
 def test_build_plain_bf16_within_one_ulp_of_pallas(episode):
+    """The pair's bf16 K, normalized in float32 and rounded to bf16, within
+    one bf16 ulp of the Pallas build's bf16 M (K's rounding and M's lie on
+    either side of the products)."""
     imgs = episode[0][:3].reshape(3, H * W, 3)
     want = jnp.asarray(_jax_m(imgs, "bfloat16")).astype(jnp.bfloat16)
-    got = build_bilateral(torch.from_numpy(imgs), W1, ALPHA, BETA, h=H, w=W,
-                          out_dtype="bfloat16")
-    assert got.dtype == torch.bfloat16
+    pair = build_bilateral(torch.from_numpy(imgs), W1, ALPHA, BETA, h=H, w=W,
+                           out_dtype="bfloat16")
+    assert pair.k.dtype == torch.bfloat16
+    got = _normalized(pair).to(torch.bfloat16)
     bits_t = got.view(torch.int16).numpy().astype(np.int64)
     bits_j = np.asarray(want).view(np.int16).astype(np.int64)
     assert np.abs(bits_t - bits_j).max() <= 1  # M >= 0: bit distance = ulps
@@ -70,7 +82,7 @@ def test_build_row_blocks_do_not_change_the_result(episode):
     a = build_bilateral_reference(imgs, W1, ALPHA, BETA, h=H, w=W, out_dtype="float32")
     b = build_bilateral_reference(imgs, W1, ALPHA, BETA, h=H, w=W, out_dtype="float32",
                                   row_block=37)
-    assert torch.equal(a, b)
+    assert torch.equal(a.k, b.k) and torch.equal(a.g, b.g)
 
 
 # the reference tuple, and a spatial-heavy one whose smoothing a wrong

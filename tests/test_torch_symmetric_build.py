@@ -1,9 +1,9 @@
 """Premises of the symmetric-tile build that kernels B2, B3 and B5 share
 (csrc/bilateral_tile.cuh), checked on their plain versions on the CPU: K
-and the stored matrices are bitwise symmetric, so one exp serves M[i, j] and
-M[j, i]; row sums taken as 64-column tile partials, summed in slot order
-(B2, B5) or in any order (B3's integers), stand in for the plain row sums;
-and the wrappers' scratch is what their byte counts say. The kernels
+and the stored matrices are bitwise symmetric, so one exp serves [i, j] and
+[j, i]; row sums taken as 64-column tile partials, summed in slot order
+(B2's g, B5) or in any order (B3's integers), stand in for the plain row
+sums; and the wrappers' scratch is what their byte counts say. The kernels
 themselves are held to the same bars on the card by chip_smoke.py (phases
 4, 5 and 7)."""
 
@@ -64,11 +64,11 @@ def test_bilateral_k_is_bitwise_symmetric(h, w):
 @pytest.mark.parametrize("out_dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("h, w", SHAPES)
 def test_plain_b2_matrix_is_bitwise_symmetric(h, w, out_dtype):
-    m = build_bilateral_reference(_frames(2, h, w, 2), W1, ALPHA, BETA, h=h, w=w,
-                                  out_dtype=out_dtype)
-    assert torch.equal(m, m.transpose(1, 2))
-    assert torch.equal(m, build_bilateral(_frames(2, h, w, 2), W1, ALPHA, BETA, h=h, w=w,
-                                          out_dtype=out_dtype))  # CPU: the plain version
+    k, g = build_bilateral_reference(_frames(2, h, w, 2), W1, ALPHA, BETA, h=h, w=w,
+                                     out_dtype=out_dtype)
+    assert torch.equal(k, k.transpose(1, 2))
+    got = build_bilateral(_frames(2, h, w, 2), W1, ALPHA, BETA, h=h, w=w, out_dtype=out_dtype)
+    assert torch.equal(k, got.k) and torch.equal(g, got.g)  # CPU: the plain version
 
 
 @pytest.mark.parametrize("h, w", SHAPES)
@@ -116,8 +116,10 @@ def test_tiled_row_sums_stand_in_for_the_plain_ones(h, w):
         # a row whose every entry underflows sums to 0 both ways
         assert ((tiled - plain).abs() <= 1e-6 * plain).all()
         nb = sqrt_w1 * torch.rsqrt(tiled + _EPS_NORM)
+        assert ((nb - want.g[ci]).abs() <= 1e-6 * want.g[ci]).all()
         m = ((nb[:, None] * nb[None, :]) * k).to(torch.bfloat16)
-        assert _bf16_ulps(m, want[ci]) <= 1
+        want_m = (want.g[ci, :, None] * want.g[ci, None, :] * k).to(torch.bfloat16)
+        assert _bf16_ulps(m, want_m) <= 1
 
 
 @pytest.mark.parametrize("n, planes", [(4096, B2_PLANES), (2500, B2_PLANES), (400, B5_PLANES)])
