@@ -54,8 +54,8 @@ exits non-zero:
    (one mask), 3 (three classes) and 26 (the sweep): one step against its
    plain version (float32 with TF32 off: max abs error <= 1e-4, the bar's
    reason at STEP_ATOL), 10 steps (<= 1e-2), labels >= 99.9% identical to
-   the plain version's and to the library's composition (bmm, cuDNN's TF32
-   conv, softmax), two runs bitwise identical; the device time a launch
+   the plain version's and to the library's composition (bmm, kernel
+   spatial_message's float32 conv, softmax), two runs bitwise identical; the device time a launch
    beside its 0.641 ms bound, torch.bmm of the same K as library_ms, the
    composition's iteration and
    the plain version's time; at P = 26 the 26 lanes bitwise 13 two-lane
@@ -895,7 +895,7 @@ def phase_b5(dev):
 # by a few ulps; the softmax's slope (at most 1/2) carries that to q: 1e-4.
 # Ten steps: a q that float32 rounding moves across a bf16 rounding boundary
 # changes bf16(q) by 2^-8, as in B5's bar: 1e-2; labels >= 99.9% equal to the
-# library's composition (bmm, cuDNN's TF32 conv, softmax), as the bf16 M's
+# library's composition (bmm, spatial_message's conv, softmax), as the bf16 M's
 # own bar against float32.
 STEP_ATOL = 1e-4
 STEP_ATOL_ITERS = 1e-2
@@ -961,7 +961,7 @@ def phase_mean_field_step(dev):
             return mean_field_step_reference(pair, qf, uf, ns, taps, w2, h=H, w=W,
                                              classes=classes)
 
-        def library():  # the composition: bmm, cuDNN's conv in TF32, softmax
+        def library():  # the composition: bmm, spatial_message's float32 conv, softmax
             return _mean_field_loop(_pair_message(pair), q0, unary, ns, taps, w2, H, W, iters)
 
         with no_tf32():

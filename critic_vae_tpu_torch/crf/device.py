@@ -32,7 +32,10 @@ Each decision is taken in one place:
   ``mean_field_step`` (crf/mean_field_step.py) an iteration for a bf16 K or
   M on the card with N % 8 == 0 (each after one of kernel
   ``spatial_message``), else the one loop :func:`_mean_field_loop` with the
-  message as a function of q (:func:`_message`).
+  message as a function of q (:func:`_message`), whose spatial message on
+  the card is kernel ``spatial_message`` too, in float32 (:func:`_spatial`).
+
+:data:`BUILDS` counts the chunks and frames each resolved build refined.
 
 ``refine_masks_multi_device`` refines T mask sets of the same frames
 against one matrix, packed as T*L lanes of Q (the threshold sweep);
@@ -79,7 +82,11 @@ from critic_vae_tpu_torch.crf.fused_resident import (
     mean_field_resident,
     workspace_bytes,
 )
-from critic_vae_tpu_torch.crf.mean_field_step import mean_field_steps
+from critic_vae_tpu_torch.crf.mean_field_step import (
+    mean_field_steps,
+    spatial_message,
+    spatial_message_takes,
+)
 from critic_vae_tpu_torch.crf.terms import (
     _EPS_NORM,
     _coords,
@@ -102,6 +109,17 @@ MEM_ENV = "CRITIC_VAE_TPU_CRF_MEM"
 
 # the JAX package's build override (its crf/device.py _resolve_build)
 BUILD_ENV = "CRITIC_VAE_TPU_CRF_BUILD"
+
+# the chunks and their frames (padding left out) that each build refined
+# since the last reset_builds(), by the build :func:`_plan` settled on, so
+# many mask sets under ``int8`` count as ``pallas``; under a mesh every rank
+# counts each chunk
+BUILDS = {build: {"chunks": 0, "frames": 0} for build in ("xla", "pallas", "int8", "vmem")}
+
+
+def reset_builds() -> None:
+    for counts in BUILDS.values():
+        counts["chunks"] = counts["frames"] = 0
 
 
 def _fma_products(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -181,6 +199,19 @@ def _spatial_message(q: torch.Tensor, ns: torch.Tensor, taps: torch.Tensor, h: i
     return ns * sp
 
 
+def _spatial(q: torch.Tensor, ns: torch.Tensor, taps: torch.Tensor, h: int,
+             w: int) -> torch.Tensor:
+    """:func:`_spatial_message` of the (C, N, P) q: on the card one launch
+    of kernel ``spatial_message`` (float32, where cuDNN's depthwise conv
+    would run in TF32) wherever the kernel takes the shape; CPU tensors and
+    other shapes take :func:`_spatial_message`."""
+    c, _, p = q.shape
+    if q.is_cuda and spatial_message_takes(c, p, w, taps.shape[0] // 2):
+        y = (ns * q).transpose(1, 2).contiguous()
+        return spatial_message(y, ns, taps, h=h, w=w).transpose(1, 2)
+    return _spatial_message(q, ns, taps, h, w)
+
+
 def _matrix_message(mb: torch.Tensor) -> Callable:
     """q -> M @ q with float32 accumulation and output (see the module note)."""
     if mb.dtype == torch.float32:
@@ -247,12 +278,12 @@ def _mean_field_loop(message: Callable, q: torch.Tensor, unary: torch.Tensor,
                      iters: int) -> torch.Tensor:
     """The mean field as the composition of ``message`` (a function of the
     (C, N, P) q: :func:`_matrix_message`, :func:`_pair_message` or
-    :func:`_i8_message`), :func:`_spatial_message` and the softmax: (C, N, T,
-    L) q and unaries -> (C, N, T, L) float32 marginals."""
+    :func:`_i8_message`), the spatial message (:func:`_spatial`) and the
+    softmax: (C, N, T, L) q and unaries -> (C, N, T, L) float32 marginals."""
     c, n, t, L = q.shape
     for _ in range(iters):
         qf = q.reshape(c, n, t * L)
-        msg = message(qf) + w2 * _spatial_message(qf, ns, taps, h, w)
+        msg = message(qf) + w2 * _spatial(qf, ns, taps, h, w)
         q = torch.softmax(msg.view(c, n, t, L) - unary, dim=-1)
     return q
 
@@ -364,6 +395,12 @@ def _plan(build: str, second: torch.Tensor, compute_dtype: str) -> _Plan:
     return _Plan(builder, compute_dtype, entry * npix * npix)
 
 
+def _build_name(plan: _Plan) -> str:
+    """The build that ``plan`` runs, as :data:`BUILDS` counts it."""
+    return {mean_field_resident: "vmem", _i8_message: "int8", build_bilateral_xla: "xla",
+            build_bilateral: "pallas"}[plan.build]
+
+
 def _as_probs(second: torch.Tensor) -> torch.Tensor:
     """A chunk's second operand as (C, N, T, L) probabilities: (C, N, L)
     probabilities as T = 1, (C, N) 0/1 masks as the (1 - m, m) planes of T =
@@ -420,6 +457,7 @@ def _run_chunked(flat_imgs: torch.Tensor, flat_second: torch.Tensor, params, h: 
     frame_chunk = max(1, min(frame_chunk, n, budget // plan.frame_bytes))
     if mesh is not None:
         frame_chunk += (-frame_chunk) % mesh.size
+    counts = BUILDS[_build_name(plan)]
     segs = []
     for i in range(0, n, frame_chunk):
         imgs = flat_imgs[i : i + frame_chunk]
@@ -432,6 +470,8 @@ def _run_chunked(flat_imgs: torch.Tensor, flat_second: torch.Tensor, params, h: 
         if mesh is not None:
             imgs, second = shard_batch(mesh, imgs), shard_batch(mesh, second)
         seg = _chunk_marginals(plan, imgs.contiguous(), _as_probs(second), taps, params, h, w)
+        counts["chunks"] += 1
+        counts["frames"] += valid
         if not soft:
             seg = _labels(seg)
         if mesh is not None:

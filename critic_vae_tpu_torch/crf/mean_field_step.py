@@ -15,8 +15,8 @@ sets of L classes):
 which is the message of the pair (``crf/device.py::_pair_message``) + w2 *
 ``_spatial_message(q, ...)``, less the unaries, through the softmax: the
 same bf16 K and bf16 g q in the product, the separable conv of the taps
-along H and then W with zero outside the frame, in float32 (the composition
-runs cuDNN's TF32 on the card).
+along H and then W with zero outside the frame, in float32 (as the
+composition takes it on the card, from kernel ``spatial_message`` too).
 
 The CUDA kernel is ``csrc/mean_field_step.cu``;
 :func:`mean_field_step_reference` is the plain version of one launch, lane
@@ -38,6 +38,8 @@ from critic_vae_tpu_torch.kernels import build as kb
 
 # A softmax group lies in one block's 64 lanes (csrc/mean_field_step.cu).
 MAX_CLASSES = 64
+# csrc/spatial_message.cu's limit on a row of its column and row sums
+_SPATIAL_SMEM_BYTES = 232448
 
 
 def lane_groups(lanes: int, classes: int) -> List[Tuple[int, int]]:
@@ -70,6 +72,17 @@ def spatial_message_reference(y: torch.Tensor, ns: torch.Tensor, taps: torch.Ten
     img = y.reshape(c, p, h, w)
     conv = _tap_sum(_tap_sum(img, taps.float(), 2), taps.float(), 3).reshape(c, p, n)
     return ns.reshape(1, 1, n) * (conv - y)
+
+
+def spatial_message_takes(frames: int, lanes: int, w: int, radius: int) -> bool:
+    """Whether kernel ``spatial_message`` takes ``frames`` frames of
+    ``lanes`` lanes, ``w`` pixels wide, with taps of ``radius``: its grid's
+    limits, and a row of its column sums (w rounded up to 16, the taps'
+    reach in groups of 8, odd) with its row of row sums (w, odd) in a
+    block's shared memory, as its C entry checks."""
+    cols = (-(-w // 16) * 16 + 8 * ((2 * radius + 8) // 8) - 1) | 1
+    return (frames <= MAX_LAUNCH_FRAMES and lanes <= MAX_LAUNCH_FRAMES
+            and 4 * (cols + (w | 1)) <= _SPATIAL_SMEM_BYTES)
 
 
 def spatial_message(y: torch.Tensor, ns: torch.Tensor, taps: torch.Tensor, *, h: int, w: int,

@@ -13,7 +13,9 @@ seeded 64-frame chunk, one 26-lane call bitwise 13 two-lane calls, for one
 iteration and ten, reproducible, the digests of those marginals, and the
 marginals within a stated bar of the float32 composition over the
 normalized M; kernel ``spatial_message`` against its plain version at the
-cell's frames, at small, wide and edge-clamped ones. The card's machine has
+cell's frames, at small, wide and edge-clamped ones; the loop's spatial
+message from that kernel, in float32, over B3 + B4's message and the
+``xla`` build's M. The card's machine has
 no JAX, so the file runs there without tests/conftest.py:
 
     python -m pytest --noconftest tests/test_torch_mean_field_step.py -m card
@@ -48,6 +50,7 @@ from critic_vae_tpu_torch.crf.mean_field_step import (
     mean_field_steps,
     spatial_message,
     spatial_message_reference,
+    spatial_message_takes,
 )
 from critic_vae_tpu_torch.crf.terms import _prologue, _spatial_norm, _spatial_taps
 from critic_vae_tpu_torch.data.synthetic import generate_frames
@@ -262,6 +265,32 @@ def test_spatial_message_on_the_cpu_is_its_plain_version():
         spatial_message(y, ns, taps, h=h, w=16)
 
 
+@pytest.mark.parametrize("frames, lanes, w, radius, takes", [
+    (64, 26, 64, 15, True),      # the cells' chunks
+    (3, 2, 5376, 15, True),      # the card test's wide frame: bands of 5 rows
+    (1, 2, 30000, 15, False),    # a row of column and row sums past a block's shared memory
+    (65536, 2, 64, 15, False),   # frames past the grid's z axis
+    (1, 65536, 64, 15, False),   # lanes past its y axis
+])
+def test_spatial_message_takes_the_shapes_its_entry_checks(frames, lanes, w, radius, takes):
+    """``spatial_message_takes``, which decides where the loop's spatial
+    message leaves cuDNN's conv for the kernel, says what the C entry of
+    csrc/spatial_message.cu accepts."""
+    assert spatial_message_takes(frames, lanes, w, radius) is takes
+
+
+def test_loop_spatial_message_on_the_cpu_is_the_compositions():
+    """CPU tensors keep the composition's conv in the loop, so its numbers
+    are those it gave before the card's took the kernel."""
+    h, w = 16, 32
+    taps = torch.from_numpy(_spatial_taps(GAMMA, h, w))
+    ns = _spatial_norm(taps, h, w)
+    q = torch.rand((C, h * w, 6), generator=torch.Generator().manual_seed(4))
+    kb.reset_launches()
+    assert torch.equal(crf_device._spatial(q, ns, taps, h, w), _spatial_message(q, ns, taps, h, w))
+    assert kb.LAUNCHES["spatial_message"] == 0
+
+
 # --- on the card
 
 
@@ -373,3 +402,39 @@ def test_spatial_kernel_is_its_plain_version(card, h, w, lanes, gamma):
     torch.testing.assert_close(got, spatial_message_reference(y, ns, taps, h, w), rtol=0.0,
                                atol=STEP_ATOL)
     assert torch.equal(got, spatial_message(y, ns, taps, h=h, w=w))
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("term, size", [("int8", 64), ("float32", 64), ("ragged", 18)])
+def test_loop_takes_the_float32_spatial_kernel_on_the_card(card, term, size, monkeypatch):
+    """``_mean_field_loop`` on the card, over B3 + B4's message, the ``xla``
+    build's float32 M and its bf16 M at N = 324 (N % 8 != 0, no fused
+    step): its spatial message comes from kernel ``spatial_message``, one
+    launch an iteration, and its marginals hold the plain composition in
+    float32 (cuDNN's depthwise conv with TF32 off) to ITERS * STEP_ATOL, the
+    spatial sums in two orders a few float32 roundings apart an iteration,
+    as ten plain steps hold the composition on the CPU. A TF32 conv (~5e-4
+    of each of s's terms) would miss it by an order of magnitude."""
+    frames, gt = generate_frames(8, size=size, seed=size + len(term))
+    n = size * size
+    imgs = torch.from_numpy(frames.reshape(8, n, 3)).to(card)
+    if term == "int8":
+        message = crf_device._i8_message(imgs, W1, ALPHA, BETA, h=size, w=size)
+    else:
+        m = crf_device.build_bilateral_xla(imgs, W1, ALPHA, BETA, h=size, w=size,
+                                           out_dtype="float32" if term == "float32"
+                                           else "bfloat16")
+        message = _matrix_message(m)
+    rng = np.random.default_rng(size)
+    noisy = torch.from_numpy((gt ^ (rng.random(gt.shape) < 0.1)).reshape(8, n, 1, 1)).to(card)
+    unary, q = _prologue(torch.cat([1.0 - noisy.float(), noisy.float()], -1).clamp(0.05, 0.95))
+    taps = torch.from_numpy(_spatial_taps(GAMMA, size, size)).to(card)
+    ns = _spatial_norm(taps, size, size)
+    kb.reset_launches()
+    got = _mean_field_loop(message, q, unary, ns, taps, W2, size, size, ITERS)
+    torch.cuda.synchronize()
+    assert kb.LAUNCHES["spatial_message"] == ITERS
+    monkeypatch.setattr(crf_device, "_spatial", _spatial_message)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    want = _mean_field_loop(message, q, unary, ns, taps, W2, size, size, ITERS)
+    assert (got - want).abs().max().item() <= ITERS * STEP_ATOL
